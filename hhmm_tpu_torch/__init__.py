@@ -7,10 +7,13 @@ JAX package so each counterpart is easy to find:
 
 - ``core``     log-space math and constraint bijectors
 - ``robust``   per-lane chain-health guards
-- ``kernels``  plain scans, the FFBS entries, and the hand-written CUDA
-  kernels (``kernels/csrc``) with their plain PyTorch versions
-- ``models``   the parameter contract and the Tayal (2009) HHMM
-- ``infer``    batch-native blocked Gibbs and MCMC diagnostics
+- ``kernels``  plain scans, the FFBS, value-and-grad and trajectory
+  entries, and the hand-written CUDA kernels (``kernels/csrc``) with
+  their plain PyTorch versions
+- ``models``   the parameter contract (with the fused ``make_vg``) and
+  the Tayal (2009) HHMM
+- ``infer``    batch-native blocked Gibbs, ChEES-HMC with its warmup
+  adaptation, and MCMC diagnostics
 - ``sim``      simulators on ``torch.Generator`` streams
 - ``batch``    per-series chain inits
 - ``convert``  carries the JAX package's draws and parameters across

@@ -23,7 +23,7 @@ from typing import Dict, Iterable, Optional, Sequence
 
 import torch
 
-__all__ = ["CudaKernel", "build", "NVCC_FLAGS", "BUILD_DIR", "CSRC_DIR"]
+__all__ = ["CudaKernel", "build", "build_and_load", "NVCC_FLAGS", "BUILD_DIR", "CSRC_DIR"]
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -134,3 +134,13 @@ class CudaKernel:
         if rc != 0:
             raise RuntimeError(f"{self.name}: kernel launch failed (code {rc})")
         self.launches += 1
+
+
+def build_and_load(kernels: Sequence[CudaKernel]) -> Dict[str, dict]:
+    """Build the sources of ``kernels`` now, all in parallel, and bind
+    each kernel (otherwise each builds at its first CUDA call). Returns
+    :func:`build`'s report."""
+    report = build([k.source for k in kernels])
+    for k in kernels:
+        k.load()
+    return report

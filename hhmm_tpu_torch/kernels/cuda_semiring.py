@@ -1,25 +1,29 @@
-"""The FFBS kernels for Hopper (counterpart of
-``hhmm_tpu/kernels/pallas_semiring.py``'s FFBS pair) and their plain
-PyTorch versions.
+"""The semiring kernels for Hopper (counterpart of
+``hhmm_tpu/kernels/pallas_semiring.py``'s FFBS and value-and-grad
+kernels) and their plain PyTorch versions.
 
-Two CUDA kernels (sources in ``kernels/csrc``):
+Three CUDA kernels (sources in ``kernels/csrc``):
 
 - ``FWD`` (``ffbs_fwd.cu``) replaces ``_fwd_kernel``: the clamped forward
   filter, optionally sign-gated, that writes every step's alpha to a
   residual and returns ``ll = lse0(alpha_last)``;
 - ``BWD_SAMPLE`` (``ffbs_bwd_sample.cu``) replaces ``_bwd_sample_kernel``:
-  inverse-CDF backward sampling against pre-drawn uniforms.
+  inverse-CDF backward sampling against pre-drawn uniforms;
+- ``VG_BWD`` (``vg_bwd.cu``) replaces ``_bwd_kernel``: the clamped
+  backward recursion with the Baum-Welch gradients ``(d_pi, d_A,
+  d_obs)`` of the forward log-likelihood.
 
-Both work on the batch-minor lane layout (``[T, K, N]`` residual, lane
+All work on the batch-minor lane layout (``[T, K, N]`` residual, lane
 fastest); :func:`to_lanes` makes it from the JAX package's ``[N, T, K]``
-layout, which the public entries :func:`semiring_ffbs` and
-:func:`forward_chunked` keep.
+layout, which the public entries :func:`semiring_ffbs`,
+:func:`semiring_vg` and :func:`forward_chunked` keep.
 
 Routing is by the tensors' device and nothing else: a CPU tensor runs
-the plain version (:func:`fwd_plain`, :func:`bwd_sample_plain` — Python
-loops over t with the kernels' exact arithmetic), a CUDA tensor launches
-the kernel or raises. There is no fallback from a kernel to its plain
-version. ``kernel.launches`` counts each kernel's launches.
+the plain version (:func:`fwd_plain`, :func:`bwd_sample_plain`,
+:func:`vg_bwd_plain` — Python loops over t with the kernels' exact
+arithmetic), a CUDA tensor launches the kernel or raises. There is no
+fallback from a kernel to its plain version. ``kernel.launches`` counts
+each kernel's launches.
 """
 
 from __future__ import annotations
@@ -29,21 +33,25 @@ from typing import Optional, Tuple
 
 import torch
 
-from hhmm_tpu_torch.kernels.cuda_build import CudaKernel
+from hhmm_tpu_torch.kernels.cuda_build import CudaKernel, build_and_load
 
 __all__ = [
     "FWD",
     "BWD_SAMPLE",
+    "VG_BWD",
     "KERNELS",
     "build_kernels",
     "reset_launches",
     "to_lanes",
     "fwd_lanes",
     "bwd_sample_lanes",
+    "vg_bwd_lanes",
     "fwd_plain",
     "bwd_sample_plain",
+    "vg_bwd_plain",
     "forward_chunked",
     "semiring_ffbs",
+    "semiring_vg",
 ]
 
 _CLAMP = -1.0e30
@@ -67,18 +75,21 @@ BWD_SAMPLE = CudaKernel(
     [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "hhmm_tpu/kernels/pallas_semiring.py:584",
 )
-KERNELS = (FWD, BWD_SAMPLE)
+VG_BWD = CudaKernel(
+    "vg_bwd",
+    "vg_bwd.cu",
+    "hhmm_vg_bwd",
+    # K, gated, A, obs, mask, alpha, ll, gate, sk, d_pi, d_A, d_obs, T, N, stream
+    [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "hhmm_tpu/kernels/pallas_semiring.py:435",
+)
+KERNELS = (FWD, BWD_SAMPLE, VG_BWD)
 
 
 def build_kernels() -> dict:
     """Build every kernel of this module now, all sources in parallel
     (otherwise each builds at its first CUDA call)."""
-    from hhmm_tpu_torch.kernels.cuda_build import build
-
-    report = build([k.source for k in KERNELS])
-    for k in KERNELS:
-        k.load()
-    return report
+    return build_and_load(KERNELS)
 
 
 def reset_launches() -> None:
@@ -150,6 +161,7 @@ def _check_lane_shapes(T: int, K: int, N: int, **named) -> None:
     want = {
         "pi": (K, N), "A": (K, K, N), "obs": (T, K, N), "alpha": (T, K, N),
         "mask": (T, N), "u": (T, N), "gate": (T, N), "sk": (K, N),
+        "ll": (N,),
     }
     for name, t in named.items():
         if t is not None and tuple(t.shape) != want[name]:
@@ -188,6 +200,17 @@ def _lse0(x: torch.Tensor) -> torch.Tensor:
     s = e[0]
     for k in range(1, x.shape[0]):
         s = s + e[k]
+    return m + torch.log(s)
+
+
+def _lse1(x: torch.Tensor) -> torch.Tensor:
+    """Clamped logsumexp over axis 1 of ``[K, K, N]``
+    (`pallas_semiring._lse1`), exponentials summed in index order."""
+    m = x.amax(1).clamp_min(_CLAMP)
+    e = torch.exp(x - m[:, None])
+    s = e[:, 0]
+    for j in range(1, x.shape[1]):
+        s = s + e[:, j]
     return m + torch.log(s)
 
 
@@ -239,6 +262,32 @@ def bwd_sample_plain(A_t, mask_t, alpha_t, u_t, gate_t=None, sk_t=None):
         zn = _invcdf(logits, u_t[t])
         z[t] = zn
     return z
+
+
+def vg_bwd_plain(A_t, obs_t, mask_t, alpha_t, ll, gate_t=None, sk_t=None):
+    """Plain version of the ``VG_BWD`` kernel on the lane layout:
+    ``(d_pi [K, N], d_A [K, K, N], d_obs [T, K, N])`` from the forward
+    pass's ``alpha [T, K, N]`` and ``ll [N]``."""
+    T, K, N = obs_t.shape
+    beta = torch.zeros((K, N), dtype=obs_t.dtype, device=obs_t.device)
+    dA = torch.zeros((K, K, N), dtype=obs_t.dtype, device=obs_t.device)
+    d_obs = torch.empty_like(obs_t)
+    for t in range(T - 1, 0, -1):
+        m01 = (mask_t[t] > 0).to(obs_t.dtype)
+        d_obs[t] = torch.exp(alpha_t[t] + beta - ll) * m01
+        e = obs_t[t] + beta  # [K(j), N]
+        Ag = A_t
+        if gate_t is not None:
+            c = (gate_t[t] == sk_t).to(A_t.dtype)  # [K(j), N]
+            Ag = A_t * c[None]
+        xi = torch.exp(alpha_t[t - 1][:, None, :] + Ag + e[None] - ll)
+        if gate_t is not None:
+            xi = xi * c[None]
+        dA = dA + xi * m01
+        beta = torch.where(mask_t[t] > 0, _lse1(Ag + e[None]), beta)
+    gamma0 = torch.exp(alpha_t[0] + beta - ll)
+    d_obs[0] = gamma0 * (mask_t[0] > 0).to(obs_t.dtype)
+    return gamma0, dA, d_obs
 
 
 # ---------------------------------------------------------------------------
@@ -294,6 +343,35 @@ def bwd_sample_lanes(A_t, mask_t, alpha_t, u_t, gate_t=None, sk_t=None):
     return z
 
 
+def vg_bwd_lanes(A_t, obs_t, mask_t, alpha_t, ll, gate_t=None, sk_t=None):
+    """Value-and-grad pass 2 on the lane layout: ``(d_pi [K, N], d_A [K,
+    K, N], d_obs [T, K, N])``. CPU tensors run :func:`vg_bwd_plain`;
+    CUDA tensors launch ``VG_BWD``."""
+    dev = _check_same_device(A_t, obs_t, mask_t, alpha_t, ll, gate_t, sk_t)
+    T, K, N = obs_t.shape
+    _check_lane_shapes(
+        T, K, N, A=A_t, obs=obs_t, mask=mask_t, alpha=alpha_t, ll=ll, gate=gate_t, sk=sk_t
+    )
+    if dev.type == "cpu":
+        return vg_bwd_plain(A_t, obs_t, mask_t, alpha_t, ll, gate_t, sk_t)
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    _check_cuda_operands(K, A_t, obs_t, mask_t, alpha_t, ll, gate_t, sk_t)
+    VG_BWD.load()
+    f32 = dict(dtype=torch.float32, device=dev)
+    d_pi = torch.empty((K, N), **f32)
+    d_A = torch.empty((K, K, N), **f32)
+    d_obs = torch.empty((T, K, N), **f32)
+    with torch.cuda.device(dev):
+        VG_BWD.launch(
+            K, int(gate_t is not None),
+            _ptr(A_t), _ptr(obs_t), _ptr(mask_t), _ptr(alpha_t), _ptr(ll),
+            _ptr(gate_t), _ptr(sk_t), _ptr(d_pi), _ptr(d_A), _ptr(d_obs), T, N,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    return d_pi, d_A, d_obs
+
+
 # ---------------------------------------------------------------------------
 # public entries (JAX layout)
 # ---------------------------------------------------------------------------
@@ -344,3 +422,25 @@ def semiring_ffbs(
     steps = torch.arange(T, device=z.device)
     z = torch.where(steps[None, :] <= t_last[:, None], z, last)
     return z, ll
+
+
+def semiring_vg(
+    log_pi: torch.Tensor,  # [N, K]
+    log_A: torch.Tensor,  # [N, K, K]
+    log_obs: torch.Tensor,  # [N, T, K]
+    mask: torch.Tensor,  # [N, T]
+    gate_key: Optional[torch.Tensor] = None,  # [N, T]
+    state_key: Optional[torch.Tensor] = None,  # [N, K] or [K]
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fused value-and-grad over a flat batch: ``(loglik [N], d_pi [N,
+    K], d_A [N, K, K], d_obs [N, T, K])``, the Baum-Welch identities of
+    ``pallas_semiring.semiring_vg`` — one ``FWD`` and one ``VG_BWD``
+    launch on CUDA. ``log_A`` is used as given (not clamped, unlike
+    :func:`semiring_ffbs`); inputs must be finite, since the gate
+    multiplies ``log_A`` and ``0 * -inf`` would be NaN."""
+    pi_t, A_t, obs_t, mask_t, gate_t, sk_t = to_lanes(
+        log_pi, log_A, log_obs, mask, gate_key, state_key
+    )
+    ll, alpha_t = fwd_lanes(pi_t, A_t, obs_t, mask_t, gate_t, sk_t)
+    d_pi, d_A, d_obs = vg_bwd_lanes(A_t, obs_t, mask_t, alpha_t, ll, gate_t, sk_t)
+    return ll, d_pi.t(), d_A.permute(2, 0, 1), d_obs.permute(2, 0, 1)

@@ -13,7 +13,12 @@ branches. The port has one rule, by device:
   whose Pallas Viterbi never takes that signature. A homogeneous
   ``log_A`` runs the scan on the CPU and raises on CUDA: the Viterbi
   kernel (``_semiring_fwd_kernel`` mode "viterbi" + ``_backtrack_kernel``)
-  is not ported yet.
+  is not ported yet. The stan-gate Tayal OOS Viterbi passes a
+  time-varying ``log_A`` and so stays on the scan in both packages
+  (``hhmm_tpu/kernels/dispatch.py::_pallas_decode_ok`` refuses it).
+- ``make_tayal_trajectory`` / ``tayal_trajectory``: the sanctioned
+  entries of the fused trajectory kernel (``kernels/cuda_traj.py``),
+  re-exported here as the JAX module re-exports ``pallas_traj``'s.
 """
 
 from __future__ import annotations
@@ -22,11 +27,12 @@ from typing import Optional, Tuple
 
 import torch
 
+from hhmm_tpu_torch.kernels.cuda_traj import make_tayal_trajectory, tayal_trajectory
 from hhmm_tpu_torch.kernels.ffbs import ffbs_fused
 from hhmm_tpu_torch.kernels.filtering import time_varying
 from hhmm_tpu_torch.kernels.viterbi import viterbi
 
-__all__ = ["ffbs_dispatch", "viterbi_dispatch"]
+__all__ = ["ffbs_dispatch", "viterbi_dispatch", "make_tayal_trajectory", "tayal_trajectory"]
 
 
 def _device_type(*tensors) -> str:

@@ -16,7 +16,9 @@ outright (``MASK_NEG`` emissions). See the JAX module for when each
 applies.
 
 Everything is batch-native: parameters carry leading lane axes and data
-arrays are ``[..., T]`` with the same leading axes.
+arrays are ``[..., T]`` whose leading axes are a prefix of them (``[B,
+T]`` data against ``[B, C]`` chains, say; ``models/base.py::
+broadcast_data`` aligns them).
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from hhmm_tpu_torch.core.lmath import MASK_NEG, safe_log
 from hhmm_tpu_torch.infer.gibbs import beta, dirichlet, emission_counts, transition_counts
 from hhmm_tpu_torch.kernels.alpha_fused import forward_alpha
 from hhmm_tpu_torch.kernels.dispatch import viterbi_dispatch
-from hhmm_tpu_torch.models.base import BaseHMMModel, Params
+from hhmm_tpu_torch.models.base import BaseHMMModel, Params, broadcast_data
 
 __all__ = ["TayalHHMM", "TayalHHMMLite", "UP", "DOWN"]
 
@@ -40,6 +42,29 @@ UP, DOWN = 0, 1
 _UP_STATES = (False, True, True, False)
 # entry states receiving the pi factor at t=0
 _ENTRY_UP, _ENTRY_DOWN = 2, 0
+
+
+class _Emissions(torch.autograd.Function):
+    """``log_obs[..., t, k] = log_phi[..., k, x_t]`` (a gather), with a
+    backward that sums the gradient over t per symbol as plain
+    reductions. The gather's own backward scatters with atomic adds on
+    CUDA, whose order changes from run to run, and the HMC sampler turns
+    those last-bit differences into different chains; this backward
+    gives the same bits on every run."""
+
+    @staticmethod
+    def forward(ctx, log_phi, x):  # [..., K, L], [..., T] int64
+        ctx.save_for_backward(x)
+        ctx.L = log_phi.shape[-1]
+        idx = x[..., None, :].expand(log_phi.shape[:-1] + x.shape[-1:])
+        return torch.gather(log_phi, -1, idx).transpose(-1, -2)
+
+    @staticmethod
+    def backward(ctx, g):  # [..., T, K]
+        (x,) = ctx.saved_tensors
+        zero = g.new_zeros(())
+        cols = [torch.where((x == l)[..., None], g, zero).sum(-2) for l in range(ctx.L)]
+        return torch.stack(cols, dim=-1), None
 
 
 class TayalHHMM(BaseHMMModel):
@@ -86,8 +111,7 @@ class TayalHHMM(BaseHMMModel):
     def _terms(self, params: Params, x: torch.Tensor, sign: torch.Tensor):
         pi, A = self.assemble(params)
         log_phi = safe_log(params["phi_k"])  # [..., K, L]
-        idx = x.long()[..., None, :].expand(log_phi.shape[:-1] + x.shape[-1:])
-        log_obs = torch.gather(log_phi, -1, idx).transpose(-1, -2)  # [..., T, K]
+        log_obs = _Emissions.apply(log_phi, x.long())  # [..., T, K]
         return pi, A, log_obs, self._consistency(sign.long())
 
     @staticmethod
@@ -98,8 +122,16 @@ class TayalHHMM(BaseHMMModel):
         states = torch.arange(4, device=pi.device)
         return torch.where(states == entry[..., None], safe_log(pi), 0.0)
 
+    @staticmethod
+    def _aligned(params: Params, data: Dict[str, torch.Tensor]):
+        """``x``, ``sign`` and ``mask`` (or None) aligned to the
+        parameters' lane axes."""
+        lead = tuple(params["p_11"].shape)
+        return tuple(broadcast_data(data.get(k), lead) for k in ("x", "sign", "mask"))
+
     def _gated(self, params: Params, x: torch.Tensor, sign: torch.Tensor):
         """``(log_pi, log_A[_t], log_obs)`` with the selected gate."""
+        x, sign, _ = self._aligned(params, {"x": x, "sign": sign})
         pi, A, log_obs, consistent = self._terms(params, x, sign)
         log_A = safe_log(A)
         if self.gate_mode == "hard":
@@ -109,7 +141,7 @@ class TayalHHMM(BaseHMMModel):
 
     def build(self, params: Params, data: Dict[str, torch.Tensor]):
         log_pi, log_A, log_obs = self._gated(params, data["x"], data["sign"])
-        return log_pi, log_A, log_obs, data.get("mask")
+        return log_pi, log_A, log_obs, self._aligned(params, data)[2]
 
     def build_vg(self, params: Params, data: Dict[str, torch.Tensor]):
         """Hot-loop build: in stan mode the sign gate is left to the gate
@@ -117,8 +149,9 @@ class TayalHHMM(BaseHMMModel):
         t=0 entry restriction on π is applied here."""
         if self.gate_mode == "hard":
             return self.build(params, data)
-        pi, A, log_obs, _ = self._terms(params, data["x"], data["sign"])
-        return self._stan_pi(pi, data["sign"]), safe_log(A), log_obs, data.get("mask")
+        x, sign, mask = self._aligned(params, data)
+        pi, A, log_obs, _ = self._terms(params, x, sign)
+        return self._stan_pi(pi, sign), safe_log(A), log_obs, mask
 
     def gate_keys(self, data: Dict[str, torch.Tensor]):
         if self.gate_mode == "hard":

@@ -9,11 +9,11 @@ axes are the lanes.
 
 from __future__ import annotations
 
-from typing import Dict, Union
+from typing import Dict, Tuple, Union
 
 import torch
 
-__all__ = ["finite_mask", "all_finite", "guard_where"]
+__all__ = ["finite_mask", "all_finite", "guard_where", "guard_update"]
 
 Tree = Union[torch.Tensor, Dict[str, torch.Tensor], tuple, list]
 
@@ -58,3 +58,14 @@ def guard_where(ok: torch.Tensor, new: Tree, old: Tree) -> Tree:
     if isinstance(new, dict):
         return {k: guard_where(ok, new[k], old[k]) for k in new}
     return type(new)(guard_where(ok, n, o) for n, o in zip(new, old))
+
+
+def guard_update(
+    healthy: torch.Tensor, new: Tree, old: Tree, batch_ndim: int = 1
+) -> Tuple[Tree, torch.Tensor]:
+    """The chain-health transition guard: a lane keeps ``new`` only if it
+    was ``healthy`` and ``new`` is entirely finite; otherwise it stays at
+    ``old`` and its flag drops for good. Returns ``(state, healthy')``
+    with ``healthy' = healthy & finite(new)``."""
+    ok = healthy & finite_mask(new, batch_ndim)
+    return guard_where(ok, new, old), ok

@@ -20,9 +20,22 @@ import torch
 import hhmm_tpu_torch
 from hhmm_tpu_torch.batch import default_init
 from hhmm_tpu_torch.convert import constrained_from_jax, params_from_jax
-from hhmm_tpu_torch.infer import GibbsConfig, sample_gibbs
+from hhmm_tpu_torch.infer import (
+    ChEESConfig,
+    GibbsConfig,
+    make_lp_bc,
+    sample_chees,
+    sample_chees_batched,
+    sample_gibbs,
+)
 from hhmm_tpu_torch.kernels import cuda_semiring as cs
-from hhmm_tpu_torch.kernels import ffbs_dispatch, viterbi_dispatch
+from hhmm_tpu_torch.kernels import cuda_traj as ct
+from hhmm_tpu_torch.kernels import (
+    ffbs_dispatch,
+    forward_value_and_grad,
+    make_tayal_trajectory,
+    viterbi_dispatch,
+)
 from hhmm_tpu_torch.kernels.cuda_build import BUILD_DIR, build
 from hhmm_tpu_torch.models import TayalHHMM, TayalHHMMLite
 from hhmm_tpu_torch.sim import tayal_batch
@@ -51,6 +64,11 @@ def test_port_file_list_is_complete():
         "hhmm_tpu_torch/kernels/cuda_semiring.py",
         "hhmm_tpu_torch/infer/gibbs.py",
         "hhmm_tpu_torch/models/tayal.py",
+        "hhmm_tpu_torch/kernels/vg.py",
+        "hhmm_tpu_torch/kernels/cuda_traj.py",
+        "hhmm_tpu_torch/infer/chees.py",
+        "hhmm_tpu_torch/infer/run.py",
+        "hhmm_tpu_torch/infer/nuts.py",
     ):
         assert must in names
 
@@ -83,6 +101,14 @@ ENTRY_POINTS = {
         torch.zeros(2, 35),
         {"x": _tiny()[0][0], "sign": _tiny()[1][0], "x_oos": _tiny()[0][0], "sign_oos": _tiny()[1][0]},
     ),
+    "make_lp_bc": lambda: make_lp_bc(TayalHHMM(), dict(zip(("x", "sign"), _tiny()))),
+    "make_tayal_trajectory": lambda: make_tayal_trajectory(dict(zip(("x", "sign"), _tiny())), 4),
+    "sample_chees_batched": lambda: sample_chees_batched(
+        lambda q: (q.sum(-1), q), torch.zeros(1, 2, 3), ChEESConfig(2, 2, num_chains=2)
+    ),
+    "sample_chees": lambda: sample_chees(
+        lambda q: -(q * q).sum(-1), torch.zeros(2, 3), ChEESConfig(2, 2, num_chains=2)
+    ),
     "params_from_jax": lambda: params_from_jax(TayalHHMM(), np.zeros((2, 35))),
     "constrained_from_jax": lambda: constrained_from_jax(
         TayalHHMM(), {"p_11": np.float32(0.5), "A_row": np.full((2, 2), 0.5),
@@ -109,7 +135,9 @@ def test_kernel_build_raises_without_cuda(no_cuda):
         build([cs.FWD.source])
     with pytest.raises(RuntimeError, match="CUDA"):
         cs.FWD.load()
-    assert cs.FWD.launches == 0 and cs.BWD_SAMPLE.launches == 0
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ct.TRAJ.load()
+    assert all(k.launches == 0 for k in cs.KERNELS + ct.KERNELS)
 
 
 def test_cuda_request_never_falls_back_to_plain(no_cuda, monkeypatch):
@@ -127,16 +155,47 @@ def test_cuda_request_never_falls_back_to_plain(no_cuda, monkeypatch):
     def cudalike(t):
         return t.as_subclass(_CudaLike)
 
+    monkeypatch.setattr(cs, "vg_bwd_plain", lambda *a: called.append("plain"))
+    monkeypatch.setattr(ct, "traj_plain", lambda *a: called.append("plain"))
     K, N, T = 4, 3, 5
     lanes = [cudalike(torch.zeros(s)) for s in ((K, N), (K, K, N), (T, K, N), (T, N))]
     with pytest.raises(RuntimeError, match="CUDA"):
         cs.fwd_lanes(*lanes)
     with pytest.raises(RuntimeError, match="CUDA"):
         cs.bwd_sample_lanes(lanes[1], lanes[3], cudalike(torch.zeros(T, K, N)), lanes[3])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cs.vg_bwd_lanes(lanes[1], lanes[2], lanes[3], cudalike(torch.zeros(T, K, N)),
+                        cudalike(torch.zeros(N)))
+    B, C, D = 3, 2, ct.DIM
+    f32 = [cudalike(torch.zeros(s)) for s in ((D, B * C), (D, B * C), (D, B * C), (D, B))]
+    data = [cudalike(torch.zeros((T, B), dtype=torch.int32)) for _ in range(2)]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ct.traj_lanes(*f32, *data, cudalike(torch.ones(T, B)), cudalike(torch.ones(1)),
+                      cudalike(torch.ones(1, dtype=torch.int32)), 4, C)
     assert called == []
 
 
-@pytest.mark.parametrize("which", ["fwd", "bwd", "dispatch"])
+def test_cuda_vg_rejects_what_the_kernels_do_not_take(monkeypatch):
+    """On a CUDA operand the value-and-grad entry checks K and the dtype
+    and raises, rather than running the plain pair."""
+    monkeypatch.setattr(cs, "vg_bwd_plain", lambda *a: pytest.fail("plain version ran"))
+
+    class _CudaLike(torch.Tensor):
+        @property
+        def device(self):
+            return torch.device("cuda")
+
+    def args(K, dtype=torch.float32):
+        shapes = ((2, K), (2, K, K), (2, 5, K), (2, 5))
+        return [torch.zeros(s, dtype=dtype).as_subclass(_CudaLike) for s in shapes]
+
+    with pytest.raises(ValueError, match="K in"):
+        forward_value_and_grad(*args(3))
+    with pytest.raises(TypeError, match="float32"):
+        forward_value_and_grad(*args(4, torch.float64))
+
+
+@pytest.mark.parametrize("which", ["fwd", "bwd", "dispatch", "vg", "traj"])
 def test_other_devices_raise(which):
     meta = dict(device="meta")
     if which == "fwd":
@@ -147,6 +206,17 @@ def test_other_devices_raise(which):
         with pytest.raises(ValueError, match="no kernel"):
             cs.bwd_sample_lanes(torch.zeros(4, 4, 2, **meta), torch.zeros(3, 2, **meta),
                                 torch.zeros(3, 4, 2, **meta), torch.zeros(3, 2, **meta))
+    elif which == "vg":
+        with pytest.raises(ValueError, match="no kernel"):
+            forward_value_and_grad(torch.zeros(2, 4, **meta), torch.zeros(2, 4, 4, **meta),
+                                   torch.zeros(2, 3, 4, **meta), torch.zeros(2, 3, **meta))
+    elif which == "traj":
+        i32 = dict(dtype=torch.int32, **meta)
+        with pytest.raises(ValueError, match="no kernel"):
+            ct.traj_lanes(*(torch.zeros(ct.DIM, 2, **meta) for _ in range(4)),
+                          torch.zeros(3, 2, **i32), torch.zeros(3, 2, **i32),
+                          torch.zeros(3, 2, **meta), torch.zeros(1, **meta),
+                          torch.zeros(1, **i32), 4, 1)
     else:
         with pytest.raises(ValueError, match="no FFBS path"):
             ffbs_dispatch(None, torch.zeros(2, 4, **meta), torch.zeros(2, 4, 4, **meta),
