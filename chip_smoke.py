@@ -4,8 +4,8 @@ its hand-written CUDA kernels against its plain PyTorch version there.
 
     python3 chip_smoke.py
 
-Two main paths, each driven with the kernel counts set to 0 just before
-it and read just after:
+Three main paths, each driven with the kernel counts set to 0 just
+before it and read just after:
 
 - the batched Tayal Gibbs fit that ``bench.py`` runs by default (256
   simulated zig-zag series, T=1024, K=4, L=9, hard gate, one chain)
@@ -15,7 +15,12 @@ it and read just after:
   gate ``TayalHHMM`` on the same 256 x T=1024 batch, 2 chains, so 512
   lanes, at most 16 leapfrogs a transition, 150 warmup + 150 sampling
   transitions), every trajectory one launch of the fused trajectory
-  kernel; and its unfused form, every leapfrog one value-and-grad call.
+  kernel; and its unfused form, every leapfrog one value-and-grad call;
+- the zoo's generated quantities (``BaseHMMModel.generated``: guarded
+  smoothing and Viterbi): the hard-gate Tayal posterior of the Gibbs
+  fit and of the ChEES fit, 32 draws x 256 series = 8192 lanes at
+  T=1024, and the Gaussian HMM of ``hmm/main.R`` (K=3, T=500, 256
+  series) fitted by Gibbs, decoded and path-sampled.
 
 Phases, one JSON object per line:
 
@@ -24,11 +29,11 @@ Phases, one JSON object per line:
 2. build   — builds every kernel from ``hhmm_tpu_torch/kernels/csrc``
    with ``nvcc`` (all sources in parallel).
 3. kernels — each kernel against its plain version on the card: the
-   FFBS pair at N=256, T=1024, K in {4, 8}, ungated and gated, ragged
-   mask; the value-and-grad pair (``FWD`` + ``VG_BWD``) at N=512 the
-   same way; the trajectory kernel at the ChEES shape with 2 leapfrogs,
-   and against the unfused leapfrogs over ``make_lp_bc`` with 8; then
-   times each at its main-path shape.
+   FFBS pair at N=256, T=1024, K in {3, 4, 8}, ungated and gated,
+   ragged mask (bitwise at K=3); the value-and-grad pair (``FWD`` +
+   ``VG_BWD``) at N=512 the same way; the trajectory kernel at the
+   ChEES shape with 2 leapfrogs, and against the unfused leapfrogs over
+   ``make_lp_bc`` with 8; then times each at its main-path shape.
 4. fit     — the Gibbs fit through the kernels; every chain healthy,
    every logp finite, each FFBS kernel launched exactly once per sweep.
 5. decode  — ``generated`` on 8 thinned draws x 256 series (in-sample
@@ -45,7 +50,24 @@ Phases, one JSON object per line:
 7. chees_unfused — 10 + 10 transitions with no trajectory kernel: the
    value-and-grad kernel launched once per log-density call, which is
    once per leapfrog plus the initial and step-size-probe calls.
-8. the kernels line, then the last line ``{"ok": true, "device": ...}``.
+8. kernels_decode — ``FILTER``, ``BETA``, ``VITERBI`` and ``BACKTRACK``
+   at N=8192, T=1024, K in {3, 4, 8}, ragged mask, ``MASK_NEG``-sparse
+   A, tie lanes, with and without all -inf evidence rows: bitwise equal
+   to their plain versions, ``FILTER`` bitwise equal to ``FWD`` on
+   finite inputs; then times each at N=8192, T=1024, K=4.
+   decode_smooth — ``TayalHHMM(gate_mode="hard").generated`` on 32
+   Gibbs draws x 256 series: shapes, probability rows, each decode
+   kernel launched once, every output against the plain versions on
+   the same lanes, and (after the path's counts are read) loglik
+   identical to ``FWD``'s.
+   agreement — the ChEES draws through the same decode; the folded
+   posterior-mean bull-pair probability against the Gibbs one and the
+   Gibbs split-half floor (reported, not gated).
+   gaussian — the Gaussian HMM Gibbs fit (FFBS kernels at K=3, once a
+   sweep), posterior-mean mu within ``G_MU_TOL``, ``generated`` (each
+   decode kernel once, Viterbi accuracy above ``G_ACC_MIN``) and
+   ``state_draws`` (one ``FWD`` and one ``BWD_SAMPLE``).
+9. the kernels line, then the last line ``{"ok": true, "device": ...}``.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line. It imports nothing of JAX or of ``hhmm_tpu``.
@@ -70,11 +92,14 @@ from hhmm_tpu_torch.infer import (
     sample_chees_batched,
     sample_gibbs,
 )
+from hhmm_tpu_torch.core.lmath import MASK_NEG
 from hhmm_tpu_torch.kernels import cuda_semiring as cs
 from hhmm_tpu_torch.kernels import cuda_traj as ct
 from hhmm_tpu_torch.kernels.cuda_build import build_and_load
-from hhmm_tpu_torch.models import TayalHHMM, TayalHHMMLite
+from hhmm_tpu_torch.kernels.filtering import smooth
+from hhmm_tpu_torch.models import GaussianHMM, NIGPrior, TayalHHMM, TayalHHMMLite
 from hhmm_tpu_torch.models.base import broadcast_data
+from hhmm_tpu_torch.sim import hmm_sim, obsmodel_gaussian
 from hhmm_tpu_torch.sim.tayal import tayal_batch, tayal_phi
 
 # main path: bench.py's default Gibbs workload
@@ -88,6 +113,16 @@ CHEES_WARMUP, CHEES_SAMPLES = 150, 150
 UNFUSED_WARMUP, UNFUSED_SAMPLES = 10, 10
 N_LANES = N_SERIES * CHAINS
 T_SHORT = 64  # window of the fused-vs-unfused check (tests/test_pallas_traj.py's regime)
+# third main path: the zoo's generated quantities, 32 draws a series
+N_DECODE_DRAWS = 32
+N_DEC = N_SERIES * N_DECODE_DRAWS  # 8192 lanes
+# the Gaussian HMM of hmm/main.R at bench_zoo.py::bench_hmm's Gibbs arm
+G_K, G_T = 3, 500
+G_A = [[0.8, 0.1, 0.1], [0.1, 0.8, 0.1], [0.05, 0.15, 0.8]]
+G_MU, G_SIGMA = [-2.0, 0.5, 3.0], [0.5, 0.8, 0.6]
+G_PRIOR = dict(m0=0.0, kappa0=0.1, a0=2.0, b0=1.0)
+G_WARMUP, G_SAMPLES = 100, 300
+SEED_GAUSS = 7
 
 # tolerances (kernel vs plain version on the card)
 FWD_ATOL = 1e-4  # log-alpha, absolute
@@ -102,6 +137,13 @@ PHI_MAE_MAX = 0.05  # posterior-mean emission rows vs the simulator's
 # a wrong gradient diverges on a large share
 DIV_SHARE_MAX = 1e-3
 REPLAY_DH_MIN = 100.0  # a replayed divergence's float64 energy error
+PROB_ATOL = 1e-5  # decode probabilities: alpha rows sum to 1, kernels vs plain
+# gamma = exp(log_alpha + log_beta - lse(...)) at T=1024: the f32 sum and
+# its normaliser are each rounded at |loglik| ~ 1.6e3 (ulp 1.2e-4), so a
+# row sums to 1 only within a few of those ulps (in the JAX package too)
+GAMMA_SUM_TOL = 1e-3
+G_MU_TOL = 0.35  # Gaussian posterior-mean mu, mean over series (tests/test_gibbs.py)
+G_ACC_MIN = 0.9  # Gaussian Viterbi accuracy (tests/test_models.py)
 VG_LL_RTOL = 1e-5  # value-and-grad loglik, relative
 VG_D_ATOL = 1e-5  # d_obs, d_pi, absolute
 VG_DA_RTOL = 1e-4  # d_A, relative: a sum of T terms, one order per side
@@ -275,7 +317,8 @@ def traj_bytes_ops(T: int, B: int, C: int, mask_t, n_steps: int):
 def phase_kernels(device):
     fwd_err = ll_err = z_err = 0.0
     cases = []
-    for i, (K, gated) in enumerate([(4, False), (4, True), (8, False), (8, True)]):
+    ffbs_cases = [(4, False), (4, True), (8, False), (8, True), (3, False), (3, True)]
+    for i, (K, gated) in enumerate(ffbs_cases):
         lanes, u_t = make_case(1000 + i, N_SERIES, T_FIT, K, gated, device)
         pi_t, A_t, obs_t, mask_t, gate_t, sk_t = lanes
         ll_k, a_k = cs.fwd_lanes(*lanes)
@@ -290,6 +333,9 @@ def phase_kernels(device):
                 f"forward K={K} gated={gated}: log-alpha err {err:.3g} (tol {FWD_ATOL}), "
                 f"ll rel err {lerr:.3g} (tol {LL_RTOL})"
             )
+        if K == 3 and not (torch.equal(a_k, a_p) and torch.equal(ll_k, ll_p)
+                           and torch.equal(z_k, z_p)):
+            raise AssertionError(f"FFBS K=3 gated={gated}: not bitwise equal to the plain version")
         n_diff, dists, zerr = check_ffbs(z_k, z_p, a_p, A_t, mask_t, u_t, gate_t, sk_t)
         fwd_err, ll_err, z_err = max(fwd_err, err), max(ll_err, lerr), max(z_err, zerr)
         cases.append(
@@ -491,7 +537,7 @@ def phase_kernels_vg(device):
     """``FWD`` + ``VG_BWD`` against ``fwd_plain`` + ``vg_bwd_plain`` at
     N=512, T=1024, K in {4, 8}, gated and not, ragged mask."""
     errs = {"ll_rel": 0.0, "d_pi": 0.0, "d_obs": 0.0, "d_A_rel": 0.0, "d_A": 0.0}
-    for i, (K, gated) in enumerate([(4, False), (4, True), (8, False), (8, True)]):
+    for i, (K, gated) in enumerate([(4, False), (4, True), (8, False), (8, True), (3, False)]):
         lanes, _ = make_case(3000 + i, N_LANES, T_FIT, K, gated, device)
         pi_t, A_t, obs_t, mask_t, gate_t, sk_t = lanes
         ll_k, a_k = cs.fwd_lanes(*lanes)
@@ -849,6 +895,371 @@ def phase_chees_unfused(device):
     return rose
 
 
+# ---------------------------------------------------------------------------
+# phase 3 (cont.): the decode kernels
+# ---------------------------------------------------------------------------
+
+
+DECODE_KERNELS = (cs.FILTER, cs.BETA, cs.VITERBI, cs.BACKTRACK)
+
+
+def make_decode_case(seed: int, N: int, T: int, K: int, device, finite: bool):
+    """Lane-layout ``(pi, A, obs, mask)`` for the decode kernels:
+    normalized (pi, A) with about a fifth of the A entries at
+    ``MASK_NEG``, N(-1, 1) emissions, ragged mask (lengths in [T/2,
+    T]). Every seventh lane is a tie lane (uniform pi and A, emissions
+    rounded to integers) where the max-plus scores tie exactly. Unless
+    ``finite``, a few lanes get an all -inf evidence row at a valid
+    step."""
+    rng = np.random.default_rng(seed)
+
+    def log_norm(a):
+        return a - np.log(np.exp(a).sum(-1, keepdims=True))
+
+    log_pi = log_norm(rng.normal(size=(N, K)))
+    log_A = log_norm(rng.normal(size=(N, K, K)))
+    log_A[rng.random((N, K, K)) < 0.2] = MASK_NEG
+    log_obs = rng.normal(size=(N, T, K)) - 1.0
+    ties = np.arange(N) % 7 == 0
+    log_pi[ties] = -np.log(K)
+    log_A[ties] = -np.log(K)
+    log_obs[ties] = np.round(log_obs[ties])
+    lengths = rng.integers(T // 2, T + 1, size=N)
+    if not finite:
+        for n in rng.choice(N, size=8, replace=False):
+            log_obs[n, rng.integers(0, lengths[n])] = -np.inf
+    f32 = dict(dtype=torch.float32, device=device)
+    mask = np.arange(T)[None, :] < lengths[:, None]
+    lanes = cs.to_lanes(*(torch.as_tensor(a, **f32) for a in (log_pi, log_A, log_obs, mask)))
+    return lanes[:4]
+
+
+def decode_bytes_ops(kernel, lanes):
+    """Bytes (inputs read once, outputs written once) and f32 operations
+    (of the valid steps) of one decode kernel on these lanes; the maps
+    and the path are int32."""
+    pi_t, A_t, obs_t, mask_t = lanes
+    T, K, N = obs_t.shape
+    steps = int((mask_t[1:] > 0).sum())
+    if kernel is cs.FILTER:
+        # per destination: K adds, K-1 max, the -inf test, K subtracts,
+        # K exps, K adds, log, 2 adds
+        floats = K * N + K * K * N + T * K * N + T * N + T * K * N + N
+        return 4 * floats, steps * K * (4 * K + 3) + N * (4 * K + 2)
+    if kernel is cs.BETA:
+        floats = K * K * N + T * K * N + T * N + T * K * N
+        return 4 * floats, steps * (K + K * (4 * K + 2))
+    if kernel is cs.VITERBI:
+        # per destination: K adds, K-1 compares and selects, 1 add
+        floats = K * N + K * K * N + T * K * N + T * N + N + K * N + T * N
+        return 4 * floats, steps * K * (3 * K - 1) + N * K
+    # BACKTRACK: per step a shift and a mask on the map word
+    floats = T * N + K * N + T * N
+    return 4 * floats, 2 * (T - 1) * N + N * K
+
+
+def phase_kernels_decode(device):
+    """``FILTER``, ``BETA``, ``VITERBI`` and ``BACKTRACK`` against their
+    plain versions at N=8192, T=1024, K in {3, 4, 8}: bitwise equal
+    (log-values, -inf at the same places, no NaN; maps, paths and
+    scores identical), and ``FILTER`` bitwise equal to ``FWD`` on finite
+    inputs; then each timed at the main shape (K=4, dense mask)."""
+    cases = []
+    for i, K in enumerate((3, 4, 8)):
+        for finite in (True, False):
+            lanes = make_decode_case(5000 + 2 * i + finite, N_DEC, T_FIT, K, device, finite)
+            pi_t, A_t, obs_t, mask_t = lanes
+            ll_k, a_k = cs.filter_lanes(*lanes)
+            b_k = cs.beta_lanes(A_t, obs_t, mask_t)
+            sc_k, dl_k, bk_k = cs.viterbi_lanes(*lanes)
+            path_k = cs.backtrack_lanes(bk_k, dl_k)
+            ll_p, a_p = cs.filter_plain(*lanes)
+            b_p = cs.beta_plain(A_t, obs_t, mask_t)
+            sc_p, dl_p, bk_p = cs.viterbi_plain(*lanes)
+            path_p = cs.backtrack_plain(bk_p, dl_p)
+            path_kp = cs.backtrack_plain(bk_k, dl_k)  # the backtrack alone, same maps
+            sync()
+            got = {"filter": (a_k, ll_k), "beta": (b_k,), "viterbi": (sc_k, dl_k, bk_k),
+                   "backtrack": (path_k,)}
+            want = {"filter": (a_p, ll_p), "beta": (b_p,), "viterbi": (sc_p, dl_p, bk_p),
+                    "backtrack": (path_kp,)}
+            bad = [k for k in got if not all(torch.equal(a, b) for a, b in zip(got[k], want[k]))]
+            nan = [k for k in ("filter", "beta") if bool(torch.isnan(got[k][0]).any())]
+            if bad or nan or not torch.equal(path_k, path_p):
+                raise AssertionError(
+                    f"decode kernels K={K} finite={finite}: not identical to the plain "
+                    f"versions {bad}, NaN in {nan}"
+                )
+            row = dict(K=K, finite=finite, neg_inf_alpha=int(torch.isinf(a_k).sum()),
+                       neg_inf_beta=int(torch.isinf(b_k).sum()),
+                       masked_steps=int((mask_t == 0).sum()))
+            if finite:
+                ll_f, a_f = cs.fwd_lanes(*lanes)
+                sync()
+                if not (torch.equal(a_f, a_k) and torch.equal(ll_f, ll_k)):
+                    raise AssertionError(f"FILTER K={K}: alpha differs from FWD on finite inputs")
+                row["filter_equals_fwd"] = True
+            cases.append(row)
+            emit("decode_kernels_vs_plain", N=N_DEC, T=T_FIT, bitwise_equal=True, **row)
+            del lanes, pi_t, A_t, obs_t, mask_t, a_k, a_p, b_k, b_p, got, want
+
+    # timing at the main shape: N=8192 lanes, T=1024, K=4, dense mask
+    rng = np.random.default_rng(6000)
+    f32 = dict(dtype=torch.float32, device=device)
+    log_A = rng.normal(size=(N_DEC, K_TAYAL, K_TAYAL))
+    log_A -= np.log(np.exp(log_A).sum(-1, keepdims=True))
+    lanes = cs.to_lanes(
+        torch.as_tensor(np.full((N_DEC, K_TAYAL), -np.log(K_TAYAL)), **f32),
+        torch.as_tensor(log_A, **f32),
+        torch.as_tensor(rng.normal(size=(N_DEC, T_FIT, K_TAYAL)) - 1.0, **f32),
+        torch.ones((N_DEC, T_FIT), **f32),
+    )[:4]
+    pi_t, A_t, obs_t, mask_t = lanes
+    _, dl, bk = cs.viterbi_lanes(*lanes)
+    one = tuple(v[..., :1].contiguous() for v in lanes)
+    _, dl1, bk1 = cs.viterbi_lanes(*one)
+    calls = {
+        cs.FILTER: (lambda L: cs.filter_lanes(*L), cs.filter_plain),
+        cs.BETA: (lambda L: cs.beta_lanes(*L[1:]), lambda *L: cs.beta_plain(*L[1:])),
+        cs.VITERBI: (lambda L: cs.viterbi_lanes(*L), cs.viterbi_plain),
+    }
+    timing = {}
+    for k, (run, plain) in calls.items():
+        timing[k.name] = dict(
+            ms=time_ms(lambda: run(lanes), reps=20),
+            one_lane_ms=time_ms(lambda: run(one), reps=20),
+            plain_ms=time_ms(lambda: plain(*lanes), reps=2, warmup=1),
+        )
+    timing[cs.BACKTRACK.name] = dict(
+        ms=time_ms(lambda: cs.backtrack_lanes(bk, dl), reps=20),
+        one_lane_ms=time_ms(lambda: cs.backtrack_lanes(bk1, dl1), reps=20),
+        plain_ms=time_ms(lambda: cs.backtrack_plain(bk, dl), reps=2, warmup=1),
+    )
+    for k in DECODE_KERNELS:
+        b, o = decode_bytes_ops(k, lanes)
+        timing[k.name].update(bytes=b, ops=o, bound=bound(b, o))
+    emit("decode_kernel_timing", shape=dict(N=N_DEC, T=T_FIT, K=K_TAYAL),
+         **{k: {f: v for f, v in t.items() if f != "bound"} for k, t in timing.items()})
+    return dict(cases=cases, timing=timing)
+
+
+# ---------------------------------------------------------------------------
+# main path 3: the zoo's generated quantities
+# ---------------------------------------------------------------------------
+
+
+def launch_counts():
+    return {k.name: k.launches for k in ALL_KERNELS}
+
+
+def rose_since(before):
+    return {n: v - before[n] for n, v in launch_counts().items() if v != before[n]}
+
+
+def thin(q, n):
+    """``[B, S, D]`` draws → ``n`` evenly spaced draws per series."""
+    idx = torch.as_tensor(np.linspace(0, q.shape[1] - 1, n).astype(np.int64), device=q.device)
+    return q[:, idx]
+
+
+def check_probabilities(name, out, key):
+    """Finite rows summing to 1: ``alpha`` (a softmax) within
+    ``PROB_ATOL``, ``gamma`` within ``GAMMA_SUM_TOL``. Returns the
+    largest deviation."""
+    p = out[key]
+    dev = float((p.sum(-1) - 1).abs().max())
+    tol = GAMMA_SUM_TOL if key == "gamma" else PROB_ATOL
+    if not bool(torch.isfinite(p).all()) or dev > tol:
+        raise AssertionError(
+            f"{name}: {key} rows are not probability vectors (off by {dev:.3g}, tol {tol})"
+        )
+    return dev
+
+
+def check_decode_once(name, rose):
+    """Each decode kernel launched exactly once by one ``generated``."""
+    if any(rose.get(k.name, 0) != 1 for k in DECODE_KERNELS):
+        raise AssertionError(f"{name}: generated launched {rose}, expected each decode kernel once")
+
+
+def phase_decode_smooth(device, qs):
+    """``TayalHHMM(gate_mode="hard").generated`` on 32 thinned Gibbs
+    draws x 256 series (8192 lanes, T=1024): shapes, probability rows,
+    states in range, each decode kernel launched once, and every output
+    against the plain versions on the same lanes."""
+    x, sign = tayal_batch(N_SERIES, T_FIT, seed=SEED_DATA, device=device)
+    data = {"x": x, "sign": sign}
+    hard = TayalHHMM(gate_mode="hard")
+    draws = thin(qs[:, 0], N_DECODE_DRAWS)  # [B, 32, D]
+    before = launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    out = hard.generated(draws, data, device=device)
+    sync()
+    wall = time.perf_counter() - t0
+    rose = rose_since(before)
+    check_decode_once("decode_smooth", rose)
+    B, D, T = N_SERIES, N_DECODE_DRAWS, T_FIT
+    shapes = {"alpha": (B, D, T, 4), "gamma": (B, D, T, 4), "zstar": (B, D, T),
+              "logp_zstar": (B, D), "loglik": (B, D)}
+    for k, shp in shapes.items():
+        if tuple(out[k].shape) != shp:
+            raise AssertionError(f"decode_smooth: {k} shape {tuple(out[k].shape)} != {shp}")
+    row_dev = {k: check_probabilities("decode_smooth", out, k) for k in ("alpha", "gamma")}
+    if not bool(((out["zstar"] >= 0) & (out["zstar"] < 4)).all()):
+        raise AssertionError("decode_smooth: zstar out of range")
+
+    # the plain versions on the same lanes
+    params, _ = hard.unpack(draws.reshape(N_DEC, -1))
+    lanes = {k: v.repeat_interleave(D, 0) for k, v in data.items()}
+    log_pi, log_A, log_obs, _ = hard.build(params, lanes)
+    ones = torch.ones((N_DEC, T), dtype=torch.float32, device=device)
+    pi_t, A_t, obs_t, mask_t, _, _ = cs.to_lanes(log_pi, log_A, log_obs, ones)
+    ll_p, a_p = cs.filter_plain(pi_t, A_t, obs_t, mask_t)
+    b_p = cs.beta_plain(A_t, obs_t, mask_t)
+    sc_p, dl_p, bk_p = cs.viterbi_plain(pi_t, A_t, obs_t, mask_t)
+    path_p = cs.backtrack_plain(bk_p, dl_p)
+    la_p, lb_p = a_p.permute(2, 0, 1), b_p.permute(2, 0, 1)
+    ref = {
+        "alpha": torch.softmax(la_p, dim=-1),
+        "gamma": torch.exp(smooth(la_p, lb_p)),
+    }
+    errs = {k: float((out[k].reshape(ref[k].shape) - v).abs().max()) for k, v in ref.items()}
+    same = {
+        "zstar": torch.equal(out["zstar"].reshape(N_DEC, T), path_p.t().long()),
+        "logp_zstar": torch.equal(out["logp_zstar"].reshape(-1), sc_p),
+        "loglik": torch.equal(out["loglik"].reshape(-1), ll_p),
+    }
+    if max(errs.values()) > PROB_ATOL or not all(same.values()):
+        raise AssertionError(f"decode_smooth: kernels vs plain {errs}, identical {same}")
+    emit("decode_smooth", lanes=N_DEC, T=T, K=4, seconds=wall, launches=rose,
+         max_abs_err_vs_plain=errs, identical_vs_plain=same, row_sum_max_dev=row_dev,
+         loglik_mean=float(out["loglik"].mean()))
+    return dict(out=out, data=data, lanes=(log_pi, log_A, log_obs, ones))
+
+
+def check_loglik_vs_fwd(dec):
+    """The decode's loglik against the ``FWD`` kernel's on the same
+    (finite) lanes: the guarded and the clamped filter agree bit for bit
+    there. Run after the main path's counts are read."""
+    _, ll_f = cs.forward_chunked(*dec["lanes"])
+    sync()
+    if not torch.equal(dec["out"]["loglik"].reshape(-1), ll_f):
+        raise AssertionError("decode_smooth: loglik differs from FWD's")
+    emit("decode_loglik_vs_fwd", lanes=N_DEC, identical=True)
+
+
+def fold_pairs(p_bull, anchor):
+    """Fold the pair swap (p -> 1 - p) per draw toward a per-series
+    anchor path, as ``bench.py``'s ``top_state_mean`` does:
+    ``p_bull [B, D, T]``, ``anchor [B, T]``."""
+    d_id = ((p_bull - anchor[:, None]) ** 2).sum(-1)
+    d_sw = ((1.0 - p_bull - anchor[:, None]) ** 2).sum(-1)
+    return torch.where((d_sw < d_id)[..., None], 1.0 - p_bull, p_bull)
+
+
+def phase_agreement(device, dec, chees_qs):
+    """The ChEES draws through the same hard-gate ``generated`` (32 a
+    series from the pooled chains): posterior-mean smoothed bull-pair
+    probability per series, folded against the Gibbs decode's first
+    draw, compared with the Gibbs one; and the Gibbs split-half floor.
+    Reported, not gated: 300 draws cannot meet ``bench.py``'s absolute
+    gate."""
+    B = N_SERIES
+    draws = thin(chees_qs.reshape(B, -1, chees_qs.shape[-1]), N_DECODE_DRAWS)
+    hard = TayalHHMM(gate_mode="hard")
+    before = launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    out = hard.generated(draws, dec["data"], device=device)
+    sync()
+    wall = time.perf_counter() - t0
+    rose = rose_since(before)
+    check_decode_once("agreement", rose)
+    row_dev = check_probabilities("agreement", out, "gamma")
+    g_gibbs, g_chees = dec["out"]["gamma"], out["gamma"]
+    p_gibbs = g_gibbs[..., 2] + g_gibbs[..., 3]  # [B, D, T]
+    p_chees = g_chees[..., 2] + g_chees[..., 3]
+    anchor = p_gibbs[:, 0]
+    f_gibbs, f_chees = fold_pairs(p_gibbs, anchor), fold_pairs(p_chees, anchor)
+    gap = (f_gibbs.mean(1) - f_chees.mean(1)).abs().mean(-1)  # [B]
+    floor = (f_gibbs[:, 0::2].mean(1) - f_gibbs[:, 1::2].mean(1)).abs().mean(-1)
+    emit("agreement", series=B, draws_per_series=N_DECODE_DRAWS, T=T_FIT, seconds=wall,
+         launches=rose, gamma_row_sum_max_dev=row_dev,
+         gap_mean=float(gap.mean()), gap_worst_series=float(gap.max()),
+         gibbs_split_half_floor_mean=float(floor.mean()),
+         gibbs_split_half_floor_worst=float(floor.max()),
+         chees_fold_share=float((f_chees != p_chees).any(-1).float().mean()))
+
+
+def phase_gaussian(device):
+    """The Gaussian HMM of ``hmm/main.R`` at ``bench_zoo.py::bench_hmm``'s
+    Gibbs configuration, batched to 256 series: the fit (FFBS kernels
+    at K=3, once a sweep), posterior-mean mu near the truth, then
+    ``generated`` (each decode kernel once; Viterbi accuracy > 0.9) and
+    ``state_draws`` (FWD and BWD_SAMPLE once each)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED_GAUSS)
+    z_true, x = hmm_sim(gen, G_T, G_A, np.ones(G_K) / G_K, obsmodel_gaussian(G_MU, G_SIGMA),
+                        batch=(N_SERIES,))
+    data = {"x": x}
+    model = GaussianHMM(K=G_K, nig_prior=NIGPrior(**G_PRIOR))
+    init = default_init(model, data, N_SERIES, 1, seed=SEED_INIT, device=device)
+    cfg = GibbsConfig(num_warmup=G_WARMUP, num_samples=G_SAMPLES, num_chains=1)
+    before = launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    qs, stats = sample_gibbs(model, data, init, cfg, seed=SEED_SAMPLER, device=device)
+    sync()
+    wall = time.perf_counter() - t0
+    rose = rose_since(before)
+    sweeps = G_WARMUP + G_SAMPLES
+    if rose != {cs.FWD.name: sweeps, cs.BWD_SAMPLE.name: sweeps}:
+        raise AssertionError(f"gaussian: fit launches {rose}, expected {sweeps} FWD and BWD_SAMPLE")
+    if not bool(stats["chain_healthy"].all()) or not bool(torch.isfinite(stats["logp"]).all()):
+        raise AssertionError("gaussian: an unhealthy chain or a non-finite logp")
+    mu_hat = model.constrained_draws(qs)["mu_k"].mean(2)[:, 0]  # [B, K]
+    mu_err = (mu_hat - torch.tensor(G_MU, device=device)).abs().max(-1).values
+    if not float(mu_err.mean()) <= G_MU_TOL:
+        raise AssertionError(f"gaussian: posterior-mean mu off by {float(mu_err.mean()):.3g}")
+
+    draws = thin(qs[:, 0], N_DECODE_DRAWS)
+    before = launch_counts()
+    sync()
+    t1 = time.perf_counter()
+    out = model.generated(draws, data, device=device)
+    sync()
+    gen_wall = time.perf_counter() - t1
+    rose_gen = rose_since(before)
+    check_decode_once("gaussian", rose_gen)
+    row_dev = check_probabilities("gaussian", out, "gamma")
+    acc = (out["zstar"] == z_true[:, None]).float().mean(-1)  # [B, D]
+    if not float(acc.mean()) > G_ACC_MIN:
+        raise AssertionError(f"gaussian: Viterbi accuracy {float(acc.mean()):.4g}")
+
+    before = launch_counts()
+    gen_z = torch.Generator(device=device)
+    gen_z.manual_seed(SEED_GAUSS + 1)
+    sync()
+    t2 = time.perf_counter()
+    z_draws = model.state_draws(gen_z, draws, data, device=device)
+    sync()
+    sd_wall = time.perf_counter() - t2
+    rose_sd = rose_since(before)
+    if rose_sd != {cs.FWD.name: 1, cs.BWD_SAMPLE.name: 1}:
+        raise AssertionError(f"gaussian: state_draws launched {rose_sd}")
+    sd_acc = (z_draws == z_true[:, None]).float().mean()
+    emit("gaussian", series=N_SERIES, T=G_T, K=G_K, warmup=G_WARMUP, samples=G_SAMPLES,
+         fit_seconds=wall, sweeps_per_s=sweeps / wall, fit_launches=rose,
+         mu_abs_err_mean=float(mu_err.mean()), mu_abs_err_worst=float(mu_err.max()),
+         mu_hat_mean=mu_hat.mean(0).tolist(), logp_mean=float(stats["logp"].mean()),
+         generated_seconds=gen_wall, generated_launches=rose_gen, gamma_row_sum_max_dev=row_dev,
+         viterbi_accuracy_mean=float(acc.mean()),
+         viterbi_accuracy_worst_series=float(acc.mean(-1).min()),
+         state_draws_seconds=sd_wall, state_draws_launches=rose_sd,
+         state_draws_accuracy_mean=float(sd_acc))
+
+
 def reset_all() -> None:
     for k in ALL_KERNELS:
         k.launches = 0
@@ -899,14 +1310,26 @@ def main() -> int:
     reset_all()
     phase_chees_unfused(device)
     unfused = {k.name: k.launches for k in ALL_KERNELS}
+    deck = phase_kernels_decode(device)
+    # main path 3, the zoo's generated quantities: the hard-gate Tayal
+    # decode of the Gibbs draws, the same decode of the ChEES draws, and
+    # the Gaussian HMM's fit, decode and state draws
+    reset_all()
+    dec = phase_decode_smooth(device, qs)
+    phase_agreement(device, dec, chees_qs)
+    phase_gaussian(device)
+    zoo = {k.name: k.launches for k in ALL_KERNELS}
+    check_loglik_vs_fwd(dec)
+    del dec
     missing = [n for n in (cs.FWD.name, cs.BWD_SAMPLE.name) if gibbs[n] == 0]
     missing += [n for n in (cs.FWD.name, cs.VG_BWD.name, ct.TRAJ.name) if chees[n] == 0]
     missing += [n for n in (cs.FWD.name, cs.VG_BWD.name) if unfused[n] == 0]
+    missing += [k.name for k in (cs.FWD, cs.BWD_SAMPLE) + DECODE_KERNELS if zoo[k.name] == 0]
     if missing:
         raise AssertionError(f"a main path never launched {missing}")
 
     t = kern["timing"]
-    vt, tt = vgk["timing"], trk["timing"]
+    vt, tt, dt = vgk["timing"], trk["timing"], deck["timing"]
     rows = []
     for k, launches, ms, plain, (bms, by), err, extra in (
         (cs.FWD, gibbs[cs.FWD.name], t["fwd_ms"], t["fwd_plain_ms"], kern["fwd_bound"],
@@ -929,6 +1352,13 @@ def main() -> int:
               max_abs_err_vs_unfused_T64=trk["vs_unfused"],
               max_abs_err_vs_unfused_T1024=trk["gap_full"],
               bytes_16=trk["bytes"], ops_16=trk["ops"])),
+        *(
+            (k, zoo[k.name], dt[k.name]["ms"], dt[k.name]["plain_ms"], dt[k.name]["bound"], 0.0,
+             dict(one_lane_ms=dt[k.name]["one_lane_ms"], bytes=dt[k.name]["bytes"],
+                  ops=dt[k.name]["ops"], bitwise_equal_cases=len(deck["cases"]),
+                  shape=dict(N=N_DEC, T=T_FIT, K=K_TAYAL)))
+            for k in DECODE_KERNELS
+        ),
     ):
         rows.append({
             "name": k.name,

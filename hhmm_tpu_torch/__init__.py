@@ -5,15 +5,16 @@ reference the port is held against. It imports ``torch`` and numpy and
 never ``jax`` or ``hhmm_tpu``. Module and subpackage names follow the
 JAX package so each counterpart is easy to find:
 
-- ``core``     log-space math and constraint bijectors
+- ``core``     log-space math, constraint bijectors and distributions
 - ``robust``   per-lane chain-health guards
-- ``kernels``  plain scans, the FFBS, value-and-grad and trajectory
-  entries, and the hand-written CUDA kernels (``kernels/csrc``) with
-  their plain PyTorch versions
-- ``models``   the parameter contract (with the fused ``make_vg``) and
-  the Tayal (2009) HHMM
+- ``kernels``  plain scans, the decode (filter, beta, smoothing,
+  Viterbi), FFBS, value-and-grad and trajectory entries, and the
+  hand-written CUDA kernels (``kernels/csrc``) with their plain PyTorch
+  versions
+- ``models``   the parameter contract (with the fused ``make_vg`` and
+  the generated quantities), the Tayal (2009) HHMM and the Gaussian HMM
 - ``infer``    batch-native blocked Gibbs, ChEES-HMC with its warmup
-  adaptation, and MCMC diagnostics
+  adaptation, MCMC diagnostics and label-switching utilities
 - ``sim``      simulators on ``torch.Generator`` streams
 - ``batch``    per-series chain inits
 - ``convert``  carries the JAX package's draws and parameters across

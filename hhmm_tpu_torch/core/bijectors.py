@@ -2,7 +2,8 @@
 unconstrained ℝⁿ → constrained parameter spaces, with Stan's
 log-Jacobians.
 
-Only the two the Tayal model needs are ported. Both are batch-native:
+Ported: ``UnitInterval`` and ``Simplex`` (the Tayal model), ``Positive``
+and ``Ordered`` (the Gaussian HMM). All are batch-native:
 ``forward`` maps ``x [..., n_free]`` to ``(y [..., *shape], log|J| [...])``
 and ``inverse`` maps ``y [..., *shape]`` back to ``x [..., n_free]``, so a
 whole batch of chains goes through one call.
@@ -16,7 +17,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-__all__ = ["Bijector", "UnitInterval", "Simplex"]
+__all__ = ["Bijector", "UnitInterval", "Simplex", "Positive", "Ordered"]
 
 
 class Bijector:
@@ -104,3 +105,43 @@ class Simplex(Bijector):
         z = y[..., :-1] / rem_before
         x = torch.log(z) - torch.log1p(-z) - self._offsets(y)
         return x.reshape(lead + (-1,))
+
+
+class Positive(Bijector):
+    """y = lower + exp(x); log|J| = sum(x). ``lower`` is Stan's
+    ``real<lower=...>`` shifted-exp transform (``real<lower=0.0001>
+    sigma_k`` in `hmm/stan/hmm.stan:21`)."""
+
+    def __init__(self, shape: Tuple[int, ...] = (), lower: float = 0.0):
+        self.shape = tuple(shape)
+        self.lower = float(lower)
+        self.n_free = math.prod(self.shape)
+
+    def forward(self, x):
+        lead = x.shape[:-1]
+        return self.lower + torch.exp(x).reshape(lead + self.shape), x.sum(-1)
+
+    def inverse(self, y):
+        lead = y.shape[: y.ndim - len(self.shape)]
+        return torch.log(y - self.lower).reshape(lead + (self.n_free,))
+
+
+class Ordered(Bijector):
+    """Stan ordered vector along the last axis: y[0] = x[0], y[k] = y[k-1]
+    + exp(x[k]); log|J| = sum of x[1:]. ``shape=(K, L)`` means K
+    independent ordered-L vectors."""
+
+    def __init__(self, shape: Tuple[int, ...]):
+        self.shape = tuple(shape)
+        self.n_free = math.prod(self.shape)
+
+    def forward(self, x):
+        lead = x.shape[:-1]
+        x = x.reshape(lead + self.shape)
+        y = torch.cumsum(torch.cat([x[..., :1], torch.exp(x[..., 1:])], dim=-1), dim=-1)
+        return y, x[..., 1:].reshape(lead + (-1,)).sum(-1)
+
+    def inverse(self, y):
+        lead = y.shape[: y.ndim - len(self.shape)]
+        x = torch.cat([y[..., :1], torch.log(torch.diff(y, dim=-1))], dim=-1)
+        return x.reshape(lead + (self.n_free,))

@@ -4,7 +4,15 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["MASK_NEG", "safe_log", "safe_logsumexp", "log_normalize"]
+__all__ = [
+    "MASK_NEG",
+    "safe_log",
+    "safe_logsumexp",
+    "log_normalize",
+    "safe_log_normalize",
+    "log_vecmat",
+    "log_matvec",
+]
 
 # Finite stand-in for -inf in masked/gated log-probabilities: any masked
 # path sits at least e^-10000 below real paths (exactly 0 in f32) while
@@ -39,3 +47,23 @@ def safe_logsumexp(
 def log_normalize(log_x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """Normalize a log-space vector so that ``exp`` of it sums to one."""
     return log_x - torch.logsumexp(log_x, dim=dim, keepdim=True)
+
+
+def safe_log_normalize(log_x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """:func:`log_normalize` with a guarded denominator: an all-(−inf)
+    row normalizes to ``log_x - MASK_NEG`` (the entries stay −inf, no
+    NaN) instead of ``-inf - -inf``."""
+    return log_x - safe_logsumexp(log_x, dim=dim, keepdim=True, floor=MASK_NEG)
+
+
+def log_vecmat(log_x: torch.Tensor, log_A: torch.Tensor) -> torch.Tensor:
+    """Log-space row vector times matrix, ``out[..., j] = logsumexp_i(x[...,
+    i] + A[..., i, j])`` — the forward step with ``A[i, j] = log P(z_t =
+    j | z_{t-1} = i)``."""
+    return torch.logsumexp(log_x[..., :, None] + log_A, dim=-2)
+
+
+def log_matvec(log_A: torch.Tensor, log_x: torch.Tensor) -> torch.Tensor:
+    """Log-space matrix times column vector, ``out[..., i] =
+    logsumexp_j(A[..., i, j] + x[..., j])`` — the backward step."""
+    return torch.logsumexp(log_A + log_x[..., None, :], dim=-1)

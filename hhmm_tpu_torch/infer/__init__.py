@@ -1,4 +1,5 @@
-"""Batch-native blocked Gibbs, ChEES-HMC and MCMC diagnostics."""
+"""Batch-native blocked Gibbs, ChEES-HMC, MCMC diagnostics and
+label-switching utilities."""
 
 from hhmm_tpu_torch.infer.chees import (
     ChEESConfig,
@@ -15,6 +16,7 @@ from hhmm_tpu_torch.infer.gibbs import (
     transition_counts,
 )
 from hhmm_tpu_torch.infer.nuts import find_reasonable_step_size
+from hhmm_tpu_torch.infer.relabel import apply_relabel, confusion_matrix, greedy_relabel
 from hhmm_tpu_torch.infer.run import warmup_schedule
 
 __all__ = [
@@ -32,4 +34,7 @@ __all__ = [
     "ess",
     "ess_many",
     "split_rhat",
+    "apply_relabel",
+    "confusion_matrix",
+    "greedy_relabel",
 ]

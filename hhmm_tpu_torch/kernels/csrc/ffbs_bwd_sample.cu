@@ -170,6 +170,7 @@ extern "C" int hhmm_ffbs_bwd_sample(int K, int gated, const float* A,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (K) {
     case 2: launch_k<2>(gated, A, mask, alpha, u, gate, sk, z, T, N, s); break;
+    case 3: launch_k<3>(gated, A, mask, alpha, u, gate, sk, z, T, N, s); break;
     case 4: launch_k<4>(gated, A, mask, alpha, u, gate, sk, z, T, N, s); break;
     case 8: launch_k<8>(gated, A, mask, alpha, u, gate, sk, z, T, N, s); break;
     default: return -1;

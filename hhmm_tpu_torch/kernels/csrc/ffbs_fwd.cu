@@ -164,6 +164,7 @@ extern "C" int hhmm_ffbs_fwd(int K, int gated, const float* pi,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (K) {
     case 2: launch_k<2>(gated, pi, A, obs, mask, gate, sk, ll, alpha, T, N, s); break;
+    case 3: launch_k<3>(gated, pi, A, obs, mask, gate, sk, ll, alpha, T, N, s); break;
     case 4: launch_k<4>(gated, pi, A, obs, mask, gate, sk, ll, alpha, T, N, s); break;
     case 8: launch_k<8>(gated, pi, A, obs, mask, gate, sk, ll, alpha, T, N, s); break;
     default: return -1;

@@ -203,6 +203,7 @@ extern "C" int hhmm_vg_bwd(int K, int gated, const float* A, const float* obs,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (K) {
     case 2: launch_k<2>(gated, A, obs, mask, alpha, ll, gate, sk, d_pi, d_A, d_obs, T, N, s); break;
+    case 3: launch_k<3>(gated, A, obs, mask, alpha, ll, gate, sk, d_pi, d_A, d_obs, T, N, s); break;
     case 4: launch_k<4>(gated, A, obs, mask, alpha, ll, gate, sk, d_pi, d_A, d_obs, T, N, s); break;
     case 8: launch_k<8>(gated, A, obs, mask, alpha, ll, gate, sk, d_pi, d_A, d_obs, T, N, s); break;
     default: return -1;

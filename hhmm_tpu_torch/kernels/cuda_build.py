@@ -51,17 +51,17 @@ def _lib_path(source: Path) -> Path:
 
 def build(sources: Iterable[Path]) -> Dict[str, dict]:
     """Compile every source that has no up-to-date library, one ``nvcc``
-    per source, all started together. Returns ``{source name: {"seconds",
-    "log", "cached"}}``; raises ``RuntimeError`` naming every failed
-    source with its compiler output. No ``nvcc`` outlives the call."""
+    per source (a source named twice is built once), all started
+    together. Returns ``{source name: {"seconds", "log", "cached"}}``;
+    raises ``RuntimeError`` naming every failed source with its compiler
+    output. No ``nvcc`` outlives the call."""
     if not torch.cuda.is_available():
         raise RuntimeError("building the CUDA kernels needs a CUDA device")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     report: Dict[str, dict] = {}
     running = []
     try:
-        for src in sources:
-            src = Path(src)
+        for src in dict.fromkeys(Path(s) for s in sources):
             out = _lib_path(src)
             if out.exists():
                 report[src.name] = {"seconds": 0.0, "log": "", "cached": True}

@@ -1,5 +1,5 @@
-"""Forward filter as a plain guarded scan (counterpart of
-``hhmm_tpu/kernels/filtering.py::forward_filter``).
+"""Forward filtering, backward pass and smoothing as plain guarded scans
+(counterpart of ``hhmm_tpu/kernels/filtering.py``).
 
 Generic step interface, batch-native (any leading batch axes ``...``):
 
@@ -10,6 +10,11 @@ Generic step interface, batch-native (any leading batch axes ``...``):
 - ``log_obs`` [..., T, K]                     per-step emission log-liks
 - ``mask``    [..., T] optional               1 valid, 0 padding; a
   masked step copies the carry.
+
+These are the recursions the decode runs on the CPU and for a
+time-varying ``log_A`` on any device; a homogeneous ``log_A`` on the
+card goes to the ``FILTER`` / ``BETA`` kernels
+(``kernels/dispatch.py``).
 """
 
 from __future__ import annotations
@@ -18,9 +23,21 @@ from typing import Optional, Tuple
 
 import torch
 
-from hhmm_tpu_torch.core.lmath import safe_logsumexp
+from hhmm_tpu_torch.core.lmath import (
+    log_matvec,
+    log_vecmat,
+    safe_log_normalize,
+    safe_logsumexp,
+)
 
-__all__ = ["forward_filter", "time_varying"]
+__all__ = [
+    "filter_step",
+    "forward_filter",
+    "backward_pass",
+    "smooth",
+    "forward_backward",
+    "time_varying",
+]
 
 
 def time_varying(log_A: torch.Tensor, log_obs: torch.Tensor) -> bool:
@@ -34,6 +51,20 @@ def time_varying(log_A: torch.Tensor, log_obs: torch.Tensor) -> bool:
             f"time-varying log_A must have T-1={T - 1} slices, got {log_A.shape[-3]}"
         )
     return True
+
+
+def filter_step(
+    log_alpha: torch.Tensor,
+    log_A: torch.Tensor,
+    log_obs_t: torch.Tensor,
+    mask_t: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """One forward step ``α'_j = lse_i(α_i + A_ij) + obs_j``; a masked
+    step (``mask_t == 0``) returns the carry unchanged."""
+    new = log_vecmat(log_alpha, log_A) + log_obs_t
+    if mask_t is not None:
+        new = torch.where(mask_t[..., None] > 0, new, log_alpha)
+    return new
 
 
 def forward_filter(
@@ -54,9 +85,49 @@ def forward_filter(
     out = [alpha]
     for t in range(1, T):
         lA = log_A[..., t - 1, :, :] if tv else log_A
-        new = torch.logsumexp(alpha[..., :, None] + lA, dim=-2) + log_obs[..., t, :]
-        if mask is not None:
-            new = torch.where(mask[..., t, None] > 0, new, alpha)
-        alpha = new
+        alpha = filter_step(alpha, lA, log_obs[..., t, :], None if mask is None else mask[..., t])
         out.append(alpha)
     return torch.stack(out, dim=-2), safe_logsumexp(alpha, dim=-1)
+
+
+def backward_pass(
+    log_A: torch.Tensor,
+    log_obs: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Backward recursion: ``log_beta [..., T, K]`` with ``beta[T-1] =
+    0`` and ``beta[t][i] = lse_j(A[i, j] + obs[t+1, j] + beta[t+1, j])``;
+    a step whose successor is masked copies the carry, so on a
+    tail-padded series ``beta`` at the valid steps is the unpadded
+    recursion."""
+    T = log_obs.shape[-2]
+    tv = time_varying(log_A, log_obs)
+    beta = torch.zeros_like(log_obs[..., 0, :])
+    out = [beta]
+    for t in range(T - 2, -1, -1):
+        lA = log_A[..., t, :, :] if tv else log_A
+        new = log_matvec(lA, log_obs[..., t + 1, :] + beta)
+        if mask is not None:
+            new = torch.where(mask[..., t + 1, None] > 0, new, beta)
+        beta = new
+        out.append(beta)
+    out.reverse()
+    return torch.stack(out, dim=-2)
+
+
+def smooth(log_alpha: torch.Tensor, log_beta: torch.Tensor) -> torch.Tensor:
+    """Smoothed state log-probabilities ``log_gamma [..., T, K]``,
+    normalized per step; an all-(−inf) step stays −inf instead of NaN."""
+    return safe_log_normalize(log_alpha + log_beta, dim=-1)
+
+
+def forward_backward(
+    log_pi: torch.Tensor,
+    log_A: torch.Tensor,
+    log_obs: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+):
+    """``(log_alpha, log_beta, log_gamma, loglik)`` by the scans."""
+    log_alpha, loglik = forward_filter(log_pi, log_A, log_obs, mask)
+    log_beta = backward_pass(log_A, log_obs, mask)
+    return log_alpha, log_beta, smooth(log_alpha, log_beta), loglik

@@ -27,13 +27,13 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from hhmm_tpu_torch._device import DeviceLike, resolve_device
+from hhmm_tpu_torch._device import DeviceLike
 from hhmm_tpu_torch.core.bijectors import Bijector, Simplex, UnitInterval
 from hhmm_tpu_torch.core.lmath import MASK_NEG, safe_log
 from hhmm_tpu_torch.infer.gibbs import beta, dirichlet, emission_counts, transition_counts
 from hhmm_tpu_torch.kernels.alpha_fused import forward_alpha
 from hhmm_tpu_torch.kernels.dispatch import viterbi_dispatch
-from hhmm_tpu_torch.models.base import BaseHMMModel, Params, broadcast_data
+from hhmm_tpu_torch.models.base import BaseHMMModel, Params, draw_lanes, broadcast_data
 
 __all__ = ["TayalHHMM", "TayalHHMMLite", "UP", "DOWN"]
 
@@ -234,20 +234,6 @@ class TayalHHMM(BaseHMMModel):
         return self.pack(params)
 
 
-def _per_lane(v: torch.Tensor, lead: Tuple[int, ...], n: int) -> torch.Tensor:
-    """A data array as ``[n, T]`` lanes for draws with leading axes
-    ``lead``: ``[T]`` is shared by every draw; ``[lead[0], T]`` holds one
-    series per leading index, repeated over the remaining draw axes."""
-    if v.ndim == 1:
-        return v.expand(n, v.shape[0])
-    if v.ndim == 2 and len(lead) >= 1 and v.shape[0] == lead[0]:
-        return v.repeat_interleave(n // lead[0], dim=0)
-    raise ValueError(
-        f"data arrays must be [T] or [{lead[0] if lead else 'B'}, T] for draws "
-        f"with leading axes {lead}, got {tuple(v.shape)}"
-    )
-
-
 class TayalHHMMLite(TayalHHMM):
     """Same training posterior; generated quantities run filtering on
     the in-sample window and filtering + Viterbi on a held-out OOS
@@ -275,16 +261,7 @@ class TayalHHMMLite(TayalHHMM):
         [..., T_oos]`` (the OOS Viterbi path) for ``theta_draws [...,
         n_free]``. Data arrays are ``[T]`` (one series, every draw) or
         ``[B, T]`` with ``theta_draws [B, ..., n_free]``."""
-        device = resolve_device(device)
-        theta = torch.as_tensor(theta_draws, dtype=torch.float32, device=device)
-        lead = tuple(theta.shape[:-1])
-        flat = theta.reshape(-1, theta.shape[-1])
-        n = flat.shape[0]
-        lanes = {
-            k: _per_lane(torch.as_tensor(v, device=device), lead, n)
-            for k, v in data.items()
-            if v is not None
-        }
+        lead, flat, lanes = draw_lanes(theta_draws, data, device)
         params, _ = self.unpack(flat)
         log_alpha = self._seg_alpha(params, lanes["x"], lanes["sign"], lanes.get("mask"))
         log_alpha_o = self._seg_alpha(

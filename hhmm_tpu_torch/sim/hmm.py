@@ -14,7 +14,7 @@ from typing import Callable, Tuple
 import numpy as np
 import torch
 
-__all__ = ["hmm_sim", "markov_chain_sim", "obsmodel_categorical"]
+__all__ = ["hmm_sim", "markov_chain_sim", "obsmodel_categorical", "obsmodel_gaussian"]
 
 
 def _validate(A: np.ndarray, p_init: np.ndarray) -> None:
@@ -51,6 +51,21 @@ def markov_chain_sim(
     for t in range(1, T):
         z[..., t] = _draw(cdf_A[z[..., t - 1]], u[..., t])
     return z
+
+
+def obsmodel_gaussian(mu, sigma) -> Callable:
+    """Per-state Gaussian emission (`hmm/main.R:11` ``rnorm(1, mu[z],
+    sigma[z])``); ``sample(generator, z)`` returns float32 draws shaped
+    like ``z``."""
+    mu = np.asarray(mu, dtype=np.float32)
+    sigma = np.asarray(sigma, dtype=np.float32)
+
+    def sample(generator: torch.Generator, z: torch.Tensor) -> torch.Tensor:
+        m = torch.as_tensor(mu, device=z.device)[z]
+        s = torch.as_tensor(sigma, device=z.device)[z]
+        return m + s * torch.randn(z.shape, generator=generator, device=z.device)
+
+    return sample
 
 
 def obsmodel_categorical(phi) -> Callable:

@@ -36,8 +36,9 @@ from hhmm_tpu_torch.kernels import (
     make_tayal_trajectory,
     viterbi_dispatch,
 )
+from hhmm_tpu_torch.kernels import dispatch as kernel_dispatch
 from hhmm_tpu_torch.kernels.cuda_build import BUILD_DIR, build
-from hhmm_tpu_torch.models import TayalHHMM, TayalHHMMLite
+from hhmm_tpu_torch.models import GaussianHMM, TayalHHMM, TayalHHMMLite
 from hhmm_tpu_torch.sim import tayal_batch
 
 torch.set_num_threads(1)
@@ -69,6 +70,9 @@ def test_port_file_list_is_complete():
         "hhmm_tpu_torch/infer/chees.py",
         "hhmm_tpu_torch/infer/run.py",
         "hhmm_tpu_torch/infer/nuts.py",
+        "hhmm_tpu_torch/models/gaussian_hmm.py",
+        "hhmm_tpu_torch/core/dists.py",
+        "hhmm_tpu_torch/infer/relabel.py",
     ):
         assert must in names
 
@@ -110,6 +114,15 @@ ENTRY_POINTS = {
         lambda q: -(q * q).sum(-1), torch.zeros(2, 3), ChEESConfig(2, 2, num_chains=2)
     ),
     "params_from_jax": lambda: params_from_jax(TayalHHMM(), np.zeros((2, 35))),
+    "base_generated": lambda: TayalHHMM(gate_mode="hard").generated(
+        torch.zeros(2, 35), {"x": _tiny()[0][0], "sign": _tiny()[1][0]}
+    ),
+    "gaussian_generated": lambda: GaussianHMM(3).generated(
+        torch.zeros(2, GaussianHMM(3).n_free), {"x": torch.zeros(6)}
+    ),
+    "state_draws": lambda: GaussianHMM(3).state_draws(
+        torch.Generator(), torch.zeros(2, GaussianHMM(3).n_free), {"x": torch.zeros(6)}
+    ),
     "constrained_from_jax": lambda: constrained_from_jax(
         TayalHHMM(), {"p_11": np.float32(0.5), "A_row": np.full((2, 2), 0.5),
                       "phi_k": np.full((4, 9), 1 / 9)},
@@ -190,7 +203,7 @@ def test_cuda_vg_rejects_what_the_kernels_do_not_take(monkeypatch):
         return [torch.zeros(s, dtype=dtype).as_subclass(_CudaLike) for s in shapes]
 
     with pytest.raises(ValueError, match="K in"):
-        forward_value_and_grad(*args(3))
+        forward_value_and_grad(*args(5))
     with pytest.raises(TypeError, match="float32"):
         forward_value_and_grad(*args(4, torch.float64))
 
@@ -223,15 +236,50 @@ def test_other_devices_raise(which):
                           torch.zeros(2, 3, 4, **meta))
 
 
-def test_homogeneous_viterbi_on_cuda_is_not_silently_plain(monkeypatch):
+def test_homogeneous_viterbi_on_cuda_is_not_silently_plain(no_cuda, monkeypatch):
+    """A homogeneous ``log_A`` on CUDA goes to the Viterbi kernels (here:
+    no card to build for, so the wrapper raises) and never to the scan
+    or the plain versions."""
+    monkeypatch.setattr(cs, "viterbi_plain", lambda *a: pytest.fail("plain version ran"))
+    monkeypatch.setattr(cs, "backtrack_plain", lambda *a: pytest.fail("plain version ran"))
+    monkeypatch.setattr(kernel_dispatch, "viterbi", lambda *a: pytest.fail("scan ran"))
+
     class _CudaLike(torch.Tensor):
         @property
         def device(self):
             return torch.device("cuda")
 
-    args = [torch.zeros(s).as_subclass(_CudaLike) for s in ((2, 4), (2, 4, 4), (2, 6, 4))]
-    with pytest.raises(NotImplementedError, match="Viterbi kernel"):
+    shapes = ((2, 4), (2, 4, 4), (2, 6, 4), (2, 6))
+    args = [torch.ones(s).as_subclass(_CudaLike) for s in shapes]
+    with pytest.raises(RuntimeError, match="CUDA"):
         viterbi_dispatch(*args)
+
+
+def test_cuda_decode_request_never_falls_back_to_plain(no_cuda, monkeypatch):
+    """The decode kernels' wrappers raise on a CUDA operand without a card
+    to build for, and never run their plain versions."""
+    for name in ("filter_plain", "beta_plain", "viterbi_plain", "backtrack_plain"):
+        monkeypatch.setattr(cs, name, lambda *a: pytest.fail("plain version ran"))
+
+    class _CudaLike(torch.Tensor):
+        @property
+        def device(self):
+            return torch.device("cuda")
+
+    K, N, T = 3, 4, 5
+    pi, A, obs, mask = (
+        torch.zeros(s).as_subclass(_CudaLike) for s in ((K, N), (K, K, N), (T, K, N), (T, N))
+    )
+    back = torch.zeros((T, N), dtype=torch.int32).as_subclass(_CudaLike)
+    for call in (
+        lambda: cs.filter_lanes(pi, A, obs, mask),
+        lambda: cs.beta_lanes(A, obs, mask),
+        lambda: cs.viterbi_lanes(pi, A, obs, mask),
+        lambda: cs.backtrack_lanes(back, pi),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert all(k.launches == 0 for k in (cs.FILTER, cs.BETA, cs.VITERBI, cs.BACKTRACK))
 
 
 def test_import_builds_and_loads_nothing():
