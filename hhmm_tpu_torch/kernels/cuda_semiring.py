@@ -9,7 +9,9 @@ kernel of that module:
   filter, optionally sign-gated, that writes every step's alpha to a
   residual and returns ``ll = lse0(alpha_last)``;
 - ``BWD_SAMPLE`` (``ffbs_bwd_sample.cu``) replaces ``_bwd_sample_kernel``:
-  inverse-CDF backward sampling against pre-drawn uniforms;
+  inverse-CDF backward sampling against pre-drawn uniforms, as every
+  candidate draw of every step packed into one map word a step, then a
+  pointer chase through the maps;
 - ``VG_BWD`` (``vg_bwd.cu``) replaces ``_bwd_kernel``: the clamped
   backward recursion with the Baum-Welch gradients ``(d_pi, d_A,
   d_obs)`` of the forward log-likelihood;
@@ -83,6 +85,10 @@ __all__ = [
 
 _CLAMP = -1.0e30
 CUDA_KS = (2, 3, 4, 8)
+# BWD_SAMPLE keeps its packed candidate maps in shared memory up to this T
+# (kSmemMaxT in ffbs_bwd_sample.cu), beyond it in an int32 scratch of T
+# rounded up to a multiple of 32 words a lane (map_words)
+_BWD_SMEM_MAX_T = 2048
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -98,8 +104,8 @@ BWD_SAMPLE = CudaKernel(
     "ffbs_bwd_sample",
     "ffbs_bwd_sample.cu",
     "hhmm_ffbs_bwd_sample",
-    # K, gated, A, mask, alpha, u, gate, sk, z, T, N, stream
-    [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # K, gated, A, mask, alpha, u, gate, sk, z, scratch, T, N, stream
+    [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "hhmm_tpu/kernels/pallas_semiring.py:584",
 )
 VG_BWD = CudaKernel(
@@ -497,11 +503,14 @@ def bwd_sample_lanes(A_t, mask_t, alpha_t, u_t, gate_t=None, sk_t=None):
     _check_cuda_operands(K, A_t, mask_t, alpha_t, u_t, gate_t, sk_t)
     BWD_SAMPLE.load()
     z = torch.empty((T, N), dtype=torch.int32, device=dev)
+    scratch = None
+    if T > _BWD_SMEM_MAX_T:
+        scratch = torch.empty((N, -(-T // 32) * 32), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         BWD_SAMPLE.launch(
             K, int(gate_t is not None),
             _ptr(A_t), _ptr(mask_t), _ptr(alpha_t), _ptr(u_t), _ptr(gate_t), _ptr(sk_t),
-            _ptr(z), T, N,
+            _ptr(z), _ptr(scratch), T, N,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     return z
