@@ -34,22 +34,30 @@ Phases, one JSON object per line:
    (N, T) = (250, 1000), (1, 1024), (256, 1) and (5, 2100) with masked
    runs at both ends; the value-and-grad pair (``FWD`` + ``VG_BWD``) at N=512, K in
    {3, 4, 8}; the trajectory kernel at the ChEES shape with 2 leapfrogs,
-   and against the unfused leapfrogs over ``make_lp_bc`` with 8; then
-   times each at its main-path shape (the FFBS pair also on one lane
-   and at N in {1, 256, 512, 2048, 8192}, in ns a step).
+   against its plain version in float64 with 8, against the unfused
+   leapfrogs over ``make_lp_bc`` with 8, and at the odd shapes of
+   ``TRAJ_ODD_CASES`` (masked runs at both ends, C in {1, 2, 3}, N=1,
+   T in {1, 100, 1000, 6500}, the last on the scratch path, n_steps in
+   {0, 1, 2, 16, CAP + 4}); then times each at its main-path shape (the
+   FFBS pair also on one lane and at N in {1, 256, 512, 2048, 8192}, in
+   ns a step; the trajectory at N in {1, 512, 2048}, in ms a leapfrog
+   and ns a recursion step).
 4. fit     — the Gibbs fit through the kernels; every chain healthy,
    every logp finite, each FFBS kernel launched exactly once per sweep.
 5. decode  — ``generated`` on 8 thinned draws x 256 series (in-sample
    T=1024, out-of-sample T=256): the gated forward kernel over 2048
    lanes, compared with its plain version on the card.
 6. chees   — the fused ChEES fit: every chain healthy, every logp
-   finite, divergent sampling transitions at most ``DIV_SHARE_MAX`` of
-   all (reported with their count), the trajectory kernel launched
-   once per transition, the value-and-grad kernel once per call of the
-   log density, posterior-mean emission rows near the simulator's.
+   finite, divergent sampling transitions reported with their count,
+   the trajectory kernel launched once per transition, the
+   value-and-grad kernel once per call of the log density,
+   posterior-mean emission rows near the simulator's.
    chees_repeat — the fused fit again: bitwise the same draws; its
    first divergent sampling trajectories replayed on the CPU are
    unstable in float64 too.
+   chees_seeds — the fused fit at three more sampler seeds: divergent
+   sampling transitions at most ``DIV_SHARE_MAX`` of all over the four
+   fits, emission rows near the simulator's in each.
 7. chees_unfused — 10 + 10 transitions with no trajectory kernel: the
    value-and-grad kernel launched once per log-density call, which is
    once per leapfrog plus the initial and step-size-probe calls.
@@ -143,8 +151,13 @@ PHI_MAE_MAX = 0.05  # posterior-mean emission rows vs the simulator's
 # divergent share of the ChEES sampling transitions (lanes x transitions):
 # one shared step size meets a few genuinely unstable trajectories on
 # this batch (they diverge in float64 and through the unfused path too);
-# a wrong gradient diverges on a large share
+# a wrong gradient diverges on a large share. One fit's count is
+# heavy-tailed: a chain that settles where the shared step size is
+# unstable diverges on about every other transition from then on, so
+# the count swings by tens between sampler seeds with either trajectory
+# kernel design, and the share is taken over the fits of CHEES_SEEDS
 DIV_SHARE_MAX = 1e-3
+CHEES_SEEDS = (SEED_SAMPLER, SEED_SAMPLER + 1, SEED_SAMPLER + 2, SEED_SAMPLER + 3)
 REPLAY_DH_MIN = 100.0  # a replayed divergence's float64 energy error
 PROB_ATOL = 1e-5  # decode probabilities: alpha rows sum to 1, kernels vs plain
 # gamma = exp(log_alpha + log_beta - lse(...)) at T=1024: the f32 sum and
@@ -158,6 +171,16 @@ VG_D_ATOL = 1e-5  # d_obs, d_pi, absolute
 VG_DA_RTOL = 1e-4  # d_A, relative: a sum of T terms, one order per side
 # trajectory (tests/test_pallas_traj.py's tolerances): (rtol, atol)
 TRAJ_TOL = {"q": (2e-4, 2e-4), "p": (2e-3, 2e-3), "logp": (1e-4, 5e-3), "grad": (2e-3, 2e-3)}
+# the trajectory kernel against traj_plain at odd shapes, every lane's
+# series with masked runs at both ends: (B, T, C, n_steps). T = 1000 and
+# 100 are off the kernel's 16-step chunks, T = 6500 puts its per-step
+# buffers in the device scratch, n_steps = CAP + 4 is clamped to CAP
+TRAJ_ODD_CASES = ((N_SERIES, T_FIT, CHAINS, 2), (5, 1000, 3, 1), (5, 1000, 1, 0),
+                  (1, T_FIT, 1, 1), (5, 1, 2, CAP + 4), (5, 100, 2, 16), (5, 6500, 2, 1))
+TRAJ_TIMING_LANES = (1, N_LANES, 2048)  # TRAJ timed at T=1024, 16 leapfrogs
+# the largest errors of the one-thread-a-lane kernel this design replaced,
+# on the two full-T checks below (its own run of this script)
+TRAJ_EARLIER_ERR = {"logp_vs_plain": 1.5e-3, "logp_vs_f64_plain": 1.1e-2}
 
 SPIN_CYCLES = 20_000_000  # about 10 ms at the H100's 1.98 GHz (time_ms)
 
@@ -678,9 +701,12 @@ def phase_kernels_traj(device):
         if bad:
             raise AssertionError(f"trajectory vs {what}: out of tolerance {bad}")
     emit("traj_vs_plain", B=N_SERIES, C=CHAINS, T=T_FIT, n_steps=2,
-         max_abs_err={k: v[0] for k, v in vs_plain.items()})
+         max_abs_err={k: v[0] for k, v in vs_plain.items()},
+         earlier_design_logp_err=TRAJ_EARLIER_ERR["logp_vs_plain"])
     emit("traj_vs_plain_f64", B=N_SERIES, C=CHAINS, T=T_FIT, n_steps=8,
-         max_abs_err={k: v[0] for k, v in vs_f64.items()})
+         max_abs_err={k: v[0] for k, v in vs_f64.items()},
+         earlier_design_logp_err=TRAJ_EARLIER_ERR["logp_vs_f64_plain"])
+    odd = [traj_odd_case(device, 4000 + i, *c) for i, c in enumerate(TRAJ_ODD_CASES)]
     emit("traj_vs_unfused", B=N_SERIES, C=CHAINS, T=T_SHORT, n_steps=8,
          max_abs_err={k: v[0] for k, v in vs_unfused.items()})
     emit("traj_vs_unfused_full_T_reported", B=N_SERIES, C=CHAINS, T=T_FIT, n_steps=8,
@@ -696,14 +722,58 @@ def phase_kernels_traj(device):
         lambda: ct.traj_plain(*args, eps_t, n_t(2), CAP, CHAINS), reps=1, warmup=0
     ) / 2
     t["closure_ms_16"] = time_ms(lambda: traj(inv_mass, eps, 16, q, p, None, g0), reps=10)
+    # a leapfrog across batch sizes, and ns a recursion step (2T steps a
+    # leapfrog: the forward and the backward recursion)
+    by_lanes = {}
+    for n_lanes in TRAJ_TIMING_LANES:
+        bx, bs = tayal_batch(max(n_lanes // CHAINS, 1), T_FIT, seed=SEED_DATA, device=device)
+        cb = CHAINS if n_lanes >= CHAINS else 1
+        lx, ls, lm = ct._data_lanes(bx, bs, None, device)
+        la = tuple(torch.randn((ct.DIM, n_lanes), generator=gen, **f32) * s_
+                   for s_ in (0.5, 0.7, 1.0))
+        lim = torch.ones((ct.DIM, bx.shape[0]), **f32)
+        ms = time_ms(lambda: ct.traj_lanes(*la, lim, lx, ls, lm, eps_t, n16, CAP, cb), reps=10) / 16
+        by_lanes[n_lanes] = dict(ms=ms, ns_per_step=ms * 1e6 / (2 * T_FIT))
+    t["by_lanes"] = by_lanes
+    t["ns_per_step"] = t["ms"] * 1e6 / (2 * T_FIT)
     emit("traj_timing", shape=dict(B=N_SERIES, C=CHAINS, T=T_FIT), per="leapfrog", **t)
     b, o = traj_bytes_ops(T_FIT, N_SERIES, CHAINS, m_t, 16)
     bms, by = bound(b, o)
-    err = max(v[0] for v in vs_plain.values())
+    err = max([v[0] for v in vs_plain.values()] + [max(c["max_abs_err"].values()) for c in odd])
     return dict(err=err, vs_unfused={k: v[0] for k, v in vs_unfused.items()},
                 vs_f64={k: v[0] for k, v in vs_f64.items()},
                 gap_full={k: v[0] for k, v in gap_full.items()}, timing=t,
-                bound=(bms / 16, by), bytes=b, ops=o)
+                bound=(bms / 16, by), bytes=b, ops=o, odd_cases=len(odd))
+
+
+def traj_odd_case(device, seed: int, B: int, T: int, C: int, n_steps: int):
+    """``TRAJ`` against ``traj_plain`` in f32 within ``TRAJ_TOL`` on a
+    simulated batch of ``B`` series x ``C`` chains, each series with a
+    ragged tail and a masked head (lengths in [T/2, T], first [0, T/8]
+    steps masked), random start states."""
+    rng = np.random.default_rng(seed)
+    x, sign = tayal_batch(B, T, seed=seed, device=device)
+    valid = np.arange(T)[None] < rng.integers(max(T // 2, 1), T + 1, size=B)[:, None]
+    valid &= np.arange(T)[None] >= rng.integers(0, T // 8 + 1, size=B)[:, None]
+    f32 = dict(dtype=torch.float32, device=device)
+    x_t, s_t, m_t = ct._data_lanes(x, sign, torch.as_tensor(valid, **f32), device)
+    N = B * C
+    lanes = [torch.as_tensor(sc * rng.normal(size=(ct.DIM, N)), **f32) for sc in (0.5, 0.7, 1.0)]
+    im = torch.as_tensor(np.exp(0.3 * rng.normal(size=(ct.DIM, B))), **f32)
+    eps = torch.tensor([0.02], **f32)
+    n = torch.tensor([n_steps], dtype=torch.int32, device=device)
+    got = ct.traj_lanes(*lanes, im, x_t, s_t, m_t, eps, n, CAP, C)
+    want = ct.traj_plain(*lanes, im, x_t, s_t, m_t, eps, n, CAP, C)
+    sync()
+    e = state_errors(got, want)
+    bad = {k: v for k, v in e.items() if v[1] > 0}
+    if bad:
+        raise AssertionError(f"trajectory B={B} T={T} C={C} n={n_steps} vs plain: {bad}")
+    row = dict(B=B, T=T, C=C, n_steps=n_steps, masked_steps=int((m_t == 0).sum()),
+               scratch_path=ct.traj_scratch_bytes(T, N) > 0,
+               max_abs_err={k: v[0] for k, v in e.items()})
+    emit("traj_vs_plain_odd", **row)
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -776,7 +846,7 @@ def replay_divergence(case, x, sign):
                 dH_fused_f32=case["dH"], dH_plain_f64=dh64, dH_unfused_f32=dh_unfused)
 
 
-def run_chees(device, warmup, samples, fused, recorder=False):
+def run_chees(device, warmup, samples, fused, recorder=False, seed=SEED_SAMPLER):
     x, sign = tayal_batch(N_SERIES, T_FIT, seed=SEED_DATA, device=device)
     data = {"x": x, "sign": sign}
     model = TayalHHMM()  # stan gate, as bench.py --sampler chees
@@ -791,7 +861,7 @@ def run_chees(device, warmup, samples, fused, recorder=False):
     sync()
     before = {k.name: k.launches for k in ALL_KERNELS}
     t0 = time.perf_counter()
-    qs, stats = sample_chees_batched(lp_bc, init, cfg, seed=SEED_SAMPLER, device=device,
+    qs, stats = sample_chees_batched(lp_bc, init, cfg, seed=seed, device=device,
                                      probe_vg=probe, trajectory_fn=traj)
     sync()
     wall = time.perf_counter() - t0
@@ -817,8 +887,6 @@ def phase_chees(device, gibbs_phi):
         raise AssertionError(f"chees: qs shape {tuple(qs.shape)}")
     n_div = int(stats["diverging"].sum())
     div_share = n_div / stats["diverging"].numel()
-    if not div_share <= DIV_SHARE_MAX:
-        raise AssertionError(f"chees: {n_div} divergent transitions, share {div_share:.3g}")
     worst, swap_share, phi_mean, mae = fold_and_score(model, qs)
     if not mae.mean() <= PHI_MAE_MAX:
         raise AssertionError(f"chees: posterior-mean phi MAE {mae.mean():.3g} > {PHI_MAE_MAX}")
@@ -847,6 +915,29 @@ def phase_chees(device, gibbs_phi):
         phi_gap_vs_gibbs_mean=float(gap.mean()),
     )
     return qs, stats
+
+
+def phase_chees_seeds(device, stats):
+    """The fused fit at the other sampler seeds of ``CHEES_SEEDS`` (the
+    main path's fit is the first): every chain healthy, the emission rows
+    near the simulator's in each, and divergent sampling transitions at
+    most ``DIV_SHARE_MAX`` of all, over the fits of every seed."""
+    counts = {CHEES_SEEDS[0]: int(stats["diverging"].sum())}
+    total = stats["diverging"].numel()
+    maes = {}
+    for seed in CHEES_SEEDS[1:]:
+        model, qs, st, _, _, _, _, _ = run_chees(device, CHEES_WARMUP, CHEES_SAMPLES, fused=True,
+                                                 seed=seed)
+        counts[seed] = int(st["diverging"].sum())
+        total += st["diverging"].numel()
+        maes[seed] = float(fold_and_score(model, qs)[3].mean())
+        if not maes[seed] <= PHI_MAE_MAX:
+            raise AssertionError(f"chees seed {seed}: posterior-mean phi MAE {maes[seed]:.3g}")
+    share = sum(counts.values()) / total
+    emit("chees_seeds", seeds=list(CHEES_SEEDS), divergent_sampling=counts, divergent_share=share,
+         phi_mae_mean=maes)
+    if not share <= DIV_SHARE_MAX:
+        raise AssertionError(f"chees: {counts} divergent transitions over seeds, share {share:.3g}")
 
 
 def phase_chees_repeat(device, qs, stats):
@@ -1300,6 +1391,7 @@ def main() -> int:
     chees_qs, chees_stats = phase_chees(device, gibbs_phi)
     chees = {k.name: k.launches for k in ALL_KERNELS}
     phase_chees_repeat(device, chees_qs, chees_stats)
+    phase_chees_seeds(device, chees_stats)
     # its unfused form
     reset_all()
     phase_chees_unfused(device)
@@ -1351,6 +1443,8 @@ def main() -> int:
               bytes=vgk["bytes"], ops=vgk["ops"])),
         (ct.TRAJ, chees[ct.TRAJ.name], tt["ms"], tt["plain_ms"], trk["bound"], trk["err"],
          dict(per="leapfrog", one_lane_ms=tt["one_lane_ms"], launch_ms_16=tt["launch_ms_16"],
+              ns_per_step=tt["ns_per_step"], by_lanes=tt["by_lanes"],
+              odd_cases_vs_plain=trk["odd_cases"],
               closure_ms_16=tt["closure_ms_16"], max_abs_err_vs_f64_plain_8=trk["vs_f64"],
               max_abs_err_vs_unfused_T64=trk["vs_unfused"],
               max_abs_err_vs_unfused_T1024=trk["gap_full"],

@@ -10,12 +10,23 @@ backward pass with Baum-Welch accumulators, the hand-derived VJPs back
 to the 35 coordinates and the leapfrog updates all inside the kernel.
 The step size and the step count are read from device memory.
 
+The kernel gives each lane a warp. q, p, grad and the inverse mass stay
+in the warp's registers (a coordinate a thread) for the whole launch;
+the lane's series is staged once into shared memory, a byte a step.
+Only the alpha and beta recursions run serially, on one thread, each
+storing its carry a step; the warp computes the normalisers and reduces
+ll, the per-symbol gamma sums and the d_A terms from them in a fixed
+order. Those per-step buffers take 37 bytes a step (T rounded up to
+``T_PAD``) in shared memory: four lanes a block up to T=1536, fewer up
+to T=6240. Past that the wrapper allocates a device scratch of 37 bytes
+a step a lane (:func:`traj_scratch_bytes`) and the kernel keeps them
+there.
+
 The plain version :func:`traj_plain` does the same linear-space algebra
 with Python loops over the leapfrogs and over t. Routing is by device
 only: a CPU tensor runs :func:`traj_plain`, a CUDA tensor launches
-``TRAJ`` or raises. The JAX module's TPU-backend check and VMEM budget
-are TPU facts and have no counterpart here: the kernel keeps the
-per-step filter in a device scratch, so any T fits.
+``TRAJ`` or raises. The kernel sums in other orders than the plain
+version, so the two agree within tolerances, not bitwise.
 
 Layout (lane layout of the kernel): positions, momenta and gradients
 ``[35, N]`` with lane ``n = b * C + c``; the inverse mass ``[35, B]``
@@ -39,6 +50,7 @@ __all__ = [
     "DIM",
     "traj_plain",
     "traj_lanes",
+    "traj_scratch_bytes",
     "tayal_trajectory",
     "make_tayal_trajectory",
 ]
@@ -55,11 +67,17 @@ TRAJ = CudaKernel(
     "tayal_traj.cu",
     "hhmm_tayal_traj",
     # q, p, g, inv_mass, x, sign, mask, eps, n_steps, q1, p1, g1, lp1,
-    # alpha scratch, c scratch, cap, C, T, N, B, stream
-    [_P] * 15 + [_I] * 5 + [_P],
+    # scratch (or NULL), cap, C, T, N, B, stream
+    [_P] * 14 + [_I] * 5 + [_P],
     "hhmm_tpu/kernels/pallas_traj.py:122",
 )
 KERNELS = (TRAJ,)
+
+# the kernel's per-step buffers (csrc/tayal_traj.cu): the forward and the
+# backward slot 16 bytes a step each, 1 / c_t 4, the series 1, T rounded up
+# to T_PAD; a lane's small tables take SMALL_BYTES; a block may hold
+# SMEM_MAX bytes of shared memory
+STEP_BYTES, T_PAD, SMALL_BYTES, SMEM_MAX = 37, 32, 1024, 232448
 
 
 # ---------------------------------------------------------------------------
@@ -223,6 +241,16 @@ def _ptr(t: torch.Tensor):
     return t.data_ptr()
 
 
+def traj_scratch_bytes(T: int, N: int) -> int:
+    """Bytes of device scratch ``TRAJ`` needs for ``N`` lanes of ``T``
+    steps: 0 while one lane's buffers fit in a block's shared memory,
+    else ``STEP_BYTES`` a padded step a lane."""
+    tp = -(-T // T_PAD) * T_PAD
+    if SMALL_BYTES + STEP_BYTES * tp <= SMEM_MAX:
+        return 0
+    return N * STEP_BYTES * tp
+
+
 def traj_lanes(q_t, p_t, g_t, im_t, x_t, sign_t, mask_t, eps, n_steps, cap: int, C: int):
     """One trajectory on the lane layout (see the module docstring):
     ``(q1, p1, logp1, g1)``. ``eps`` is a float32 and ``n_steps`` an
@@ -259,13 +287,13 @@ def traj_lanes(q_t, p_t, g_t, im_t, x_t, sign_t, mask_t, eps, n_steps, cap: int,
     f32 = dict(dtype=torch.float32, device=dev)
     q1, p1, g1 = (torch.empty((DIM, N), **f32) for _ in range(3))
     lp1 = torch.empty((N,), **f32)
-    alpha_scr = torch.empty((T, K, N), **f32)
-    c_scr = torch.empty((T, N), **f32)
+    nbytes = traj_scratch_bytes(T, N)
+    scratch = torch.empty((nbytes,), dtype=torch.uint8, device=dev) if nbytes else None
     with torch.cuda.device(dev):
         TRAJ.launch(
             _ptr(q_t), _ptr(p_t), _ptr(g_t), _ptr(im_t), _ptr(x_t), _ptr(sign_t),
             _ptr(mask_t), _ptr(eps), _ptr(n_steps), _ptr(q1), _ptr(p1), _ptr(g1),
-            _ptr(lp1), _ptr(alpha_scr), _ptr(c_scr), int(cap), C, T, N, B,
+            _ptr(lp1), None if scratch is None else _ptr(scratch), int(cap), C, T, N, B,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     return q1, p1, lp1, g1

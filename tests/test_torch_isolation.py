@@ -2,7 +2,7 @@
 rules:
 
 - no module of ``hhmm_tpu_torch/``, not ``chip_smoke.py`` and not
-  ``bench_ffbs_pair.py`` imports ``jax`` or ``hhmm_tpu`` (an AST scan of
+  ``bench_kernel_pair.py`` imports ``jax`` or ``hhmm_tpu`` (an AST scan of
   every import statement);
 - entry points default to CUDA and raise on a host without it, rather
   than running on the CPU;
@@ -47,7 +47,7 @@ torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "hhmm_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py",
-    REPO / "bench_ffbs_pair.py",
+    REPO / "bench_kernel_pair.py",
 ]
 FORBIDDEN = {"jax", "jaxlib", "hhmm_tpu"}
 
@@ -66,7 +66,7 @@ def test_port_file_list_is_complete():
     names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
     for must in (
         "chip_smoke.py",
-        "bench_ffbs_pair.py",
+        "bench_kernel_pair.py",
         "hhmm_tpu_torch/kernels/cuda_semiring.py",
         "hhmm_tpu_torch/infer/gibbs.py",
         "hhmm_tpu_torch/models/tayal.py",
