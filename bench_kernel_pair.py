@@ -2,25 +2,37 @@
 """Time this checkout's hand-written kernels against the same kernels
 built from another source directory, and against variants of this
 checkout's constants, in turns on one CUDA card: the FFBS pair (``FWD``:
-``ffbs_fwd.cu``, ``BWD_SAMPLE``: ``ffbs_bwd_sample.cu``) and the fused
-trajectory kernel (``TRAJ``: ``tayal_traj.cu``).
+``ffbs_fwd.cu``, ``BWD_SAMPLE``: ``ffbs_bwd_sample.cu``), the fused
+trajectory kernel (``TRAJ``: ``tayal_traj.cu``), the value-and-grad
+backward pass (``VG_BWD``: ``vg_bwd.cu``), the guarded beta (``BETA``:
+``semiring_beta.cu``) and the other decode kernels (``FILTER``:
+``semiring_filter.cu``, ``VITERBI`` and ``BACKTRACK``:
+``semiring_viterbi.cu``).
 
-    python3 bench_kernel_pair.py --other DIR [--label NAME] [--only ffbs|traj|chees]
+    python3 bench_kernel_pair.py --other DIR [--label NAME]
+                                 [--only ffbs|traj|chees|vg|beta|decode]
                                  [--seeds N] [--out FILE]
 
 ``DIR`` holds the other tree's sources (for example
 ``hhmm_tpu_torch/kernels/csrc`` of a ``git archive`` of an earlier
 commit). Every library is built with ``nvcc`` into a temporary directory,
-with the flags of ``kernels/cuda_build.py`` (``-Xptxas -v``: registers,
-shared memory and spills per kernel are reported). Before timing, each
-build is checked against this checkout's: the FFBS pair bitwise (alpha,
-loglik and draws at N=256, T=1024, K in {3, 4}, gated and not), the
-trajectory within ``chip_smoke.TRAJ_TOL`` (2 leapfrogs at 256 series x 2
-chains, T=1024, and 3 at 5 series x 3 chains, T=1000, masked runs at
-both ends). Then the FFBS builds are timed at N in {1, 256, 512, 2048,
-8192} lanes (T=1024, K=4, ungated) and the trajectory builds at N in
-{1, 512, 2048} lanes (T=1024, 16 leapfrogs a launch, ms a leapfrog and
-ns a recursion step), in the order other, this, variants, this, other.
+from a copy of its tree's sources and headers, with the flags of
+``kernels/cuda_build.py`` (``-Xptxas -v``: registers, shared memory and
+spills per kernel are reported). Before timing, each build is checked
+against this checkout's: the FFBS pair bitwise (alpha, loglik and draws
+at N=256, T=1024, K in {2, 3, 4, 8}, gated and not), the trajectory
+within ``chip_smoke.TRAJ_TOL`` (2 leapfrogs at 256 series x 2 chains,
+T=1024, and 3 at 5 series x 3 chains, T=1000, masked runs at both ends),
+``VG_BWD`` bitwise (N=512, T=1024, K in {3, 4, 8}, gated and not;
+``vg_no_sums``, which drops the Baum-Welch sums to time what they cost,
+on d_pi and d_obs only), ``BETA`` and the decode kernels bitwise (N=2048,
+T=1024, K in {3, 4, 8}, ``MASK_NEG``-sparse A, -inf evidence rows). Then
+the FFBS builds are timed at N in {1, 256, 512, 2048, 8192} lanes
+(T=1024, K=4, ungated), the trajectory builds at N in {1, 512, 2048}
+lanes (T=1024, 16 leapfrogs a launch, ms a leapfrog and ns a recursion
+step), ``VG_BWD`` at N in {1, 512, 2048} (T=1024, K=4, gated), ``BETA``
+and the decode kernels at N in {1, 512, 8192} (T=1024, K=4, dense
+mask), in the order other, this, variants, this, other.
 Last, the fused ChEES fit of ``chip_smoke.py`` runs with each tree's
 ``TRAJ`` at sampler seeds 0 .. N - 1 (the two in turns, which one first
 alternating by seed): transition time, divergent sampling transitions,
@@ -39,13 +51,14 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from chip_smoke import (CAP, CHAINS, CHEES_SAMPLES, CHEES_WARMUP, SEED_DATA, SEED_INIT,
-                        state_errors)
+                        make_decode_case, state_errors)
 from hhmm_tpu_torch.batch import default_init
 from hhmm_tpu_torch.infer import ChEESConfig, make_lp_bc, sample_chees_batched
 from hhmm_tpu_torch.kernels import cuda_semiring as cs
@@ -59,7 +72,9 @@ LANES = (1, 256, 512, 2048, 8192)
 TRAJ_LANES = (1, 512, 2048)
 TRAJ_STEPS, TRAJ_CAP = 16, 16
 SPIN_CYCLES = 20_000_000  # about 10 ms at the H100's 1.98 GHz: longer than queuing the calls
-# variants of this checkout's constants: (kernel source, name, {old: new})
+VG_LANES = (1, 512, 2048)
+BETA_LANES = (1, 512, 8192)
+# variants of this checkout's constants: (source or header, name, {old: new})
 VARIANTS = (
     ("ffbs_fwd.cu", "fwd_ring24", {"kStages = 3;": "kStages = 4;"}),
     ("ffbs_fwd.cu", "fwd_ring32", {"kChunk = 8;": "kChunk = 16;"}),
@@ -72,6 +87,14 @@ TRAJ_VARIANTS = (
     ("traj_warps1", {"kWarps = 4;": "kWarps = 1;"}),
     ("traj_chunk32", {"kChunk = 16;": "kChunk = 32;"}),
 )
+# the shared beta core's constants (beta_core.cuh), for VG_BWD and BETA
+BETA_VARIANTS = (
+    ("beta_core.cuh", "block32", {"kBetaBlock = 64;": "kBetaBlock = 32;"}),
+    ("beta_core.cuh", "ring4", {"kBetaStages = 3;": "kBetaStages = 4;"}),
+)
+# VG_BWD without the Baum-Welch sums: what keeping them in the
+# recursion's threads costs (its d_A is not computed)
+VG_NO_SUMS = ("beta_core.cuh", "vg_no_sums", {"dA[j] += xi * m01;": "(void)xi;"})
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -81,27 +104,44 @@ def emit(records, **fields) -> None:
     print(json.dumps(fields), flush=True)
 
 
-def build(src_text: str, name: str, workdir: Path):
-    """Compile one source text into ``workdir``; returns (library, ptxas
-    register/shared-memory lines)."""
-    src = workdir / f"{name}.cu"
-    src.write_text(src_text)
-    lib = workdir / f"{name}.so"
-    out = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(lib), str(src)],
-                         capture_output=True, text=True, timeout=600)
-    if out.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}:\n{out.stdout}{out.stderr}")
-    log = out.stdout + out.stderr
-    regs = [ln.strip() for ln in log.splitlines() if "Used" in ln or "spill" in ln]
-    return ctypes.CDLL(str(lib)), regs
+def tree(directory: Path) -> dict:
+    """A tree's kernel sources and headers, ``{file name: text}``."""
+    return {p.name: p.read_text() for p in sorted(directory.glob("*.cu*"))}
 
 
-def substitute(text: str, subs: dict, name: str) -> str:
+def build(jobs, workdir: Path) -> dict:
+    """Compile every ``(name, files, source)`` of ``jobs`` (``source`` of
+    the tree ``files``, written to a directory of its own, so that its
+    quoted includes find the tree's headers), eight ``nvcc`` at a time;
+    returns ``{name: (library, ptxas register/spill lines)}``."""
+
+    def one(job):
+        name, files, source = job
+        d = workdir / name
+        d.mkdir()
+        for fname, text in files.items():
+            (d / fname).write_text(text)
+        lib = d / f"{name}.so"
+        out = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(lib), str(d / source)],
+                             capture_output=True, text=True, timeout=900)
+        if out.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}:\n{out.stdout}{out.stderr}")
+        log = out.stdout + out.stderr
+        return lib, [ln.strip() for ln in log.splitlines() if "Used" in ln or "spill" in ln]
+
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        done = dict(zip((j[0] for j in jobs), pool.map(one, jobs)))
+    return {name: (ctypes.CDLL(str(lib)), regs) for name, (lib, regs) in done.items()}
+
+
+def substitute(files: dict, fname: str, subs: dict, name: str) -> dict:
+    """A copy of the tree ``files`` with ``subs`` made in ``fname``."""
+    text = files[fname]
     for old, new in subs.items():
         if old not in text:
-            raise RuntimeError(f"variant {name}: '{old}' not in the source")
+            raise RuntimeError(f"variant {name}: '{old}' not in {fname}")
         text = text.replace(old, new)
-    return text
+    return {**files, fname: text}
 
 
 def time_ms(fn, reps: int) -> float:
@@ -191,28 +231,22 @@ def make_lanes(seed: int, N: int, T: int, K: int, gated: bool):
 
 
 def bench_ffbs(label, other_dir: Path, work: Path, records) -> None:
-    this_src = {f: (CSRC_DIR / f).read_text() for f in ("ffbs_fwd.cu", "ffbs_bwd_sample.cu")}
-    other_src = {f: (other_dir / f).read_text() for f in this_src}
+    this_src, other_src = tree(CSRC_DIR), tree(other_dir)
+    trees = [(label, other_src), ("this", this_src)]
+    trees += [(name, substitute(this_src, source, subs, name)) for source, name, subs in VARIANTS]
+    libs = build([(f"{name}_{part}", files, f"ffbs_{part}.cu")
+                  for name, files in trees for part in ("fwd", "bwd_sample")], work)
     builds = {}
-
-    def pair(name, fwd_text, bwd_text):
-        fl, fr = build(fwd_text, f"{name}_fwd", work)
-        bl, br = build(bwd_text, f"{name}_bwd", work)
-        has_scratch = re.search(r"hhmm_ffbs_bwd_sample\([^)]*scratch", bwd_text, re.S)
+    for name, files in trees:
+        (fl, fr), (bl, br) = libs[f"{name}_fwd"], libs[f"{name}_bwd_sample"]
+        has_scratch = re.search(r"hhmm_ffbs_bwd_sample\([^)]*scratch", files["ffbs_bwd_sample.cu"],
+                                re.S)
         builds[name] = Pair(name, fl, bl, bool(has_scratch), {"fwd": fr, "bwd": br})
-
-    pair(label, other_src["ffbs_fwd.cu"], other_src["ffbs_bwd_sample.cu"])
-    pair("this", this_src["ffbs_fwd.cu"], this_src["ffbs_bwd_sample.cu"])
-    for source, name, subs in VARIANTS:
-        text = substitute(this_src[source], subs, name)
-        fwd = text if source == "ffbs_fwd.cu" else this_src["ffbs_fwd.cu"]
-        bwd = text if source == "ffbs_bwd_sample.cu" else this_src["ffbs_bwd_sample.cu"]
-        pair(name, fwd, bwd)
     for name, b in builds.items():
         emit(records, phase="build", kernel="ffbs", label=name, ptxas=b.regs)
 
     # every build bitwise equal to this checkout's
-    for K in (3, 4):
+    for K in (2, 3, 4, 8):
         for gated in (False, True):
             lanes, u_t = make_lanes(10 + K + gated, 256, T_BENCH, K, gated)
             ll0, a0 = builds["this"].run_fwd(lanes)
@@ -313,19 +347,16 @@ def traj_case(seed: int, B: int, T: int, C: int, both_ends: bool):
 
 
 def bench_traj(label, other_dir: Path, work: Path, records) -> None:
-    this_src = (CSRC_DIR / "tayal_traj.cu").read_text()
-    other_src = (other_dir / "tayal_traj.cu").read_text()
+    this_src, other_src = tree(CSRC_DIR), tree(other_dir)
+    trees = [(label, other_src), ("this", this_src)]
+    trees += [(name, substitute(this_src, "tayal_traj.cu", subs, name))
+              for name, subs in TRAJ_VARIANTS]
+    libs = build([(name, files, "tayal_traj.cu") for name, files in trees], work)
     builds = {}
-
-    def one(name, text):
-        lib, regs = build(text, f"{name}_traj", work)
-        two = re.search(r"hhmm_tayal_traj\([^)]*alpha_scr", text, re.S) is not None
-        builds[name] = Traj(name, lib, two, regs)
-
-    one(label, other_src)
-    one("this", this_src)
-    for name, subs in TRAJ_VARIANTS:
-        one(name, substitute(this_src, subs, name))
+    for name, files in trees:
+        two = re.search(r"hhmm_tayal_traj\([^)]*alpha_scr", files["tayal_traj.cu"], re.S)
+        lib, regs = libs[name]
+        builds[name] = Traj(name, lib, two is not None, regs)
     for name, b in builds.items():
         emit(records, phase="build", kernel="traj", label=name, ptxas=b.regs)
 
@@ -358,8 +389,10 @@ def bench_chees(label, other_dir: Path, work: Path, records, seeds: int) -> None
     T=1024, 150 + 150 transitions, cap 16) with this checkout's ``TRAJ``
     and the other tree's, at sampler seeds 0 .. seeds - 1, in turns: the
     transition time and the divergent sampling transitions of each."""
-    lib, regs = build((other_dir / "tayal_traj.cu").read_text(), f"{label}_chees_traj", work)
-    other = Traj(label, lib, True, regs)
+    other_src = tree(other_dir)
+    (lib, regs), = build([(f"{label}_chees_traj", other_src, "tayal_traj.cu")], work).values()
+    two = re.search(r"hhmm_tayal_traj\([^)]*alpha_scr", other_src["tayal_traj.cu"], re.S)
+    other = Traj(label, lib, two is not None, regs)
     x, sign = tayal_batch(256, T_BENCH, seed=SEED_DATA, device="cuda")
     data = {"x": x, "sign": sign}
     model = TayalHHMM()
@@ -391,13 +424,176 @@ def bench_chees(label, other_dir: Path, work: Path, records, seeds: int) -> None
                  accept_mean_sampling=float(st["accept_prob"].mean()))
 
 
+# ---------------------------------------------------------------------------
+# the backward recursions (VG_BWD, BETA) and the other decode kernels
+# ---------------------------------------------------------------------------
+
+
+def bind(lib, kernel):
+    """``kernel``'s C entry in ``lib``, with the wrapper's argument types."""
+    fn = getattr(lib, kernel.symbol)
+    fn.argtypes, fn.restype = kernel.argtypes, _I
+    return fn
+
+
+def _ptrs(*ts):
+    return [None if t is None else t.data_ptr() for t in ts]
+
+
+def _stream():
+    return torch.cuda.current_stream().cuda_stream
+
+
+def run_vg(fn, lanes, alpha, ll):
+    _, A_t, obs_t, mask_t, gate_t, sk_t = lanes
+    T, K, N = obs_t.shape
+    out = [torch.empty(s, device="cuda") for s in ((K, N), (K, K, N), (T, K, N))]
+    rc = fn(K, int(gate_t is not None), *_ptrs(A_t, obs_t, mask_t, alpha, ll, gate_t, sk_t),
+            *_ptrs(*out), T, N, _stream())
+    if rc != 0:
+        raise RuntimeError(f"VG_BWD launch failed ({rc})")
+    return out
+
+
+def run_decode(kernel, fn, lanes):
+    """One launch of a decode kernel (``BACKTRACK`` on the maps this
+    checkout's ``VITERBI`` makes of ``lanes``)."""
+    pi_t, A_t, obs_t, mask_t = lanes[:4]
+    T, K, N = obs_t.shape
+    f32 = dict(dtype=torch.float32, device="cuda")
+    if kernel is cs.BETA:
+        out = [torch.empty((T, K, N), **f32)]
+        rc = fn(K, *_ptrs(A_t, obs_t, mask_t, *out), T, N, _stream())
+    elif kernel is cs.FILTER:
+        out = [torch.empty((N,), **f32), torch.empty((T, K, N), **f32)]
+        rc = fn(K, *_ptrs(pi_t, A_t, obs_t, mask_t, *out), T, N, _stream())
+    elif kernel is cs.VITERBI:
+        out = [torch.empty((N,), **f32), torch.empty((K, N), **f32),
+               torch.empty((T, N), dtype=torch.int32, device="cuda")]
+        rc = fn(K, *_ptrs(pi_t, A_t, obs_t, mask_t, *out), T, N, _stream())
+    else:
+        back, dlast = lanes[4], lanes[5]
+        out = [torch.empty((T, N), dtype=torch.int32, device="cuda")]
+        rc = fn(K, *_ptrs(back, dlast, *out), T, N, _stream())
+    if rc != 0:
+        raise RuntimeError(f"{kernel.name} launch failed ({rc})")
+    return out
+
+
+def _decode_lanes(seed, N, K, finite):
+    """``make_decode_case`` lanes with this checkout's Viterbi maps and
+    ``dlast`` appended (the backtrack's inputs)."""
+    lanes = make_decode_case(seed, N, T_BENCH, K, "cuda", finite)
+    _, dlast, back = cs.viterbi_lanes(*lanes)
+    return (*lanes, back, dlast)
+
+
+def _dense_decode_lanes(N):
+    rng = np.random.default_rng(6000)
+    f32 = dict(dtype=torch.float32, device="cuda")
+    log_A = rng.normal(size=(N, K_BENCH, K_BENCH))
+    log_A -= np.log(np.exp(log_A).sum(-1, keepdims=True))
+    lanes = cs.to_lanes(
+        torch.as_tensor(np.full((N, K_BENCH), -np.log(K_BENCH)), **f32),
+        torch.as_tensor(log_A, **f32),
+        torch.as_tensor(rng.normal(size=(N, T_BENCH, K_BENCH)) - 1.0, **f32),
+        torch.ones((N, T_BENCH), **f32),
+    )[:4]
+    _, dlast, back = cs.viterbi_lanes(*lanes)
+    return (*lanes, back, dlast)
+
+
+def _timing_order(label, names):
+    return [label, "this", *names, "this", label]
+
+
+def bench_vg(label, other_dir: Path, work: Path, records) -> None:
+    this_src, other_src = tree(CSRC_DIR), tree(other_dir)
+    variants = [(name, substitute(this_src, f, subs, name))
+                for f, name, subs in (*BETA_VARIANTS, VG_NO_SUMS)]
+    trees = [(label, other_src), ("this", this_src), *variants]
+    libs = build([(f"{name}_vg", files, "vg_bwd.cu") for name, files in trees], work)
+    builds = {}
+    for name, _ in trees:
+        lib, regs = libs[f"{name}_vg"]
+        builds[name] = bind(lib, cs.VG_BWD)
+        emit(records, phase="build", kernel="vg_bwd", label=name, ptxas=regs)
+
+    # bitwise equal to this checkout's (vg_no_sums on d_pi and d_obs only)
+    for K in (3, 4, 8):
+        for gated in (False, True):
+            lanes, _ = make_lanes(30 + K + gated, 512, T_BENCH, K, gated)
+            ll, alpha = cs.fwd_lanes(*lanes)
+            ref = run_vg(builds["this"], lanes, alpha, ll)
+            for name, fn in builds.items():
+                got = run_vg(fn, lanes, alpha, ll)
+                torch.cuda.synchronize()
+                keep = (0, 2) if name == VG_NO_SUMS[1] else (0, 1, 2)
+                if not all(torch.equal(got[i], ref[i]) for i in keep):
+                    raise AssertionError(f"{name} VG_BWD differs from this checkout at K={K} "
+                                         f"gated={gated}")
+    emit(records, phase="agree", kernel="vg_bwd", bitwise_equal=True, builds=list(builds))
+
+    order = _timing_order(label, [v[0] for v in variants])
+    for N in VG_LANES:
+        lanes, _ = make_lanes(31, N, T_BENCH, K_BENCH, True)
+        ll, alpha = cs.fwd_lanes(*lanes)
+        for turn, name in enumerate(order):
+            fn = builds[name]
+            ms = time_ms(lambda: run_vg(fn, lanes, alpha, ll), 50)
+            emit(records, phase="timing", kernel="vg_bwd", label=name, turn=turn, N=N, T=T_BENCH,
+                 K=K_BENCH, gated=True, ms=ms, ns_per_step=ms * 1e6 / T_BENCH)
+        del lanes, ll, alpha
+
+
+def bench_decode_kernels(label, other_dir: Path, work: Path, records, kernels, variants) -> None:
+    """``kernels`` (of ``cs``) of this tree, the other tree and this
+    tree's ``variants``: bitwise equal to this checkout's, then timed."""
+    this_src, other_src = tree(CSRC_DIR), tree(other_dir)
+    trees = [(label, other_src), ("this", this_src)]
+    trees += [(name, substitute(this_src, f, subs, name)) for f, name, subs in variants]
+    libs = build([(f"{name}_{k.name}", files, k.source.name) for name, files in trees
+                   for k in kernels], work)
+    builds = {}
+    for name, _ in trees:
+        for k in kernels:
+            lib, regs = libs[f"{name}_{k.name}"]
+            builds[name, k.name] = bind(lib, k)
+            emit(records, phase="build", kernel=k.name, label=name, ptxas=regs)
+
+    for K in (3, 4, 8):
+        for finite in (True, False):
+            lanes = _decode_lanes(40 + K + finite, 2048, K, finite)
+            for k in kernels:
+                ref = run_decode(k, builds["this", k.name], lanes)
+                for name, _ in trees:
+                    got = run_decode(k, builds[name, k.name], lanes)
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+                        raise AssertionError(f"{name} {k.name} differs from this checkout at "
+                                             f"K={K} finite={finite}")
+    emit(records, phase="agree", kernels=[k.name for k in kernels], bitwise_equal=True,
+         builds=[n for n, _ in trees])
+
+    order = _timing_order(label, [v[1] for v in variants])
+    for N in BETA_LANES:
+        lanes = _dense_decode_lanes(N)
+        for k in kernels:
+            for turn, name in enumerate(order):
+                fn = builds[name, k.name]
+                ms = time_ms(lambda: run_decode(k, fn, lanes), 50 if N <= 2048 else 20)
+                emit(records, phase="timing", kernel=k.name, label=name, turn=turn, N=N,
+                     T=T_BENCH, K=K_BENCH, ms=ms, ns_per_step=ms * 1e6 / T_BENCH)
+        del lanes
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", required=True, type=Path,
-                    help="directory with the other tree's ffbs_fwd.cu, ffbs_bwd_sample.cu "
-                         "and tayal_traj.cu")
+                    help="directory with the other tree's kernel sources (kernels/csrc)")
     ap.add_argument("--label", default="other", help="name of the other tree in the output")
-    ap.add_argument("--only", choices=("ffbs", "traj", "chees"), help="run one of the three")
+    ap.add_argument("--only", choices=("ffbs", "traj", "chees", "vg", "beta", "decode"),
+                    help="run one of the six")
     ap.add_argument("--seeds", type=int, default=4, help="sampler seeds of the ChEES comparison")
     ap.add_argument("--out", type=Path, help="also write every record to this JSON file")
     args = ap.parse_args()
@@ -417,6 +613,14 @@ def main() -> int:
             bench_traj(args.label, args.other, Path(tmp), records)
         if args.only in (None, "chees"):
             bench_chees(args.label, args.other, Path(tmp), records, args.seeds)
+        if args.only in (None, "vg"):
+            bench_vg(args.label, args.other, Path(tmp), records)
+        if args.only in (None, "beta"):
+            bench_decode_kernels(args.label, args.other, Path(tmp), records, (cs.BETA,),
+                                 BETA_VARIANTS)
+        if args.only in (None, "decode"):
+            bench_decode_kernels(args.label, args.other, Path(tmp), records,
+                                 (cs.FILTER, cs.VITERBI, cs.BACKTRACK), ())
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(records, indent=1))

@@ -19,21 +19,25 @@ before it and read just after:
 - the zoo's generated quantities (``BaseHMMModel.generated``: guarded
   smoothing and Viterbi): the hard-gate Tayal posterior of the Gibbs
   fit and of the ChEES fit, 32 draws x 256 series = 8192 lanes at
-  T=1024, and the Gaussian HMM of ``hmm/main.R`` (K=3, T=500, 256
-  series) fitted by Gibbs, decoded and path-sampled.
+  T=1024, the Gaussian HMM of ``hmm/main.R`` (K=3, T=500, 256 series)
+  fitted by Gibbs, decoded and path-sampled, and the same model with
+  K=5 and K=12 states (the 12 of ``bench_zoo.py``'s expanded HSMM).
 
 Phases, one JSON object per line:
 
 1. device  — requires CUDA (exits non-zero without it); prints the
    card's ``nvidia-smi`` name and power limit on a line of its own.
 2. build   — builds every kernel from ``hhmm_tpu_torch/kernels/csrc``
-   with ``nvcc`` (all sources in parallel).
+   with ``nvcc`` (all sources in parallel); ``ptxas`` reports each
+   kernel instantiation's registers and spills (line ``ptxas``).
 3. kernels — each kernel against its plain version on the card: the
    FFBS pair bitwise (alpha, ll and every draw) at K in {2, 3, 4, 8},
    ungated and gated, at N=256, T=1024 with a ragged tail and at
    (N, T) = (250, 1000), (1, 1024), (256, 1) and (5, 2100) with masked
-   runs at both ends; the value-and-grad pair (``FWD`` + ``VG_BWD``) at N=512, K in
-   {3, 4, 8}; the trajectory kernel at the ChEES shape with 2 leapfrogs,
+   runs at both ends, and at every other K in 2..16 at (64, 1024) and
+   (3, 2100) (the maps' device scratch); the value-and-grad pair
+   (``FWD`` + ``VG_BWD``) bitwise at N=512, K in {3, 4, 8}, and at every
+   other K in 2..16 at N=64; the trajectory kernel at the ChEES shape with 2 leapfrogs,
    against its plain version in float64 with 8, against the unfused
    leapfrogs over ``make_lp_bc`` with 8, and at the odd shapes of
    ``TRAJ_ODD_CASES`` (masked runs at both ends, C in {1, 2, 3}, N=1,
@@ -62,10 +66,11 @@ Phases, one JSON object per line:
    value-and-grad kernel launched once per log-density call, which is
    once per leapfrog plus the initial and step-size-probe calls.
 8. kernels_decode — ``FILTER``, ``BETA``, ``VITERBI`` and ``BACKTRACK``
-   at N=8192, T=1024, K in {3, 4, 8}, ragged mask, ``MASK_NEG``-sparse
-   A, tie lanes, with and without all -inf evidence rows: bitwise equal
-   to their plain versions, ``FILTER`` bitwise equal to ``FWD`` on
-   finite inputs; then times each at N=8192, T=1024, K=4.
+   at N=8192, T=1024, K in {3, 4, 8} (every other K in 2..16 at N=256),
+   ragged mask, ``MASK_NEG``-sparse A, tie lanes, with and without all
+   -inf evidence rows: bitwise equal to their plain versions, ``FILTER``
+   bitwise equal to ``FWD`` on finite inputs; then times each at
+   N=8192, T=1024, K=4.
    decode_smooth — ``TayalHHMM(gate_mode="hard").generated`` on 32
    Gibbs draws x 256 series: shapes, probability rows, each decode
    kernel launched once, every output against the plain versions on
@@ -78,6 +83,11 @@ Phases, one JSON object per line:
    sweep), posterior-mean mu within ``G_MU_TOL``, ``generated`` (each
    decode kernel once, Viterbi accuracy above ``G_ACC_MIN``) and
    ``state_draws`` (one ``FWD`` and one ``BWD_SAMPLE``).
+   gaussian_k — the same model at K=5 and K=12 (two map words a step):
+   a short Gibbs fit on 256 simulated series (each FFBS kernel once a
+   sweep), ``generated`` (each decode kernel once) and ``state_draws``
+   (``FWD`` and ``BWD_SAMPLE`` once), every output against the plain
+   versions on the same lanes and uniforms.
 9. the kernels line, then the last line ``{"ok": true, "device": ...}``.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -87,6 +97,7 @@ result line. It imports nothing of JAX or of ``hhmm_tpu``.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -134,6 +145,10 @@ G_MU, G_SIGMA = [-2.0, 0.5, 3.0], [0.5, 0.8, 0.6]
 G_PRIOR = dict(m0=0.0, kappa0=0.1, a0=2.0, b0=1.0)
 G_WARMUP, G_SAMPLES = 100, 300
 SEED_GAUSS = 7
+# the same model with more states: K, sticky A, means 1.5 apart, 8 draws
+# a series through the decode
+GK_KS, GK_STAY, GK_SIGMA = (5, 12), 0.8, 0.5
+GK_WARMUP, GK_SAMPLES, GK_DRAWS = 20, 20, 8
 
 # the FFBS checks (each bitwise against the plain versions): every K the
 # kernels take, gated and not, at the main path's shape with a ragged
@@ -143,6 +158,12 @@ SEED_GAUSS = 7
 FFBS_KS = (2, 3, 4, 8)
 FFBS_SHAPES = ((N_SERIES, T_FIT, False), (250, 1000, True), (1, T_FIT, True), (N_SERIES, 1, True),
                (5, 2100, True))
+# every other K the kernels take (2..16: groups of 8 and 16 threads a
+# lane, two map words a step above 8), at fewer lanes
+EXTRA_KS = tuple(k for k in range(cs.K_RANGE[0], cs.K_RANGE[1] + 1) if k not in FFBS_KS)
+EXTRA_FFBS_SHAPES = ((64, T_FIT, True), (3, 2100, True))
+EXTRA_VG_LANES = 64
+EXTRA_DECODE_LANES = 256
 FFBS_TIMING_LANES = (1, 256, 512, 2048, 8192)  # FWD / BWD_SAMPLE timed at T=1024, K=4
 
 # tolerances (kernel vs plain version on the card)
@@ -166,9 +187,6 @@ PROB_ATOL = 1e-5  # decode probabilities: alpha rows sum to 1, kernels vs plain
 GAMMA_SUM_TOL = 1e-3
 G_MU_TOL = 0.35  # Gaussian posterior-mean mu, mean over series (tests/test_gibbs.py)
 G_ACC_MIN = 0.9  # Gaussian Viterbi accuracy (tests/test_models.py)
-VG_LL_RTOL = 1e-5  # value-and-grad loglik, relative
-VG_D_ATOL = 1e-5  # d_obs, d_pi, absolute
-VG_DA_RTOL = 1e-4  # d_A, relative: a sum of T terms, one order per side
 # trajectory (tests/test_pallas_traj.py's tolerances): (rtol, atol)
 TRAJ_TOL = {"q": (2e-4, 2e-4), "p": (2e-3, 2e-3), "logp": (1e-4, 5e-3), "grad": (2e-3, 2e-3)}
 # the trajectory kernel against traj_plain at odd shapes, every lane's
@@ -245,7 +263,7 @@ def make_case(seed: int, N: int, T: int, K: int, gated: bool, device, both_ends:
     gk = sk = None
     if gated:
         gk = torch.as_tensor(rng.integers(0, 2, size=(N, T)), **f32)
-        sk = torch.as_tensor(np.tile([1.0, 0.0, 0.0, 1.0], K // 4 or 1)[:K], **f32)
+        sk = torch.as_tensor(np.resize([1.0, 0.0, 0.0, 1.0], K), **f32)
     u = torch.as_tensor(rng.random((N, T)), **f32)
     lanes = cs.to_lanes(log_pi, log_A.clamp_min(-1e30), log_obs, mask, gk, sk)
     return lanes, u.t().contiguous()
@@ -321,13 +339,14 @@ def traj_bytes_ops(T: int, B: int, C: int, mask_t, n_steps: int):
 def phase_kernels(device):
     """``FWD`` and ``BWD_SAMPLE`` bitwise equal to ``fwd_plain`` and
     ``bwd_sample_plain`` (alpha, ll and every draw) in every case of
-    ``FFBS_KS`` x gated x ``FFBS_SHAPES``; then timed at the main path's
-    shape, on one lane, and at each of ``FFBS_TIMING_LANES`` lanes."""
+    ``FFBS_KS`` x gated x ``FFBS_SHAPES`` and ``EXTRA_KS`` x gated x
+    ``EXTRA_FFBS_SHAPES``; then timed at the main path's shape, on one
+    lane, and at each of ``FFBS_TIMING_LANES`` lanes."""
     cases = []
     fwd_err = z_err = 0.0
-    for i, (K, gated, (N, T, both)) in enumerate(
-        (K, g, shape) for K in FFBS_KS for g in (False, True) for shape in FFBS_SHAPES
-    ):
+    grid = [(K, g, shape) for K in FFBS_KS for g in (False, True) for shape in FFBS_SHAPES]
+    grid += [(K, g, shape) for K in EXTRA_KS for g in (False, True) for shape in EXTRA_FFBS_SHAPES]
+    for i, (K, gated, (N, T, both)) in enumerate(grid):
         lanes, u_t = make_case(1000 + i, N, T, K, gated, device, both_ends=both)
         pi_t, A_t, obs_t, mask_t, gate_t, sk_t = lanes
         ll_k, a_k = cs.fwd_lanes(*lanes)
@@ -551,11 +570,16 @@ def phase_decode(device, qs):
 
 
 def phase_kernels_vg(device):
-    """``FWD`` + ``VG_BWD`` against ``fwd_plain`` + ``vg_bwd_plain`` at
-    N=512, T=1024, K in {4, 8}, gated and not, ragged mask."""
+    """``FWD`` + ``VG_BWD`` bitwise equal to ``fwd_plain`` +
+    ``vg_bwd_plain`` at N=512, T=1024, K in {3, 4, 8}, and at N=64 at
+    every other K in 2..16, gated and not, ragged mask."""
     errs = {"ll_rel": 0.0, "d_pi": 0.0, "d_obs": 0.0, "d_A_rel": 0.0, "d_A": 0.0}
-    for i, (K, gated) in enumerate([(4, False), (4, True), (8, False), (8, True), (3, False)]):
-        lanes, _ = make_case(3000 + i, N_LANES, T_FIT, K, gated, device)
+    grid = [(N_LANES, K, g) for K, g in [(4, False), (4, True), (8, False), (8, True), (3, False)]]
+    grid += [(EXTRA_VG_LANES, K, g) for K in range(cs.K_RANGE[0], cs.K_RANGE[1] + 1)
+             for g in (False, True) if (K, g) not in {(4, False), (4, True), (8, False),
+                                                      (8, True), (3, False)}]
+    for i, (N, K, gated) in enumerate(grid):
+        lanes, _ = make_case(3000 + i, N, T_FIT, K, gated, device)
         pi_t, A_t, obs_t, mask_t, gate_t, sk_t = lanes
         ll_k, a_k = cs.fwd_lanes(*lanes)
         got = cs.vg_bwd_lanes(A_t, obs_t, mask_t, a_k, ll_k, gate_t, sk_t)
@@ -569,11 +593,12 @@ def phase_kernels_vg(device):
             "d_A_rel": float(((got[1] - want[1]).abs() / want[1].abs().clamp_min(1e-30)).max()),
             "d_A": float((got[1] - want[1]).abs().max()),
         }
-        if not (e["ll_rel"] <= VG_LL_RTOL and e["d_pi"] <= VG_D_ATOL
-                and e["d_obs"] <= VG_D_ATOL and e["d_A_rel"] <= VG_DA_RTOL):
-            raise AssertionError(f"value-and-grad K={K} gated={gated}: {e}")
+        same = torch.equal(ll_k, ll_p) and all(torch.equal(g, w) for g, w in zip(got, want))
+        if not same:
+            raise AssertionError(f"value-and-grad K={K} gated={gated} N={N}: not bitwise "
+                                 f"equal to the plain versions, {e}")
         errs = {k: max(errs[k], v) for k, v in e.items()}
-        emit("vg_vs_plain", N=N_LANES, T=T_FIT, K=K, gated=gated, **e)
+        emit("vg_vs_plain", N=N, T=T_FIT, K=K, gated=gated, bitwise_equal=True, **e)
 
     # timing on the main path's own lanes: the stan-gate Tayal terms of
     # the ChEES fit's inits (K=4, gated, dense)
@@ -1045,14 +1070,17 @@ def decode_bytes_ops(kernel, lanes):
 
 def phase_kernels_decode(device):
     """``FILTER``, ``BETA``, ``VITERBI`` and ``BACKTRACK`` against their
-    plain versions at N=8192, T=1024, K in {3, 4, 8}: bitwise equal
-    (log-values, -inf at the same places, no NaN; maps, paths and
-    scores identical), and ``FILTER`` bitwise equal to ``FWD`` on finite
-    inputs; then each timed at the main shape (K=4, dense mask)."""
+    plain versions at N=8192, T=1024, K in {3, 4, 8}, and at N=256 at
+    every other K in 2..16: bitwise equal (log-values, -inf at the same
+    places, no NaN; maps, paths and scores identical), and ``FILTER``
+    bitwise equal to ``FWD`` on finite inputs; then each timed at the
+    main shape (K=4, dense mask)."""
     cases = []
-    for i, K in enumerate((3, 4, 8)):
+    grid = [(N_DEC, K) for K in (3, 4, 8)] + [(EXTRA_DECODE_LANES, K) for K in range(
+        cs.K_RANGE[0], cs.K_RANGE[1] + 1) if K not in (3, 4, 8)]
+    for i, (N, K) in enumerate(grid):
         for finite in (True, False):
-            lanes = make_decode_case(5000 + 2 * i + finite, N_DEC, T_FIT, K, device, finite)
+            lanes = make_decode_case(5000 + 2 * i + finite, N, T_FIT, K, device, finite)
             pi_t, A_t, obs_t, mask_t = lanes
             ll_k, a_k = cs.filter_lanes(*lanes)
             b_k = cs.beta_lanes(A_t, obs_t, mask_t)
@@ -1075,7 +1103,7 @@ def phase_kernels_decode(device):
                     f"decode kernels K={K} finite={finite}: not identical to the plain "
                     f"versions {bad}, NaN in {nan}"
                 )
-            row = dict(K=K, finite=finite, neg_inf_alpha=int(torch.isinf(a_k).sum()),
+            row = dict(N=N, K=K, finite=finite, neg_inf_alpha=int(torch.isinf(a_k).sum()),
                        neg_inf_beta=int(torch.isinf(b_k).sum()),
                        masked_steps=int((mask_t == 0).sum()))
             if finite:
@@ -1085,7 +1113,7 @@ def phase_kernels_decode(device):
                     raise AssertionError(f"FILTER K={K}: alpha differs from FWD on finite inputs")
                 row["filter_equals_fwd"] = True
             cases.append(row)
-            emit("decode_kernels_vs_plain", N=N_DEC, T=T_FIT, bitwise_equal=True, **row)
+            emit("decode_kernels_vs_plain", T=T_FIT, bitwise_equal=True, **row)
             del lanes, pi_t, A_t, obs_t, mask_t, a_k, a_p, b_k, b_p, got, want
 
     # timing at the main shape: N=8192 lanes, T=1024, K=4, dense mask
@@ -1345,6 +1373,130 @@ def phase_gaussian(device):
          state_draws_accuracy_mean=float(sd_acc))
 
 
+def check_zoo_vs_plain(name, model, draws, data, out, z_draws, seed):
+    """``generated`` and ``state_draws`` of ``model`` on ``draws [B, D,
+    n_free]`` against the plain versions on the same lanes (dense mask):
+    alpha and gamma within ``PROB_ATOL``, the Viterbi path, its score and
+    the loglik identical, and the state draws identical given the
+    uniforms ``state_draws`` took from a generator seeded ``seed``."""
+    B, D = draws.shape[:2]
+    params, _ = model.unpack(draws.reshape(B * D, -1))
+    lanes = {k: v.repeat_interleave(D, 0) for k, v in data.items()}
+    log_pi, log_A, log_obs, _ = model.build(params, lanes)
+    N, T, _ = log_obs.shape
+    ones = torch.ones((N, T), dtype=torch.float32, device=log_obs.device)
+    pi_t, A_t, obs_t, mask_t, _, _ = cs.to_lanes(log_pi, log_A, log_obs, ones)
+    ll_p, a_p = cs.filter_plain(pi_t, A_t, obs_t, mask_t)
+    b_p = cs.beta_plain(A_t, obs_t, mask_t)
+    sc_p, dl_p, bk_p = cs.viterbi_plain(pi_t, A_t, obs_t, mask_t)
+    path_p = cs.backtrack_plain(bk_p, dl_p)
+    la_p, lb_p = a_p.permute(2, 0, 1), b_p.permute(2, 0, 1)
+    ref = {"alpha": torch.softmax(la_p, dim=-1), "gamma": torch.exp(smooth(la_p, lb_p))}
+    errs = {k: float((out[k].reshape(ref[k].shape) - v).abs().max()) for k, v in ref.items()}
+    gen = torch.Generator(device=log_obs.device)
+    gen.manual_seed(seed)
+    u = torch.rand((N, T), generator=gen, dtype=torch.float32, device=log_obs.device)
+    _, A_c, _, _, _, _ = cs.to_lanes(log_pi, log_A.clamp_min(-1e30), log_obs, ones)
+    _, alpha_p = cs.fwd_plain(pi_t, A_c, obs_t, mask_t)
+    z_p = cs.bwd_sample_plain(A_c, mask_t, alpha_p, u.t().contiguous())
+    same = {
+        "zstar": torch.equal(out["zstar"].reshape(N, T), path_p.t().long()),
+        "logp_zstar": torch.equal(out["logp_zstar"].reshape(-1), sc_p),
+        "loglik": torch.equal(out["loglik"].reshape(-1), ll_p),
+        "state_draws": torch.equal(z_draws.reshape(N, T), z_p.t().long()),
+    }
+    if max(errs.values()) > PROB_ATOL or not all(same.values()):
+        raise AssertionError(f"{name}: kernels vs plain {errs}, identical {same}")
+    return errs, same
+
+
+def phase_gaussian_k(device):
+    """The Gaussian HMM at each K of ``GK_KS`` (256 simulated series,
+    T=500, sticky A, means 1.5 apart): a short Gibbs fit (each FFBS kernel
+    once a sweep, every chain healthy), ``generated`` on ``GK_DRAWS``
+    draws a series (each decode kernel once) and ``state_draws`` (``FWD``
+    and ``BWD_SAMPLE`` once), every output against the plain versions on
+    the same lanes."""
+    for K in GK_KS:
+        A = np.full((K, K), (1 - GK_STAY) / (K - 1))
+        np.fill_diagonal(A, GK_STAY)
+        mu = (1.5 * (np.arange(K) - (K - 1) / 2)).tolist()
+        gen = torch.Generator(device=device)
+        gen.manual_seed(SEED_GAUSS + K)
+        z_true, x = hmm_sim(gen, G_T, A.tolist(), np.ones(K) / K,
+                            obsmodel_gaussian(mu, [GK_SIGMA] * K), batch=(N_SERIES,))
+        data = {"x": x}
+        model = GaussianHMM(K=K, nig_prior=NIGPrior(**G_PRIOR))
+        init = default_init(model, data, N_SERIES, 1, seed=SEED_INIT, device=device)
+        cfg = GibbsConfig(num_warmup=GK_WARMUP, num_samples=GK_SAMPLES, num_chains=1)
+        before = launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        qs, stats = sample_gibbs(model, data, init, cfg, seed=SEED_SAMPLER, device=device)
+        sync()
+        wall = time.perf_counter() - t0
+        rose = rose_since(before)
+        sweeps = GK_WARMUP + GK_SAMPLES
+        if rose != {cs.FWD.name: sweeps, cs.BWD_SAMPLE.name: sweeps}:
+            raise AssertionError(f"gaussian_k K={K}: fit launches {rose}, expected {sweeps} "
+                                 "FWD and BWD_SAMPLE")
+        if not bool(stats["chain_healthy"].all()) or not bool(torch.isfinite(stats["logp"]).all()):
+            raise AssertionError(f"gaussian_k K={K}: an unhealthy chain or a non-finite logp")
+
+        draws = thin(qs[:, 0], GK_DRAWS)
+        before = launch_counts()
+        sync()
+        t1 = time.perf_counter()
+        out = model.generated(draws, data, device=device)
+        sync()
+        gen_wall = time.perf_counter() - t1
+        rose_gen = rose_since(before)
+        check_decode_once(f"gaussian_k K={K}", rose_gen)
+        row_dev = {k: check_probabilities(f"gaussian_k K={K}", out, k) for k in ("alpha", "gamma")}
+        if not bool(((out["zstar"] >= 0) & (out["zstar"] < K)).all()):
+            raise AssertionError(f"gaussian_k K={K}: zstar out of range")
+        before = launch_counts()
+        gen_z = torch.Generator(device=device)
+        gen_z.manual_seed(SEED_GAUSS + 100 + K)
+        z_draws = model.state_draws(gen_z, draws, data, device=device)
+        sync()
+        rose_sd = rose_since(before)
+        if rose_sd != {cs.FWD.name: 1, cs.BWD_SAMPLE.name: 1}:
+            raise AssertionError(f"gaussian_k K={K}: state_draws launched {rose_sd}")
+        errs, same = check_zoo_vs_plain(f"gaussian_k K={K}", model, draws, data, out, z_draws,
+                                        SEED_GAUSS + 100 + K)
+        acc = (out["zstar"] == z_true[:, None]).float().mean()
+        emit("gaussian_k", series=N_SERIES, T=G_T, K=K, warmup=GK_WARMUP, samples=GK_SAMPLES,
+             fit_seconds=wall, sweeps_per_s=sweeps / wall, fit_launches=rose,
+             generated_seconds=gen_wall, generated_launches=rose_gen,
+             state_draws_launches=rose_sd, row_sum_max_dev=row_dev,
+             max_abs_err_vs_plain=errs, identical_vs_plain=same,
+             viterbi_accuracy_mean=float(acc))
+
+
+def ptxas_usage(log: str) -> dict:
+    """``{kernel<template args>: [registers, spill store bytes, spill load
+    bytes]}`` from an ``nvcc -Xptxas -v`` log (its entries named from the
+    mangled symbols: ``Li16E`` is 16, ``Lb1E`` true)."""
+    usage, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '_Z\w*?(?<=\d)([a-z_]+_kernel)I(\w*?)EEv", ln)
+        if m:
+            args = re.findall(r"L([ib])(\d+)E", m.group(2))
+            vals = [str(int(v)) if t == "i" else ("true" if v == "1" else "false") for t, v in args]
+            name = f"{m.group(1)}<{','.join(vals)}>"
+            usage[name] = [None, 0, 0]
+        elif name and "spill" in ln:
+            st = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+            if st:
+                usage[name][1:] = [int(st.group(1)), int(st.group(2))]
+        elif name and "Used" in ln:
+            r = re.search(r"Used (\d+) registers", ln)
+            if r:
+                usage[name][0] = int(r.group(1))
+    return usage
+
+
 def reset_all() -> None:
     for k in ALL_KERNELS:
         k.launches = 0
@@ -1369,12 +1521,9 @@ def main() -> int:
 
     t0 = time.perf_counter()
     report = build_and_load(ALL_KERNELS)
-    ptxas = {
-        src: [ln.strip() for ln in r["log"].splitlines() if "registers" in ln or "spill" in ln]
-        for src, r in report.items()
-    }
     per_source = {s: {"seconds": r["seconds"], "cached": r["cached"]} for s, r in report.items()}
-    emit("build", seconds=time.perf_counter() - t0, per_source=per_source, ptxas=ptxas)
+    emit("build", seconds=time.perf_counter() - t0, per_source=per_source)
+    emit("ptxas", **{src: ptxas_usage(r["log"]) for src, r in report.items()})
 
     kern = phase_kernels(device)
     vgk = phase_kernels_vg(device)
@@ -1404,6 +1553,7 @@ def main() -> int:
     dec = phase_decode_smooth(device, qs)
     phase_agreement(device, dec, chees_qs)
     phase_gaussian(device)
+    phase_gaussian_k(device)
     zoo = {k.name: k.launches for k in ALL_KERNELS}
     check_loglik_vs_fwd(dec)
     del dec

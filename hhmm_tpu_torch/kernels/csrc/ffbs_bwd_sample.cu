@@ -26,21 +26,26 @@
 //   g_s = (mask_{t+1} > 0) [* (gate_{t+1} == sk[s])], the arithmetic of
 //   the draw above for successor s, so each candidate is bitwise the
 //   draw the serial walk would make. The K candidates of a step are
-//   packed four bits a state into one 32-bit word (nibble s holds
-//   map_t[s]; K <= 8), as semiring_viterbi.cu packs its backpointers.
-//   The last step's word repeats z_{T-1} in every nibble; the words past
-//   it, up to a multiple of kChase steps, are the identity map.
+//   packed four bits a state into W = ceil(K / 8) 32-bit words (nibble
+//   s % 8 of word s / 8 holds map_t[s]), as semiring_viterbi.cu packs
+//   its backpointers; a step's W words are adjacent. The last step's
+//   words repeat z_{T-1} in every nibble; the words past it, up to a
+//   multiple of kChase steps, are the identity map.
 // - Phase B, a thread per lane: z = 0, then for t = T-1 .. 0,
-//   z_t = (map_t >> 4 z) & 15. A lane's words are contiguous in t, so
-//   the thread reads a chunk of kChase steps with kChase / 4 16-byte
-//   loads, walks it (a shift and a mask a step, no branch, no address
-//   arithmetic) and writes the chunk's z back over its words.
+//   z_t = (map_t[z / 8] >> 4 (z % 8)) & 15 (at W = 1 the shift alone).
+//   A lane's words are contiguous in t, so the thread reads a chunk of
+//   kChase steps with W * kChase / 4 16-byte loads, walks it (a shift
+//   and a mask a step, and at W = 2 a select of the word, no branch, no
+//   address arithmetic) and writes the chunk's z back over the first
+//   word of each step.
 // - Phase C: the block copies z out to z [T, N], coalesced.
 // __syncthreads() separates the phases. The maps live in shared memory
-// (kLanes rows of smem_stride(T) words, 4 bytes a step and lane, the
+// (kLanes rows of smem_stride(T) words, 4 W bytes a step and lane, the
 // rows padded so that phase A's and phase C's accesses fall in distinct
-// banks) when T <= kSmemMaxT, else in an int32 [N, map_words(T)] scratch
-// in device memory that the wrapper allocates.
+// banks at W = 1, two ways at W = 2) when a lane's W * map_words(T)
+// words fit kSmemMaxWords (T <= 2048 at K <= 8, T <= 1024 above), else
+// in an int32 [N, W * map_words(T)] scratch in device memory that the
+// wrapper allocates.
 //
 // Layout: batch-minor as in ffbs_fwd.cu — A [K,K,N], mask/gate/u [T,N],
 // alpha [T,K,N], sk [K,N], z [T,N] int32.
@@ -50,14 +55,18 @@
 // A's latency; at large N phase A's arithmetic, K inverse-CDF draws a
 // step and lane (2K - 1 exponentials and a logarithm each), K times the
 // serial walk's but spread over T x N. The bytes (alpha, u, mask: K+2
-// floats a step, one int32 out) are few.
+// floats a step, one int32 out) are few. At K > 8 phase A keeps A[K][K]
+// in registers and spills (correct, not tuned: PERF.md has the counts).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lane_group.cuh"
+
 namespace {
 
-constexpr float kClamp = -1.0e30f;
+using hhmm::for_k;
+using hhmm::kClamp;
 // lanes a block: on an H100, 2 is 21 % faster at N = 256 (phase A on
 // twice the SMs) and 46 % slower from N = 2048 on (more of every resident
 // block idles while its few threads chase); 8 is faster only at N = 8192
@@ -65,23 +74,30 @@ constexpr int kLanes = 4;
 constexpr int kThreads = 256;  // threads a block
 constexpr int kRows = kThreads / kLanes;  // steps a block covers per pass
 constexpr int kChase = 32;     // phase B: steps a chunk
-constexpr int kSmemMaxT = 2048;  // maps in shared memory up to this T (33 KB)
+constexpr int kSmemMaxWords = 2048;  // a lane's maps in shared memory up to this (33 KB a block)
 
-// words of a lane's maps: T rounded up to a chunk
+// steps of a lane's maps: T rounded up to a chunk
 __host__ __device__ constexpr int map_words(int T) {
   return (T + kChase - 1) / kChase * kChase;
 }
 
-// a lane's row in shared memory: its maps, plus a pad that puts the
-// kLanes rows of a warp's accesses in distinct banks
-__host__ __device__ constexpr int smem_stride(int T) { return map_words(T) + 32 / kLanes; }
+// a lane's row in shared memory: its W words a step, plus a pad that
+// puts the kLanes rows of a warp's accesses in distinct banks
+__host__ __device__ constexpr int smem_stride(int T, int W) {
+  return W * map_words(T) + 32 / kLanes;
+}
 
+// map words a step: eight states a word
 template <int K>
-__device__ __forceinline__ uint32_t identity_map() {
-  uint32_t w = 0;
+constexpr int kWords = (K + 7) / 8;
+
+// word w of the packed identity map: nibble j % 8 holds j
+template <int K>
+__device__ __forceinline__ uint32_t identity_map(int w) {
+  uint32_t m = 0;
 #pragma unroll
-  for (int j = 0; j < K; ++j) w |= static_cast<uint32_t>(j) << (4 * j);
-  return w;
+  for (int j = 8 * w; j < K && j < 8 * w + 8; ++j) m |= static_cast<uint32_t>(j) << (4 * (j % 8));
+  return m;
 }
 
 template <int K>
@@ -139,14 +155,16 @@ ffbs_bwd_sample_kernel(const float* __restrict__ A,
                        const float* __restrict__ sk, int* __restrict__ z_out,
                        uint32_t* scratch, int T, int N) {
   extern __shared__ uint32_t smem_maps[];
+  constexpr int W = kWords<K>;
   const int l = threadIdx.x % kLanes;
   const int n = blockIdx.x * kLanes + l;
   const bool live = n < N;
   const size_t sN = static_cast<size_t>(N);
   const int chunks = map_words(T) / kChase;
-  // this lane's row of map words, t = 0 .. chunks * kChase - 1
-  uint32_t* row = scratch ? scratch + static_cast<size_t>(n) * map_words(T)
-                          : smem_maps + l * smem_stride(T);
+  // this lane's row of map words: step t's W words at W t .. W t + W - 1,
+  // t = 0 .. chunks * kChase - 1
+  uint32_t* row = scratch ? scratch + static_cast<size_t>(n) * W * map_words(T)
+                          : smem_maps + l * smem_stride(T, W);
 
   // ---- phase A: every candidate draw, packed a step into one word
   if (live) {
@@ -165,14 +183,18 @@ ffbs_bwd_sample_kernel(const float* __restrict__ A,
     for (; t < chunks * kChase; t += kRows) {
       // the next row's loads are in flight while this row computes
       if (t + kRows < T) load_row<K, GATED>(nxt, alpha, u, mask, gate, t + kRows, T, sN, n);
-      uint32_t w;
+      uint32_t w[W];
       if (t >= T) {
-        w = identity_map<K>();
+#pragma unroll
+        for (int q = 0; q < W; ++q) w[q] = identity_map<K>(q);
       } else if (t == T - 1) {
-        w = static_cast<uint32_t>(invcdf<K>(cur.al, cur.u)) * 0x11111111u;
+        const uint32_t z = static_cast<uint32_t>(invcdf<K>(cur.al, cur.u)) * 0x11111111u;
+#pragma unroll
+        for (int q = 0; q < W; ++q) w[q] = z;
       } else {
         const float g0 = (cur.m_next > 0.0f) ? 1.0f : 0.0f;
-        w = 0;
+#pragma unroll
+        for (int q = 0; q < W; ++q) w[q] = 0;
 #pragma unroll
         for (int s = 0; s < K; ++s) {
           float g = g0;
@@ -180,10 +202,11 @@ ffbs_bwd_sample_kernel(const float* __restrict__ A,
           float lg[K];
 #pragma unroll
           for (int k = 0; k < K; ++k) lg[k] = cur.al[k] + g * a[k][s];
-          w |= static_cast<uint32_t>(invcdf<K>(lg, cur.u)) << (4 * s);
+          w[s / 8] |= static_cast<uint32_t>(invcdf<K>(lg, cur.u)) << (4 * (s % 8));
         }
       }
-      row[t] = w;
+#pragma unroll
+      for (int q = 0; q < W; ++q) row[W * t + q] = w[q];
       cur = nxt;
     }
   }
@@ -193,10 +216,10 @@ ffbs_bwd_sample_kernel(const float* __restrict__ A,
   if (threadIdx.x < kLanes && live) {
     uint32_t z = 0;
     for (int c = chunks - 1; c >= 0; --c) {
-      uint4* words = reinterpret_cast<uint4*>(row + c * kChase);
-      uint32_t w[kChase];
+      uint4* words = reinterpret_cast<uint4*>(row + W * c * kChase);
+      uint32_t w[W * kChase];  // step k's words at W k .. W k + W - 1
 #pragma unroll
-      for (int q = 0; q < kChase / 4; ++q) {
+      for (int q = 0; q < W * kChase / 4; ++q) {
         const uint4 v = words[q];
         w[4 * q] = v.x;
         w[4 * q + 1] = v.y;
@@ -205,11 +228,15 @@ ffbs_bwd_sample_kernel(const float* __restrict__ A,
       }
 #pragma unroll
       for (int k = kChase - 1; k >= 0; --k) {
-        z = (w[k] >> (4u * z)) & 15u;
-        w[k] = z;
+        if constexpr (W == 1) {
+          z = (w[k] >> (4u * z)) & 15u;
+        } else {
+          z = (((z & 8u) ? w[W * k + 1] : w[W * k]) >> (4u * (z & 7u))) & 15u;
+        }
+        w[W * k] = z;
       }
 #pragma unroll
-      for (int q = 0; q < kChase / 4; ++q)
+      for (int q = 0; q < W * kChase / 4; ++q)
         words[q] = make_uint4(w[4 * q], w[4 * q + 1], w[4 * q + 2], w[4 * q + 3]);
     }
   }
@@ -218,7 +245,7 @@ ffbs_bwd_sample_kernel(const float* __restrict__ A,
   // ---- phase C: z out, the block's kLanes lanes side by side
   if (live) {
     for (int t = threadIdx.x / kLanes; t < T; t += kRows)
-      z_out[static_cast<size_t>(t) * sN + n] = static_cast<int>(row[t]);
+      z_out[static_cast<size_t>(t) * sN + n] = static_cast<int>(row[W * t]);
   }
 }
 
@@ -226,10 +253,11 @@ template <int K, bool GATED>
 int launch(const float* A, const float* mask, const float* alpha,
            const float* u, const float* gate, const float* sk, int* z,
            uint32_t* scratch, int T, int N, cudaStream_t stream) {
-  if (!scratch && T > kSmemMaxT) return -1;  // the maps need the scratch
+  constexpr int W = kWords<K>;
+  if (!scratch && W * map_words(T) > kSmemMaxWords) return -1;  // the maps need the scratch
   const int grid = (N + kLanes - 1) / kLanes;
   const size_t smem =
-      scratch ? 0 : static_cast<size_t>(smem_stride(T)) * kLanes * sizeof(uint32_t);
+      scratch ? 0 : static_cast<size_t>(smem_stride(T, W)) * kLanes * sizeof(uint32_t);
   ffbs_bwd_sample_kernel<K, GATED><<<grid, kThreads, smem, stream>>>(
       A, mask, alpha, u, gate, sk, z, scratch, T, N);
   return 0;
@@ -247,11 +275,12 @@ int launch_k(int gated, const float* A, const float* mask, const float* alpha,
 }  // namespace
 
 // Returns 0 on a good launch, the cudaError_t of a refused one, or -1 for
-// an unsupported K, an empty shape, or T > 2048 without a scratch.
-// `scratch` is null (the maps live in shared memory) or an int32
-// [N, map_words(T)] buffer the caller owns, required when T > 2048, with
-// map_words(T) = T rounded up to a multiple of 32. Launches on `stream`,
-// does not synchronise and allocates nothing.
+// a K outside 2..16, an empty shape, or maps over 2048 words a lane
+// without a scratch. `scratch` is null (the maps live in shared memory)
+// or an int32 [N, W * map_words(T)] buffer the caller owns, required
+// when W * map_words(T) > 2048 (T > 2048 at K <= 8, T > 1024 above), with
+// W = ceil(K / 8) and map_words(T) = T rounded up to a multiple of 32.
+// Launches on `stream`, does not synchronise and allocates nothing.
 extern "C" int hhmm_ffbs_bwd_sample(int K, int gated, const float* A,
                                     const float* mask, const float* alpha,
                                     const float* u, const float* gate,
@@ -260,14 +289,9 @@ extern "C" int hhmm_ffbs_bwd_sample(int K, int gated, const float* A,
   if (T < 1 || N < 1) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   uint32_t* m = reinterpret_cast<uint32_t*>(scratch);
-  int rc;
-  switch (K) {
-    case 2: rc = launch_k<2>(gated, A, mask, alpha, u, gate, sk, z, m, T, N, s); break;
-    case 3: rc = launch_k<3>(gated, A, mask, alpha, u, gate, sk, z, m, T, N, s); break;
-    case 4: rc = launch_k<4>(gated, A, mask, alpha, u, gate, sk, z, m, T, N, s); break;
-    case 8: rc = launch_k<8>(gated, A, mask, alpha, u, gate, sk, z, m, T, N, s); break;
-    default: return -1;
-  }
+  const int rc = for_k(K, [&](auto k) {
+    return launch_k<decltype(k)::value>(gated, A, mask, alpha, u, gate, sk, z, m, T, N, s);
+  });
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
 }

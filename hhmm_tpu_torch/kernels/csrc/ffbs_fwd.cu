@@ -24,12 +24,13 @@
 // Layout: batch-minor, lane n fastest — pi [K,N], A [K,K,N], obs
 // [T,K,N], mask/gate [T,N], sk [K,N], alpha [T,K,N], ll [N].
 //
-// Thread mapping: a group of G threads (G = 2, 4, 4, 8 for K = 2, 3, 4,
-// 8) owns one lane; thread j of the group owns alpha[j] and the column
-// A[:, j] in registers (at K = 3 the fourth thread idles). A warp holds
-// 32 / G lanes, lane index fastest, so its obs and alpha accesses at one
-// step are, per state, 32 / G consecutive floats of the [T, K, N] layout
-// (whole 32-byte sectors from K = 4 down). Each step thread j gathers
+// Thread mapping (lane_group.cuh): a group of G threads (the next power
+// of two >= K: G = 2, 4, 4, 8, 16 for K = 2, 3, 4, 5..8, 9..16) owns one
+// lane; thread j of the group owns alpha[j] and the column A[:, j] in
+// registers (threads K .. G-1 idle). A warp holds 32 / G lanes, lane
+// index fastest, so its obs and alpha accesses at one step are, per
+// state, 32 / G consecutive floats of the [T, K, N] layout (whole 32-byte
+// sectors from K = 4 down). Each step thread j gathers
 // alpha_{t-1}[0..K-1] from its group with __shfl_sync and computes its
 // own alpha_t[j] with exactly the arithmetic of the per-lane loop.
 //
@@ -57,70 +58,15 @@
 //   32-step rings measured no faster).
 // The alpha store is fire-and-forget.
 
-#include <cuda_runtime.h>
+#include "lane_group.cuh"
 
 namespace {
 
-constexpr float kClamp = -1.0e30f;
+using namespace hhmm;
+
 constexpr int kBlock = 64;
 constexpr int kChunk = 8;   // steps a ring stage
 constexpr int kStages = 3;  // ring stages; chunks in flight: kStages - 1
-constexpr unsigned kFull = 0xffffffffu;
-
-template <int K>
-struct Group {
-  static constexpr int G = K <= 2 ? 2 : (K <= 4 ? 4 : 8);  // threads a lane
-  static constexpr int kLanesPerWarp = 32 / G;
-  static constexpr int kLanesPerBlock = kBlock / G;
-};
-
-template <int K>
-__device__ __forceinline__ float max_tree(const float (&x)[K]) {
-  if constexpr (K == 2) {
-    return fmaxf(x[0], x[1]);
-  } else if constexpr (K == 3) {
-    return fmaxf(fmaxf(x[0], x[1]), x[2]);
-  } else if constexpr (K == 4) {
-    return fmaxf(fmaxf(x[0], x[1]), fmaxf(x[2], x[3]));
-  } else {
-    static_assert(K == 8, "K in {2, 3, 4, 8}");
-    return fmaxf(fmaxf(fmaxf(x[0], x[1]), fmaxf(x[2], x[3])),
-                 fmaxf(fmaxf(x[4], x[5]), fmaxf(x[6], x[7])));
-  }
-}
-
-template <int K>
-__device__ __forceinline__ float lse0(const float (&x)[K]) {
-  const float m = fmaxf(max_tree<K>(x), kClamp);
-  float s = 0.0f;
-#pragma unroll
-  for (int i = 0; i < K; ++i) s += expf(x[i] - m);
-  return m + logf(s);
-}
-
-__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most `n` of this thread's copy groups are in flight
-template <int n>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
-}
-
-// alpha_{t-1}[0..K-1] of this thread's lane, from the group's threads
-template <int K>
-__device__ __forceinline__ void gather(float (&prev)[K], float mine, int l) {
-  constexpr int LPW = Group<K>::kLanesPerWarp;
-#pragma unroll
-  for (int i = 0; i < K; ++i) prev[i] = __shfl_sync(kFull, mine, i * LPW + l);
-}
 
 template <int K, bool GATED>
 __global__ void __launch_bounds__(kBlock)
@@ -231,27 +177,28 @@ template <int K, bool GATED>
 void launch(const float* pi, const float* A, const float* obs,
             const float* mask, const float* gate, const float* sk, float* ll,
             float* alpha, int T, int N, cudaStream_t stream) {
-  constexpr int lanes = Group<K>::kLanesPerBlock;
+  constexpr int lanes = kBlock / Group<K>::G;
   const int grid = (N + lanes - 1) / lanes;
   ffbs_fwd_kernel<K, GATED><<<grid, kBlock, 0, stream>>>(
       pi, A, obs, mask, gate, sk, ll, alpha, T, N);
 }
 
 template <int K>
-void launch_k(int gated, const float* pi, const float* A, const float* obs,
-              const float* mask, const float* gate, const float* sk,
-              float* ll, float* alpha, int T, int N, cudaStream_t stream) {
+int launch_k(int gated, const float* pi, const float* A, const float* obs,
+             const float* mask, const float* gate, const float* sk,
+             float* ll, float* alpha, int T, int N, cudaStream_t stream) {
   if (gated)
     launch<K, true>(pi, A, obs, mask, gate, sk, ll, alpha, T, N, stream);
   else
     launch<K, false>(pi, A, obs, mask, gate, sk, ll, alpha, T, N, stream);
+  return 0;
 }
 
 }  // namespace
 
 // Returns 0 on a good launch, the cudaError_t of a refused one, or -1 for
-// an unsupported K. Launches on `stream`, does not synchronise and
-// allocates nothing: the caller owns every buffer.
+// a K outside 2..16 or an empty shape. Launches on `stream`, does not
+// synchronise and allocates nothing: the caller owns every buffer.
 extern "C" int hhmm_ffbs_fwd(int K, int gated, const float* pi,
                              const float* A, const float* obs,
                              const float* mask, const float* gate,
@@ -259,12 +206,8 @@ extern "C" int hhmm_ffbs_fwd(int K, int gated, const float* pi,
                              int N, void* stream) {
   if (T < 1 || N < 1) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (K) {
-    case 2: launch_k<2>(gated, pi, A, obs, mask, gate, sk, ll, alpha, T, N, s); break;
-    case 3: launch_k<3>(gated, pi, A, obs, mask, gate, sk, ll, alpha, T, N, s); break;
-    case 4: launch_k<4>(gated, pi, A, obs, mask, gate, sk, ll, alpha, T, N, s); break;
-    case 8: launch_k<8>(gated, pi, A, obs, mask, gate, sk, ll, alpha, T, N, s); break;
-    default: return -1;
-  }
-  return static_cast<int>(cudaGetLastError());
+  const int rc = for_k(K, [&](auto k) {
+    return launch_k<decltype(k)::value>(gated, pi, A, obs, mask, gate, sk, ll, alpha, T, N, s);
+  });
+  return rc != 0 ? rc : static_cast<int>(cudaGetLastError());
 }

@@ -33,12 +33,17 @@
 // is the serial chain, far above the bytes-over-bandwidth bound. The
 // next step's obs and mask are loaded one step ahead (register double-
 // buffering), so a step waits on arithmetic and not on device-memory
-// latency; the alpha store is fire-and-forget.
+// latency; the alpha store is fire-and-forget. K in 2..16; at K > 8 the
+// A[K][K] registers spill (correct, not tuned: PERF.md has the counts).
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "lane_group.cuh"
+
 namespace {
+
+using hhmm::for_k;
 
 constexpr int kBlock = 128;
 
@@ -120,18 +125,19 @@ semiring_filter_kernel(const float* __restrict__ pi,
 }
 
 template <int K>
-void launch(const float* pi, const float* A, const float* obs,
-            const float* mask, float* ll, float* alpha, int T, int N,
-            cudaStream_t stream) {
+int launch(const float* pi, const float* A, const float* obs,
+           const float* mask, float* ll, float* alpha, int T, int N,
+           cudaStream_t stream) {
   const int grid = (N + kBlock - 1) / kBlock;
   semiring_filter_kernel<K><<<grid, kBlock, 0, stream>>>(pi, A, obs, mask, ll,
                                                          alpha, T, N);
+  return 0;
 }
 
 }  // namespace
 
 // Returns 0 on a good launch, the cudaError_t of a refused one, or -1 for
-// an unsupported K or an empty shape. Launches on `stream`, does not
+// a K outside 2..16 or an empty shape. Launches on `stream`, does not
 // synchronise and allocates nothing: the caller owns every buffer.
 extern "C" int hhmm_semiring_filter(int K, const float* pi, const float* A,
                                     const float* obs, const float* mask,
@@ -139,12 +145,8 @@ extern "C" int hhmm_semiring_filter(int K, const float* pi, const float* A,
                                     void* stream) {
   if (T < 1 || N < 1) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (K) {
-    case 2: launch<2>(pi, A, obs, mask, ll, alpha, T, N, s); break;
-    case 3: launch<3>(pi, A, obs, mask, ll, alpha, T, N, s); break;
-    case 4: launch<4>(pi, A, obs, mask, ll, alpha, T, N, s); break;
-    case 8: launch<8>(pi, A, obs, mask, ll, alpha, T, N, s); break;
-    default: return -1;
-  }
-  return static_cast<int>(cudaGetLastError());
+  const int rc = for_k(K, [&](auto k) {
+    return launch<decltype(k)::value>(pi, A, obs, mask, ll, alpha, T, N, s);
+  });
+  return rc != 0 ? rc : static_cast<int>(cudaGetLastError());
 }

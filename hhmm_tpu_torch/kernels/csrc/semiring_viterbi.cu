@@ -28,11 +28,14 @@
 //   A padded tail is a run of identity maps, so the path repeats the
 //   last valid state there.
 //
-// Backpointer maps are packed four bits a destination into one 32-bit
-// word per (step, lane): nibble j holds back_t[j] (K <= 8). Layout:
-// batch-minor, lane n fastest — pi/dlast [K,N], A [K,K,N], obs [T,K,N],
-// mask/back/path [T,N], score [N] — coalesced across a warp; a map costs
-// 4 bytes whatever K is, and the backtrack reads one word a step.
+// Backpointer maps are packed four bits a destination into W = ceil(K /
+// 8) 32-bit words per (step, lane): nibble j % 8 of word j / 8 holds
+// back_t[j]. Layout: batch-minor, lane n fastest — pi/dlast [K,N], A
+// [K,K,N], obs [T,K,N], mask/path [T,N], back [T,W,N], score [N] —
+// coalesced across a warp; a map costs 4 W bytes, and the backtrack
+// reads W words a step (at W = 2 it selects the word of z_t, then
+// shifts). K in 2..16; at K > 8 the forward pass keeps A[K][K] in
+// registers and spills (correct, not tuned: PERF.md has the counts).
 //
 // What bounds them: both walk T dependent steps per lane. The forward
 // pass is the filter's chain with max in place of logsumexp (no exp or
@@ -47,17 +50,26 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "lane_group.cuh"
+
 namespace {
+
+using hhmm::for_k;
 
 constexpr int kBlock = 128;
 constexpr int kPrefetch = 32;
 
+// map words a step: eight states a word
 template <int K>
-__device__ __forceinline__ uint32_t identity_map() {
-  uint32_t w = 0;
+constexpr int kWords = (K + 7) / 8;
+
+// word w of the packed identity map: nibble j % 8 holds j
+template <int K>
+__device__ __forceinline__ uint32_t identity_map(int w) {
+  uint32_t m = 0;
 #pragma unroll
-  for (int j = 0; j < K; ++j) w |= static_cast<uint32_t>(j) << (4 * j);
-  return w;
+  for (int j = 8 * w; j < K && j < 8 * w + 8; ++j) m |= static_cast<uint32_t>(j) << (4 * (j % 8));
+  return m;
 }
 
 template <int K>
@@ -67,6 +79,7 @@ viterbi_fwd_kernel(const float* __restrict__ pi, const float* __restrict__ A,
                    const float* __restrict__ mask, float* __restrict__ score,
                    float* __restrict__ dlast, uint32_t* __restrict__ back,
                    int T, int N) {
+  constexpr int W = kWords<K>;
   const int n = blockIdx.x * kBlock + threadIdx.x;
   if (n >= N) return;
   const size_t sN = static_cast<size_t>(N);
@@ -80,8 +93,12 @@ viterbi_fwd_kernel(const float* __restrict__ pi, const float* __restrict__ A,
   float delta[K];
 #pragma unroll
   for (int k = 0; k < K; ++k) delta[k] = pi[k * sN + n] + obs[k * sN + n];
-  const uint32_t ident = identity_map<K>();
-  back[n] = ident;
+  uint32_t ident[W];
+#pragma unroll
+  for (int q = 0; q < W; ++q) {
+    ident[q] = identity_map<K>(q);
+    back[q * sN + n] = ident[q];
+  }
 
   // step t+1's inputs, loaded one step ahead
   float o_nx[K];
@@ -103,10 +120,13 @@ viterbi_fwd_kernel(const float* __restrict__ pi, const float* __restrict__ A,
       for (int k = 0; k < K; ++k) o_nx[k] = obs[(row * K + k) * sN + n];
       m_nx = mask[row * sN + n];
     }
-    uint32_t w = ident;
+    uint32_t w[W];
+#pragma unroll
+    for (int q = 0; q < W; ++q) w[q] = ident[q];
     if (m > 0.0f) {
       float nw[K];
-      w = 0;
+#pragma unroll
+      for (int q = 0; q < W; ++q) w[q] = 0;
 #pragma unroll
       for (int j = 0; j < K; ++j) {
         float best = delta[0] + a[0][j];
@@ -120,12 +140,13 @@ viterbi_fwd_kernel(const float* __restrict__ pi, const float* __restrict__ A,
           }
         }
         nw[j] = best + o[j];
-        w |= arg << (4 * j);
+        w[j / 8] |= arg << (4 * (j % 8));
       }
 #pragma unroll
       for (int k = 0; k < K; ++k) delta[k] = nw[k];
     }
-    back[static_cast<size_t>(t) * sN + n] = w;
+#pragma unroll
+    for (int q = 0; q < W; ++q) back[(static_cast<size_t>(t) * W + q) * sN + n] = w[q];
   }
 
   float best = delta[0];
@@ -142,6 +163,7 @@ __global__ void __launch_bounds__(kBlock)
 viterbi_backtrack_kernel(const uint32_t* __restrict__ back,
                          const float* __restrict__ dlast,
                          int* __restrict__ path, int T, int N) {
+  constexpr int W = kWords<K>;
   const int n = blockIdx.x * kBlock + threadIdx.x;
   if (n >= N) return;
   const size_t sN = static_cast<size_t>(N);
@@ -158,59 +180,73 @@ viterbi_backtrack_kernel(const uint32_t* __restrict__ back,
   }
   path[static_cast<size_t>(T - 1) * sN + n] = static_cast<int>(z);
 
-  // maps of steps s0, s0-1, .. s0-kPrefetch+1 in cur; the next chunk's
-  // loads are issued before this chunk's dependent selects run
-  uint32_t cur[kPrefetch], nxt[kPrefetch];
+  // maps of steps s0, s0-1, .. s0-kPrefetch+1 in cur (word q of step
+  // s0 - k at cur[q][k]); the next chunk's loads are issued before this
+  // chunk's dependent selects run
+  uint32_t cur[W][kPrefetch], nxt[W][kPrefetch];
   int s0 = T - 1;
 #pragma unroll
   for (int k = 0; k < kPrefetch; ++k) {
     const int s = s0 - k;
-    cur[k] = s >= 1 ? back[static_cast<size_t>(s) * sN + n] : 0u;
+#pragma unroll
+    for (int q = 0; q < W; ++q)
+      cur[q][k] = s >= 1 ? back[(static_cast<size_t>(s) * W + q) * sN + n] : 0u;
   }
   while (s0 >= 1) {
     const int s1 = s0 - kPrefetch;
 #pragma unroll
     for (int k = 0; k < kPrefetch; ++k) {
       const int s = s1 - k;
-      nxt[k] = s >= 1 ? back[static_cast<size_t>(s) * sN + n] : 0u;
+#pragma unroll
+      for (int q = 0; q < W; ++q)
+        nxt[q][k] = s >= 1 ? back[(static_cast<size_t>(s) * W + q) * sN + n] : 0u;
     }
 #pragma unroll
     for (int k = 0; k < kPrefetch; ++k) {
       const int s = s0 - k;
       if (s >= 1) {
-        z = (cur[k] >> (4u * z)) & 15u;
+        if constexpr (W == 1) {
+          z = (cur[0][k] >> (4u * z)) & 15u;
+        } else {
+          z = (((z & 8u) ? cur[1][k] : cur[0][k]) >> (4u * (z & 7u))) & 15u;
+        }
         path[static_cast<size_t>(s - 1) * sN + n] = static_cast<int>(z);
       }
     }
 #pragma unroll
-    for (int k = 0; k < kPrefetch; ++k) cur[k] = nxt[k];
+    for (int k = 0; k < kPrefetch; ++k)
+#pragma unroll
+      for (int q = 0; q < W; ++q) cur[q][k] = nxt[q][k];
     s0 = s1;
   }
 }
 
 template <int K>
-void launch_fwd(const float* pi, const float* A, const float* obs,
-                const float* mask, float* score, float* dlast, uint32_t* back,
-                int T, int N, cudaStream_t stream) {
+int launch_fwd(const float* pi, const float* A, const float* obs,
+               const float* mask, float* score, float* dlast, uint32_t* back,
+               int T, int N, cudaStream_t stream) {
   const int grid = (N + kBlock - 1) / kBlock;
   viterbi_fwd_kernel<K><<<grid, kBlock, 0, stream>>>(pi, A, obs, mask, score,
                                                      dlast, back, T, N);
+  return 0;
 }
 
 template <int K>
-void launch_backtrack(const uint32_t* back, const float* dlast, int* path,
-                      int T, int N, cudaStream_t stream) {
+int launch_backtrack(const uint32_t* back, const float* dlast, int* path,
+                     int T, int N, cudaStream_t stream) {
   const int grid = (N + kBlock - 1) / kBlock;
   viterbi_backtrack_kernel<K><<<grid, kBlock, 0, stream>>>(back, dlast, path,
                                                            T, N);
+  return 0;
 }
 
 }  // namespace
 
 // Both entry points return 0 on a good launch, the cudaError_t of a
-// refused one, or -1 for an unsupported K or an empty shape. They launch
+// refused one, or -1 for a K outside 2..16 or an empty shape. They launch
 // on `stream`, do not synchronise and allocate nothing: the caller owns
-// every buffer (`back` is int32 [T, N], one packed map per step).
+// every buffer (`back` is int32 [T, W, N], one packed map of W = ceil(K /
+// 8) words per step).
 extern "C" int hhmm_viterbi_fwd(int K, const float* pi, const float* A,
                                 const float* obs, const float* mask,
                                 float* score, float* dlast, int* back, int T,
@@ -218,14 +254,10 @@ extern "C" int hhmm_viterbi_fwd(int K, const float* pi, const float* A,
   if (T < 1 || N < 1) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   uint32_t* b = reinterpret_cast<uint32_t*>(back);
-  switch (K) {
-    case 2: launch_fwd<2>(pi, A, obs, mask, score, dlast, b, T, N, s); break;
-    case 3: launch_fwd<3>(pi, A, obs, mask, score, dlast, b, T, N, s); break;
-    case 4: launch_fwd<4>(pi, A, obs, mask, score, dlast, b, T, N, s); break;
-    case 8: launch_fwd<8>(pi, A, obs, mask, score, dlast, b, T, N, s); break;
-    default: return -1;
-  }
-  return static_cast<int>(cudaGetLastError());
+  const int rc = for_k(K, [&](auto k) {
+    return launch_fwd<decltype(k)::value>(pi, A, obs, mask, score, dlast, b, T, N, s);
+  });
+  return rc != 0 ? rc : static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int hhmm_viterbi_backtrack(int K, const int* back,
@@ -234,12 +266,8 @@ extern "C" int hhmm_viterbi_backtrack(int K, const int* back,
   if (T < 1 || N < 1) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint32_t* b = reinterpret_cast<const uint32_t*>(back);
-  switch (K) {
-    case 2: launch_backtrack<2>(b, dlast, path, T, N, s); break;
-    case 3: launch_backtrack<3>(b, dlast, path, T, N, s); break;
-    case 4: launch_backtrack<4>(b, dlast, path, T, N, s); break;
-    case 8: launch_backtrack<8>(b, dlast, path, T, N, s); break;
-    default: return -1;
-  }
-  return static_cast<int>(cudaGetLastError());
+  const int rc = for_k(K, [&](auto k) {
+    return launch_backtrack<decltype(k)::value>(b, dlast, path, T, N, s);
+  });
+  return rc != 0 ? rc : static_cast<int>(cudaGetLastError());
 }

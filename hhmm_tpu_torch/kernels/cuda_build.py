@@ -5,9 +5,10 @@ Hopper (``sm_90a``) into its own shared library, loaded with ``ctypes``.
 Nothing here runs at import time: a library is built at its kernel's
 first CUDA call (or by :func:`build` ahead of time, all sources in
 parallel), from the sources in the checkout, into ``kernels/_build/``
-(listed in ``.gitignore``). Library names carry a digest of the source
-and flags, so an edited source is rebuilt and never mixed with a stale
-binary.
+(listed in ``.gitignore``). Library names carry a digest of the source,
+of every header it includes with a quoted ``#include`` (found next to
+it, as ``nvcc`` finds them) and of the flags, so an edited source or
+header is rebuilt and never mixed with a stale binary.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -44,8 +46,24 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; cannot build the CUDA kernels")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _with_headers(source: Path) -> list:
+    """``source`` and every file it includes with a quoted ``#include``,
+    directly or through another header, each once, in first-seen order."""
+    seen = [source]
+    for path in seen:
+        for name in _INCLUDE.findall(path.read_bytes()):
+            header = path.parent / name.decode()
+            if header not in seen:
+                seen.append(header)
+    return seen
+
+
 def _lib_path(source: Path) -> Path:
-    digest = hashlib.sha1(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    text = b"".join(f.read_bytes() for f in _with_headers(source))
+    digest = hashlib.sha1(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{source.stem}-{digest[:12]}.so"
 
 

@@ -10,8 +10,8 @@ kernel of that module:
   residual and returns ``ll = lse0(alpha_last)``;
 - ``BWD_SAMPLE`` (``ffbs_bwd_sample.cu``) replaces ``_bwd_sample_kernel``:
   inverse-CDF backward sampling against pre-drawn uniforms, as every
-  candidate draw of every step packed into one map word a step, then a
-  pointer chase through the maps;
+  candidate draw of every step packed into the map words of its step,
+  then a pointer chase through the maps;
 - ``VG_BWD`` (``vg_bwd.cu``) replaces ``_bwd_kernel``: the clamped
   backward recursion with the Baum-Welch gradients ``(d_pi, d_A,
   d_obs)`` of the forward log-likelihood;
@@ -23,8 +23,19 @@ kernel of that module:
 - ``VITERBI`` and ``BACKTRACK`` (``semiring_viterbi.cu``) replace
   ``_semiring_fwd_kernel`` in mode "viterbi" and ``_backtrack_kernel``:
   the max-plus pass writing one first-argmax backpointer map per step
-  (packed four bits a state into an int32 word), and the walk back
-  through the maps.
+  (packed four bits a state, see below), and the walk back through the
+  maps.
+
+Every kernel takes K in 2..16 (``K_RANGE``) and raises a ``ValueError``
+for any other K; the plain versions take K up to 16 too, so a K above
+16 raises on either route. A backpointer map (``VITERBI``'s output, and
+``BWD_SAMPLE``'s candidate maps inside the kernel) is ``W = ceil(K /
+8)`` int32 words a step: nibble ``j % 8`` of word ``j // 8`` holds the
+pointer of state j. For K <= 8 the maps are ``[T, N]`` (one word a
+step); for 9 <= K <= 16 they are ``[T, 2, N]``, word-major within a
+step, so that each word row stays a run of N consecutive words
+(coalesced over the lanes, as the one-word layout) and the K <= 8
+layout is its W = 1 case with the word axis dropped.
 
 All work on the batch-minor lane layout (``[T, K, N]`` residual, lane
 fastest); :func:`to_lanes` makes it from the JAX package's ``[N, T, K]``
@@ -57,6 +68,7 @@ __all__ = [
     "VITERBI",
     "BACKTRACK",
     "KERNELS",
+    "K_RANGE",
     "build_kernels",
     "reset_launches",
     "to_lanes",
@@ -84,11 +96,12 @@ __all__ = [
 ]
 
 _CLAMP = -1.0e30
-CUDA_KS = (2, 3, 4, 8)
-# BWD_SAMPLE keeps its packed candidate maps in shared memory up to this T
-# (kSmemMaxT in ffbs_bwd_sample.cu), beyond it in an int32 scratch of T
-# rounded up to a multiple of 32 words a lane (map_words)
-_BWD_SMEM_MAX_T = 2048
+K_RANGE = (2, 16)  # the kernels' K, both ends included
+# BWD_SAMPLE keeps its packed candidate maps in shared memory up to this
+# many words a lane (kSmemMaxWords in ffbs_bwd_sample.cu: W words a step,
+# so T <= 2048 at K <= 8 and T <= 1024 at K > 8), beyond it in an int32
+# scratch of W * (T rounded up to a multiple of 32) words a lane
+_BWD_SMEM_MAX_WORDS = 2048
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -218,16 +231,28 @@ def to_lanes(
     return pi_t, A_t, obs_t, mask_t, gate_t, sk_t
 
 
+def _map_words(K: int) -> int:
+    """Words a step of a packed backpointer map: 8 states a word."""
+    return (K + 7) // 8
+
+
+def _map_shape(T: int, K: int, N: int) -> tuple:
+    return (T, N) if K <= 8 else (T, _map_words(K), N)
+
+
 def _check_lane_shapes(T: int, K: int, N: int, **named) -> None:
-    """Every lane-layout operand has the shape its kernel indexes it
-    with (the kernels read through raw pointers: a short operand would
-    be read out of bounds), and the gate operands come together."""
+    """K is at most ``K_RANGE[1]`` (on every route), every lane-layout
+    operand has the shape its kernel indexes it with (the kernels read
+    through raw pointers: a short operand would be read out of bounds),
+    and the gate operands come together."""
+    if K > K_RANGE[1]:
+        raise ValueError(f"the kernels take K in {K_RANGE[0]}..{K_RANGE[1]}, got K={K}")
     if (named.get("gate") is None) != (named.get("sk") is None):
         raise ValueError("gate and sk must be given together")
     want = {
         "pi": (K, N), "A": (K, K, N), "obs": (T, K, N), "alpha": (T, K, N),
         "mask": (T, N), "u": (T, N), "gate": (T, N), "sk": (K, N),
-        "ll": (N,), "back": (T, N), "dlast": (K, N),
+        "ll": (N,), "back": _map_shape(T, K, N), "dlast": (K, N),
     }
     for name, t in named.items():
         if t is not None and tuple(t.shape) != want[name]:
@@ -237,8 +262,10 @@ def _check_lane_shapes(T: int, K: int, N: int, **named) -> None:
 
 
 def _check_cuda_operands(K: int, *tensors) -> None:
-    if K not in CUDA_KS:
-        raise ValueError(f"the CUDA kernels take K in {CUDA_KS}, got K={K}")
+    if not K_RANGE[0] <= K <= K_RANGE[1]:
+        raise ValueError(
+            f"the CUDA kernels take K in {K_RANGE[0]}..{K_RANGE[1]}, got K={K}"
+        )
     for t in tensors:
         if t is None:
             continue
@@ -384,16 +411,38 @@ def _argmax0(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return best, arg
 
 
-def _identity_map(K: int) -> int:
-    """The packed identity backpointer map: nibble j holds j."""
-    return sum(j << (4 * j) for j in range(K))
+def _pack(ptr: torch.Tensor) -> torch.Tensor:
+    """Pointers ``[K, N]`` (each in 0..15) → packed map words ``[W, N]``
+    int32: nibble ``j % 8`` of word ``j // 8`` holds ``ptr[j]``, the
+    unused nibbles are 0. A word with its top nibble at 8 or above is
+    the negative int32 of the same bits."""
+    K, N = ptr.shape
+    W = _map_words(K)
+    p = torch.zeros((W * 8, N), dtype=torch.int64, device=ptr.device)
+    p[:K] = ptr
+    shifts = 4 * torch.arange(8, dtype=torch.int64, device=ptr.device)
+    words = (p.view(W, 8, N) << shifts[None, :, None]).sum(1)
+    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+
+
+def _identity_map(K: int, N: int, device=None) -> torch.Tensor:
+    """The packed identity backpointer map ``[W, N]``: state j points at j."""
+    return _pack(torch.arange(K, device=device)[:, None].expand(K, N))
+
+
+def _map_rows(back_t: torch.Tensor) -> torch.Tensor:
+    """Maps ``[T, N]`` or ``[T, W, N]`` → ``[T, W, N]`` (a view)."""
+    return back_t[:, None] if back_t.ndim == 2 else back_t
 
 
 def unpack_back(back_t: torch.Tensor, K: int) -> torch.Tensor:
-    """Packed maps ``[T, N]`` int32 → backpointers ``[T, K, N]`` int64
-    (``[t, j, n]`` = the argmax predecessor of state j at step t)."""
-    shifts = 4 * torch.arange(K, dtype=torch.int32, device=back_t.device)
-    return ((back_t[:, None, :] >> shifts[None, :, None]) & 15).long()
+    """Packed maps (``[T, N]`` for K <= 8, ``[T, 2, N]`` above) int32 →
+    backpointers ``[T, K, N]`` int64 (``[t, j, n]`` = the argmax
+    predecessor of state j at step t)."""
+    j = torch.arange(K, device=back_t.device)
+    words = _map_rows(back_t)[:, j // 8]  # [T, K, N]
+    shifts = (4 * (j % 8)).to(torch.int32)
+    return ((words >> shifts[None, :, None]) & 15).long()
 
 
 def filter_plain(pi_t, A_t, obs_t, mask_t):
@@ -428,34 +477,34 @@ def beta_plain(A_t, obs_t, mask_t):
 
 def viterbi_plain(pi_t, A_t, obs_t, mask_t):
     """Plain version of the ``VITERBI`` kernel on the lane layout:
-    ``(score [N], dlast [K, N], back [T, N] int32)``, one packed
-    first-argmax map per step (the identity map at t = 0 and on masked
-    steps); no mask case at t = 0."""
+    ``(score [N], dlast [K, N], back)``, one packed first-argmax map per
+    step (``back`` int32 ``[T, N]`` for K <= 8, ``[T, 2, N]`` above; the
+    identity map at t = 0 and on masked steps); no mask case at t = 0."""
     T, K, N = obs_t.shape
-    ident = _identity_map(K)
-    shifts = 4 * torch.arange(K, dtype=torch.int32, device=obs_t.device)[:, None]
-    back = torch.empty((T, N), dtype=torch.int32, device=obs_t.device)
+    ident = _identity_map(K, N, obs_t.device)
+    back = torch.empty((T, _map_words(K), N), dtype=torch.int32, device=obs_t.device)
     back[0] = ident
     delta = pi_t + obs_t[0]
     for t in range(1, T):
         best, arg = _argmax0(delta[:, None, :] + A_t)  # over i, [K(j), N]
-        w = (arg << shifts).sum(0, dtype=torch.int32)
         valid = mask_t[t] > 0
         delta = torch.where(valid, best + obs_t[t], delta)
-        back[t] = torch.where(valid, w, torch.full_like(w, ident))
-    return _argmax0(delta)[0], delta, back
+        back[t] = torch.where(valid, _pack(arg), ident)
+    return _argmax0(delta)[0], delta, back.view(_map_shape(T, K, N))
 
 
 def backtrack_plain(back_t, dlast):
     """Plain version of the ``BACKTRACK`` kernel: ``path [T, N]`` int32,
     ``z_{T-1}`` the first argmax of ``dlast [K, N]`` and ``z_{t-1} =
-    back_t[z_t]``."""
-    T, N = back_t.shape
+    back_t[z_t]`` (nibble ``z % 8`` of word ``z // 8`` of step t)."""
+    words = _map_rows(back_t)
+    T, _, N = words.shape
     path = torch.empty((T, N), dtype=torch.int32, device=back_t.device)
     z = _argmax0(dlast)[1]
     path[T - 1] = z
     for t in range(T - 1, 0, -1):
-        z = (back_t[t] >> (4 * z)) & 15
+        w = words[t].gather(0, (z >> 3).long()[None])[0]
+        z = (w >> (4 * (z & 7))) & 15
         path[t - 1] = z
     return path
 
@@ -504,8 +553,9 @@ def bwd_sample_lanes(A_t, mask_t, alpha_t, u_t, gate_t=None, sk_t=None):
     BWD_SAMPLE.load()
     z = torch.empty((T, N), dtype=torch.int32, device=dev)
     scratch = None
-    if T > _BWD_SMEM_MAX_T:
-        scratch = torch.empty((N, -(-T // 32) * 32), dtype=torch.int32, device=dev)
+    words = _map_words(K) * (-(-T // 32) * 32)  # a lane's map words
+    if words > _BWD_SMEM_MAX_WORDS:
+        scratch = torch.empty((N, words), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         BWD_SAMPLE.launch(
             K, int(gate_t is not None),
@@ -592,8 +642,9 @@ def beta_lanes(A_t, obs_t, mask_t):
 
 def viterbi_lanes(pi_t, A_t, obs_t, mask_t):
     """Max-plus pass on the lane layout: ``(score [N], dlast [K, N],
-    back [T, N] int32)``. CPU tensors run :func:`viterbi_plain`; CUDA
-    tensors launch ``VITERBI``."""
+    back)``, the packed int32 maps ``[T, N]`` (K <= 8) or ``[T, 2, N]``.
+    CPU tensors run :func:`viterbi_plain`; CUDA tensors launch
+    ``VITERBI``."""
     dev = _check_same_device(pi_t, A_t, obs_t, mask_t)
     T, K, N = obs_t.shape
     _check_lane_shapes(T, K, N, pi=pi_t, A=A_t, obs=obs_t, mask=mask_t)
@@ -605,7 +656,7 @@ def viterbi_lanes(pi_t, A_t, obs_t, mask_t):
     VITERBI.load()
     score = torch.empty((N,), dtype=torch.float32, device=dev)
     dlast = torch.empty((K, N), dtype=torch.float32, device=dev)
-    back = torch.empty((T, N), dtype=torch.int32, device=dev)
+    back = torch.empty(_map_shape(T, K, N), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         VITERBI.launch(
             K, _ptr(pi_t), _ptr(A_t), _ptr(obs_t), _ptr(mask_t), _ptr(score), _ptr(dlast),
@@ -616,13 +667,13 @@ def viterbi_lanes(pi_t, A_t, obs_t, mask_t):
 
 def backtrack_lanes(back_t, dlast):
     """Viterbi backtrack on the lane layout: ``path [T, N]`` int32 from
-    the packed maps ``back_t [T, N]`` int32 and ``dlast [K, N]``. CPU
-    tensors run :func:`backtrack_plain`; CUDA tensors launch
-    ``BACKTRACK``."""
+    the packed int32 maps ``back_t`` (``[T, N]`` for K <= 8, ``[T, 2,
+    N]`` above) and ``dlast [K, N]``. CPU tensors run
+    :func:`backtrack_plain`; CUDA tensors launch ``BACKTRACK``."""
     dev = _check_same_device(back_t, dlast)
-    if back_t.ndim != 2 or dlast.ndim != 2:
-        raise ValueError("back must be [T, N] and dlast [K, N]")
-    (T, N), K = back_t.shape, dlast.shape[0]
+    if back_t.ndim not in (2, 3) or dlast.ndim != 2:
+        raise ValueError("back must be [T, N] or [T, 2, N] and dlast [K, N]")
+    T, N, K = back_t.shape[0], back_t.shape[-1], dlast.shape[0]
     _check_lane_shapes(T, K, N, back=back_t, dlast=dlast)
     if back_t.dtype != torch.int32:
         raise TypeError(f"back must be the packed int32 maps, got {back_t.dtype}")

@@ -1,11 +1,17 @@
-// CPU emulation of the CUDA subset that csrc/tayal_traj.cu uses, so the
-// kernel's own source runs on a host without a card
-// (tests/test_torch_traj_emu.py): one std::thread per CUDA thread, a
-// block at a time; __syncwarp and the xor shuffle are a std::barrier per
-// warp, shared memory a per-block buffer, and the <<<...>>> launch is
-// rewritten into a call of Launcher. Host float arithmetic stands in for
-// the card's (no fused multiply-add), so results agree with the card's
-// within rounding, not bitwise.
+// CPU emulation of the CUDA subset that csrc/tayal_traj.cu,
+// csrc/vg_bwd.cu and csrc/semiring_beta.cu (with their headers) use, so
+// the kernels' own sources run on a host without a card
+// (tests/test_torch_traj_emu.py, tests/test_torch_backward_emu.py): one
+// std::thread per CUDA thread, a block at a time; __syncwarp and the
+// shuffles are a std::barrier per warp, dynamic shared memory a per-block
+// buffer, and the <<<...>>> launch is rewritten into a call of Launcher.
+// Static __shared__ arrays become per-thread arrays, which is what they
+// are to a kernel whose threads each use only their own column (the
+// cp.async rings). The tests rewrite a cp.async copy into a plain copy
+// and commit_group / wait_group into nothing: the copy has landed by the
+// time the thread reads it, which is what wait_group guarantees. Host
+// float arithmetic stands in for the card's (no fused multiply-add), so
+// results agree with the card's within rounding, not bitwise.
 #include <barrier>
 #include <cmath>
 #include <cstdint>
@@ -42,6 +48,15 @@ inline float __shfl_xor_sync(unsigned, float v, int o) {
   g_warp.bar->arrive_and_wait();
   return r;
 }
+inline float __shfl_sync(unsigned, float v, int src) {
+  int lane = threadIdx.x & 31;
+  g_warp.xbuf[lane] = v;
+  g_warp.bar->arrive_and_wait();
+  float r = g_warp.xbuf[src & 31];
+  g_warp.bar->arrive_and_wait();
+  return r;
+}
+inline size_t __cvta_generic_to_shared(const void* p) { return reinterpret_cast<size_t>(p); }
 inline float __uint_as_float(unsigned u) { float f; std::memcpy(&f, &u, 4); return f; }
 inline unsigned __float_as_uint(float f) { unsigned u; std::memcpy(&u, &f, 4); return u; }
 typedef void* cudaStream_t;

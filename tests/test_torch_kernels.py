@@ -11,8 +11,9 @@ the JAX package on the same numpy inputs.
 - the forward kernel's plain version against the Pallas
   ``_run_chunked_forward`` in interpret mode (within 1e-5);
 - the identity ``BWD_SAMPLE`` rests on: a chase through the packed map
-  of every candidate draw equals the serial backward walk and the JAX
-  reference, draw for draw;
+  of every candidate draw (one int32 word a step up to K = 8, two above)
+  equals the serial backward walk and the JAX reference, draw for draw,
+  at K from 2 to 16;
 - the same kernels on a CUDA device against their plain versions,
   bitwise (marked ``cuda``: skipped without a card).
 """
@@ -60,7 +61,7 @@ def _batch(rng, B, T, K, ragged=True, gated=False, tv=False):
     out["mask"] = (np.arange(T)[None, :] < lengths[:, None]).astype(np.float64)
     if gated:
         out["gate_key"] = rng.integers(0, 2, size=(B, T)).astype(np.float64)
-        out["state_key"] = np.tile(np.tile([1.0, 0.0, 0.0, 1.0], K // 4 or 1)[:K], (B, 1))
+        out["state_key"] = np.tile(np.resize([1.0, 0.0, 0.0, 1.0], K), (B, 1))
     return {k: v.astype(np.float32) for k, v in out.items()}
 
 
@@ -230,11 +231,12 @@ def _chase_plain(A_t, mask_t, alpha_t, u_t, gate_t=None, sk_t=None):
     """The ``BWD_SAMPLE`` kernel's design in plain torch: every candidate
     draw map_t[s] (the draw of step t given successor s, with the serial
     walk's arithmetic) in one pass over all steps, packed four bits a
-    state into one int32 word a step (the last step's word repeats
-    z_{T-1} in every nibble), then the pointer chase z = 0, z_t =
-    (map_t >> 4 z) & 15 for t = T-1 .. 0. Returns ``z [T, N]`` int32."""
+    state into ceil(K / 8) int32 words a step (``cs._pack``; the last
+    step's map sends every state to z_{T-1}), then the pointer chase
+    z = 0, z_t = (map_t[z // 8] >> 4 (z % 8)) & 15 for t = T-1 .. 0.
+    Returns ``z [T, N]`` int32."""
     T, K, N = alpha_t.shape
-    words = torch.zeros((T, N), dtype=torch.int32)
+    cand = torch.empty((T, K, N), dtype=torch.int32)  # [t, s, n]
     if T > 1:
         g0 = (mask_t[1:] > 0).to(alpha_t.dtype)  # [T-1, N]
         for s in range(K):
@@ -242,15 +244,16 @@ def _chase_plain(A_t, mask_t, alpha_t, u_t, gate_t=None, sk_t=None):
             if gate_t is not None:
                 g = g * (gate_t[1:] == sk_t[s]).to(alpha_t.dtype)
             logits = alpha_t[:-1] + g[:, None, :] * A_t[:, s][None]  # [T-1, K, N]
-            cand = cs._invcdf(
+            cand[:-1, s] = cs._invcdf(
                 logits.permute(1, 0, 2).reshape(K, -1), u_t[:-1].reshape(-1)
             ).reshape(T - 1, N)
-            words[:-1] |= cand << (4 * s)
-    words[-1] = cs._invcdf(alpha_t[-1], u_t[-1]) * 0x11111111
+    cand[-1] = cs._invcdf(alpha_t[-1], u_t[-1])[None]
+    words = torch.stack([cs._pack(cand[t]) for t in range(T)])  # [T, W, N]
     z = torch.zeros(N, dtype=torch.int32)
     out = torch.empty((T, N), dtype=torch.int32)
     for t in range(T - 1, -1, -1):
-        z = (words[t] >> (4 * z)) & 15
+        w = words[t].gather(0, (z >> 3).long()[None])[0]
+        z = (w >> (4 * (z & 7))) & 15
         out[t] = z
     return out
 
@@ -284,7 +287,8 @@ class TestBwdSampleChoiceMap:
     equals a chase through the packed map of all candidate draws."""
 
     @pytest.mark.parametrize("masks", ["prefix", "both_ends"])
-    @pytest.mark.parametrize("K,gated", [(K, g) for K in (2, 3, 4, 8) for g in (False, True)])
+    @pytest.mark.parametrize("K,gated", [(K, g) for K in (2, 3, 4, 5, 8, 12, 16)
+                                         for g in (False, True)])
     def test_chase_equals_serial_walk_and_jax_reference(self, rng, K, gated, masks):
         d = _batch(rng, 3, 64, K, gated=gated)
         if masks == "both_ends":
@@ -411,10 +415,11 @@ def cuda_device():
 @pytest.mark.parametrize("N,T,masks", [(300, 130, "prefix"), (250, 1000, "both_ends"),
                                        (1, 1024, "both_ends"), (256, 1, "both_ends"),
                                        (7, 2049, "both_ends")])
-@pytest.mark.parametrize("K,gated", [(2, False), (3, True), (4, False), (4, True), (8, True)])
+@pytest.mark.parametrize("K,gated", [(2, False), (3, True), (4, False), (4, True), (8, True),
+                                     (5, True), (12, False), (16, True)])
 def test_cuda_kernels_match_plain(rng, cuda_device, K, gated, N, T, masks):
     """Bitwise: alpha, ll and every draw (T=2049 takes the maps' device
-    scratch instead of shared memory)."""
+    scratch instead of shared memory, at K > 8 with two words a step)."""
     d = _batch(rng, N, T, K, gated=gated)
     if masks == "both_ends":
         d["mask"] = _both_ends(rng, d["mask"])
