@@ -18,7 +18,11 @@ backward pass (``VG_BWD``: ``vg_bwd.cu``), the guarded beta (``BETA``:
 commit). Every library is built with ``nvcc`` into a temporary directory,
 from a copy of its tree's sources and headers, with the flags of
 ``kernels/cuda_build.py`` (``-Xptxas -v``: registers, shared memory and
-spills per kernel are reported). Before timing, each build is checked
+spills per kernel are reported). The variants: the forward core's
+ring depth and block (``fwd_core.cuh``, timed for ``FWD`` and for
+``FILTER`` and ``VITERBI``), ``BWD_SAMPLE``'s lanes a warp, ``TRAJ``'s
+warps and chunk, and the β core's block and ring (``beta_core.cuh``,
+``VG_BWD`` and ``BETA``). Before timing, each build is checked
 against this checkout's: the FFBS pair bitwise (alpha, loglik and draws
 at N=256, T=1024, K in {2, 3, 4, 8}, gated and not), the trajectory
 within ``chip_smoke.TRAJ_TOL`` (2 leapfrogs at 256 series x 2 chains,
@@ -76,9 +80,9 @@ VG_LANES = (1, 512, 2048)
 BETA_LANES = (1, 512, 8192)
 # variants of this checkout's constants: (source or header, name, {old: new})
 VARIANTS = (
-    ("ffbs_fwd.cu", "fwd_ring24", {"kStages = 3;": "kStages = 4;"}),
-    ("ffbs_fwd.cu", "fwd_ring32", {"kChunk = 8;": "kChunk = 16;"}),
-    ("ffbs_fwd.cu", "fwd_block128", {"kBlock = 64;": "kBlock = 128;"}),
+    ("fwd_core.cuh", "fwd_ring24", {"kFwdStages = 3;": "kFwdStages = 4;"}),
+    ("fwd_core.cuh", "fwd_ring32", {"kFwdChunk = 8;": "kFwdChunk = 16;"}),
+    ("fwd_core.cuh", "fwd_block128", {"kFwdBlock = 64;": "kFwdBlock = 128;"}),
     ("ffbs_bwd_sample.cu", "bwd_lanes2", {"kLanes = 4;": "kLanes = 2;"}),
     ("ffbs_bwd_sample.cu", "bwd_lanes8", {"kLanes = 4;": "kLanes = 8;"}),
 )
@@ -91,6 +95,11 @@ TRAJ_VARIANTS = (
 BETA_VARIANTS = (
     ("beta_core.cuh", "block32", {"kBetaBlock = 64;": "kBetaBlock = 32;"}),
     ("beta_core.cuh", "ring4", {"kBetaStages = 3;": "kBetaStages = 4;"}),
+)
+# the shared forward core's constants (fwd_core.cuh), for FILTER and VITERBI
+FWD_CORE_VARIANTS = (
+    ("fwd_core.cuh", "core_ring4", {"kFwdStages = 3;": "kFwdStages = 4;"}),
+    ("fwd_core.cuh", "core_block128", {"kFwdBlock = 64;": "kFwdBlock = 128;"}),
 )
 # VG_BWD without the Baum-Welch sums: what keeping them in the
 # recursion's threads costs (its d_A is not computed)
@@ -620,7 +629,7 @@ def main() -> int:
                                  BETA_VARIANTS)
         if args.only in (None, "decode"):
             bench_decode_kernels(args.label, args.other, Path(tmp), records,
-                                 (cs.FILTER, cs.VITERBI, cs.BACKTRACK), ())
+                                 (cs.FILTER, cs.VITERBI, cs.BACKTRACK), FWD_CORE_VARIANTS)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(records, indent=1))

@@ -20,8 +20,9 @@ before it and read just after:
   smoothing and Viterbi): the hard-gate Tayal posterior of the Gibbs
   fit and of the ChEES fit, 32 draws x 256 series = 8192 lanes at
   T=1024, the Gaussian HMM of ``hmm/main.R`` (K=3, T=500, 256 series)
-  fitted by Gibbs, decoded and path-sampled, and the same model with
-  K=5 and K=12 states (the 12 of ``bench_zoo.py``'s expanded HSMM).
+  fitted by Gibbs, decoded and path-sampled, the same model with K=5
+  and K=12 states (the 12 of ``bench_zoo.py``'s expanded HSMM), and
+  with K=20 decoded (a warp a lane, byte-wide Viterbi maps).
 
 Phases, one JSON object per line:
 
@@ -29,7 +30,9 @@ Phases, one JSON object per line:
    card's ``nvidia-smi`` name and power limit on a line of its own.
 2. build   — builds every kernel from ``hhmm_tpu_torch/kernels/csrc``
    with ``nvcc`` (all sources in parallel); ``ptxas`` reports each
-   kernel instantiation's registers and spills (line ``ptxas``).
+   kernel instantiation's registers and spills (line ``ptxas``; line
+   ``ptxas_fwd_core``: the forward core of ``FWD``, ``FILTER`` and
+   ``VITERBI`` at K=4 and K=16, the last two also at K=32).
 3. kernels — each kernel against its plain version on the card: the
    FFBS pair bitwise (alpha, ll and every draw) at K in {2, 3, 4, 8},
    ungated and gated, at N=256, T=1024 with a ragged tail and at
@@ -66,16 +69,25 @@ Phases, one JSON object per line:
    value-and-grad kernel launched once per log-density call, which is
    once per leapfrog plus the initial and step-size-probe calls.
 8. kernels_decode — ``FILTER``, ``BETA``, ``VITERBI`` and ``BACKTRACK``
-   at N=8192, T=1024, K in {3, 4, 8} (every other K in 2..16 at N=256),
+   at N=8192, T=1024, K in {3, 4, 8} (every other K in 2..32 at N=256),
    ragged mask, ``MASK_NEG``-sparse A, tie lanes, with and without all
    -inf evidence rows: bitwise equal to their plain versions, ``FILTER``
-   bitwise equal to ``FWD`` on finite inputs; then times each at
+   bitwise equal to ``FWD`` on finite inputs (K up to 16, ``FWD``'s
+   range); then times each at
    N=8192, T=1024, K=4.
    decode_smooth — ``TayalHHMM(gate_mode="hard").generated`` on 32
    Gibbs draws x 256 series: shapes, probability rows, each decode
    kernel launched once, every output against the plain versions on
    the same lanes, and (after the path's counts are read) loglik
    identical to ``FWD``'s.
+   generated_split — the same call again, warm, its stages timed with
+   CUDA events and the host clock by wrapping the functions it calls
+   (unpack + ``build``, the lane-layout copies, the four decode
+   kernels, the smoothing in the dispatch, the outputs), each wrapped
+   function called as often as the path calls it and the outputs
+   bitwise the cold call's; beside the cold call's time, and, for both
+   calls, the segments and bytes the caching allocator took from the
+   device (cudaMalloc) during the call.
    agreement — the ChEES draws through the same decode; the folded
    posterior-mean bull-pair probability against the Gibbs one and the
    Gibbs split-half floor (reported, not gated).
@@ -88,6 +100,10 @@ Phases, one JSON object per line:
    sweep), ``generated`` (each decode kernel once) and ``state_draws``
    (``FWD`` and ``BWD_SAMPLE`` once), every output against the plain
    versions on the same lanes and uniforms.
+   decode_wide — ``GaussianHMM(K=20).generated`` on 256 lanes, T=500:
+   each decode kernel launched once, every output against the plain
+   versions on the same lanes and against the same call on the CPU
+   (``WIDE_*`` tolerances).
 9. the kernels line, then the last line ``{"ok": true, "device": ...}``.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -117,9 +133,11 @@ from hhmm_tpu_torch.infer import (
 from hhmm_tpu_torch.core.lmath import MASK_NEG
 from hhmm_tpu_torch.kernels import cuda_semiring as cs
 from hhmm_tpu_torch.kernels import cuda_traj as ct
+from hhmm_tpu_torch.kernels import dispatch as td
 from hhmm_tpu_torch.kernels.cuda_build import build_and_load
 from hhmm_tpu_torch.kernels.filtering import smooth
 from hhmm_tpu_torch.models import GaussianHMM, NIGPrior, TayalHHMM, TayalHHMMLite
+from hhmm_tpu_torch.models import base as zoo_base
 from hhmm_tpu_torch.models.base import broadcast_data
 from hhmm_tpu_torch.sim import hmm_sim, obsmodel_gaussian
 from hhmm_tpu_torch.sim.tayal import tayal_batch, tayal_phi
@@ -149,6 +167,9 @@ SEED_GAUSS = 7
 # a series through the decode
 GK_KS, GK_STAY, GK_SIGMA = (5, 12), 0.8, 0.5
 GK_WARMUP, GK_SAMPLES, GK_DRAWS = 20, 20, 8
+# above K=16 (a warp a lane, byte-wide Viterbi maps): the Gaussian HMM at
+# K=20, decoded only, 32 series x 8 random draws = 256 lanes, T=500
+K_WIDE, K_WIDE_SERIES, K_WIDE_DRAWS = 20, 32, 8
 
 # the FFBS checks (each bitwise against the plain versions): every K the
 # kernels take, gated and not, at the main path's shape with a ragged
@@ -186,6 +207,15 @@ PROB_ATOL = 1e-5  # decode probabilities: alpha rows sum to 1, kernels vs plain
 # row sums to 1 only within a few of those ulps (in the JAX package too)
 GAMMA_SUM_TOL = 1e-3
 G_MU_TOL = 0.35  # Gaussian posterior-mean mu, mean over series (tests/test_gibbs.py)
+# the K=20 decode on the card against the same call on the CPU: torch's exp
+# and log round differently on the two devices (in build and in the plain
+# versions). At T=500 a log-alpha of about -1e3 has an f32 ulp of 6.1e-5;
+# two runs read gamma 1.22e-4 off (two ulps, the same through the scans
+# and through the kernels), alpha 4.5e-5, loglik and logp_zstar 9.9e-7
+# relative, and identical paths (the inputs come from a seed, so the
+# comparison is deterministic). The limits are twice the readings: four
+# ulps, and no path may differ
+WIDE_PROB_ATOL, WIDE_LL_RTOL, WIDE_PATH_MISMATCH_MAX = 2.5e-4, 2e-6, 0.0
 G_ACC_MIN = 0.9  # Gaussian Viterbi accuracy (tests/test_models.py)
 # trajectory (tests/test_pallas_traj.py's tolerances): (rtol, atol)
 TRAJ_TOL = {"q": (2e-4, 2e-4), "p": (2e-3, 2e-3), "logp": (1e-4, 5e-3), "grad": (2e-3, 2e-3)}
@@ -1071,13 +1101,13 @@ def decode_bytes_ops(kernel, lanes):
 def phase_kernels_decode(device):
     """``FILTER``, ``BETA``, ``VITERBI`` and ``BACKTRACK`` against their
     plain versions at N=8192, T=1024, K in {3, 4, 8}, and at N=256 at
-    every other K in 2..16: bitwise equal (log-values, -inf at the same
+    every other K in 2..32: bitwise equal (log-values, -inf at the same
     places, no NaN; maps, paths and scores identical), and ``FILTER``
-    bitwise equal to ``FWD`` on finite inputs; then each timed at the
-    main shape (K=4, dense mask)."""
+    bitwise equal to ``FWD`` on finite inputs (K up to 16); then each
+    timed at the main shape (K=4, dense mask)."""
     cases = []
     grid = [(N_DEC, K) for K in (3, 4, 8)] + [(EXTRA_DECODE_LANES, K) for K in range(
-        cs.K_RANGE[0], cs.K_RANGE[1] + 1) if K not in (3, 4, 8)]
+        cs.DECODE_K_RANGE[0], cs.DECODE_K_RANGE[1] + 1) if K not in (3, 4, 8)]
     for i, (N, K) in enumerate(grid):
         for finite in (True, False):
             lanes = make_decode_case(5000 + 2 * i + finite, N, T_FIT, K, device, finite)
@@ -1106,7 +1136,7 @@ def phase_kernels_decode(device):
             row = dict(N=N, K=K, finite=finite, neg_inf_alpha=int(torch.isinf(a_k).sum()),
                        neg_inf_beta=int(torch.isinf(b_k).sum()),
                        masked_steps=int((mask_t == 0).sum()))
-            if finite:
+            if finite and K <= cs.K_RANGE[1]:
                 ll_f, a_f = cs.fwd_lanes(*lanes)
                 sync()
                 if not (torch.equal(a_f, a_k) and torch.equal(ll_f, ll_k)):
@@ -1195,6 +1225,86 @@ def check_decode_once(name, rose):
         raise AssertionError(f"{name}: generated launched {rose}, expected each decode kernel once")
 
 
+def allocator_growth(before):
+    """Device memory segments the caching allocator took from the device
+    (``cudaMalloc``) since the ``torch.cuda.memory_stats()`` snapshot
+    ``before``, and the bytes they added to its reserve."""
+    now = torch.cuda.memory_stats()
+    key, res = "segment.all.allocated", "reserved_bytes.all.allocated"
+    return {"segments": now.get(key, 0) - before.get(key, 0),
+            "bytes": now.get(res, 0) - before.get(res, 0)}
+
+
+def generated_split(model, draws, data, device, want):
+    """One warm ``model.generated``, its stages timed with a CUDA event
+    (device clock) and the host clock at each boundary, taken by
+    wrapping the functions the call reaches: ``smooth_dispatch`` and
+    ``viterbi_dispatch`` as ``models/base.py`` calls them, ``to_lanes``
+    as ``smooth_dispatch`` and ``semiring_viterbi`` call it, and the four
+    kernel wrappers. Stages: unpack + ``build`` (up to
+    ``smooth_dispatch``), the lane-layout copies, the four decode
+    kernels, the rest of the two dispatches (the smoothing, the path's
+    transpose) and the outputs (after ``viterbi_dispatch``). Each
+    wrapped function must be called as often as the path calls it, and
+    the outputs must equal ``want`` (the cold call's) bit for bit, so the
+    stages are the path's own."""
+    marks = []  # (stage entered, event, host time)
+
+    def mark(stage):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((stage, ev, time.perf_counter()))
+
+    def timed(fn, stage):
+        def run(*args, **kwargs):
+            outer = marks[-1][0]
+            mark(stage)
+            out = fn(*args, **kwargs)
+            mark(outer)
+            return out
+        return run
+
+    wraps = [(zoo_base, "smooth_dispatch", "dispatch"), (zoo_base, "viterbi_dispatch", "dispatch"),
+             (td, "to_lanes", "lane_copies"), (cs, "to_lanes", "lane_copies"),
+             (td, "filter_lanes", "decode_kernels"), (td, "beta_lanes", "decode_kernels"),
+             (cs, "viterbi_lanes", "decode_kernels"), (cs, "backtrack_lanes", "decode_kernels")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in wraps]
+    sync()
+    mem = torch.cuda.memory_stats()
+    try:
+        for mod, name, stage in wraps:
+            setattr(mod, name, timed(getattr(mod, name), stage))
+        mark("generated")
+        out = model.generated(draws, data, device=device)
+        mark("end")
+        sync()
+        end = time.perf_counter()
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    entered = [st for st, _, _ in marks]
+    # the path: unpack + build, then smooth_dispatch (a copy, FILTER, BETA),
+    # then viterbi_dispatch (a copy in semiring_viterbi, VITERBI, BACKTRACK)
+    one_dispatch = ["dispatch", "lane_copies", "dispatch", "decode_kernels", "dispatch",
+                    "decode_kernels", "dispatch", "generated"]
+    if entered != ["generated", *one_dispatch, *one_dispatch, "end"]:
+        raise AssertionError(f"generated_split: the call took {entered}, not the split's path")
+    if not all(torch.equal(out[k], want[k]) for k in want):
+        raise AssertionError("generated_split: the timed call differs from the cold one")
+    device_ms, host_ms = {}, {}
+    for i, ((stage, ev, h), (_, ev2, h2)) in enumerate(zip(marks, marks[1:])):
+        # in generated itself: unpack + build before the dispatches, the
+        # outputs after them (and the nothing between them)
+        if stage == "generated":
+            stage = "unpack_build" if i == 0 else "outputs"
+        device_ms[stage] = device_ms.get(stage, 0.0) + ev.elapsed_time(ev2)
+        host_ms[stage] = host_ms.get(stage, 0.0) + (h2 - h) * 1e3
+    return dict(device_ms=device_ms, host_enqueue_ms=host_ms,
+                total_ms=(end - marks[0][2]) * 1e3,
+                device_total_ms=marks[0][1].elapsed_time(marks[-1][1]),
+                allocator_growth=allocator_growth(mem))
+
+
 def phase_decode_smooth(device, qs):
     """``TayalHHMM(gate_mode="hard").generated`` on 32 thinned Gibbs
     draws x 256 series (8192 lanes, T=1024): shapes, probability rows,
@@ -1206,10 +1316,12 @@ def phase_decode_smooth(device, qs):
     draws = thin(qs[:, 0], N_DECODE_DRAWS)  # [B, 32, D]
     before = launch_counts()
     sync()
+    mem = torch.cuda.memory_stats()
     t0 = time.perf_counter()
     out = hard.generated(draws, data, device=device)
     sync()
     wall = time.perf_counter() - t0
+    cold_alloc = allocator_growth(mem)
     rose = rose_since(before)
     check_decode_once("decode_smooth", rose)
     B, D, T = N_SERIES, N_DECODE_DRAWS, T_FIT
@@ -1248,6 +1360,10 @@ def phase_decode_smooth(device, qs):
     emit("decode_smooth", lanes=N_DEC, T=T, K=4, seconds=wall, launches=rose,
          max_abs_err_vs_plain=errs, identical_vs_plain=same, row_sum_max_dev=row_dev,
          loglik_mean=float(out["loglik"].mean()))
+    # the same call again, warm, stage by stage
+    split = generated_split(hard, draws, data, device, out)
+    emit("generated_split", lanes=N_DEC, T=T, K=4, cold_seconds=wall,
+         cold_allocator_growth=cold_alloc, **split)
     return dict(out=out, data=data, lanes=(log_pi, log_A, log_obs, ones))
 
 
@@ -1373,12 +1489,12 @@ def phase_gaussian(device):
          state_draws_accuracy_mean=float(sd_acc))
 
 
-def check_zoo_vs_plain(name, model, draws, data, out, z_draws, seed):
+def check_zoo_vs_plain(name, model, draws, data, out, z_draws=None, seed=None):
     """``generated`` and ``state_draws`` of ``model`` on ``draws [B, D,
     n_free]`` against the plain versions on the same lanes (dense mask):
     alpha and gamma within ``PROB_ATOL``, the Viterbi path, its score and
-    the loglik identical, and the state draws identical given the
-    uniforms ``state_draws`` took from a generator seeded ``seed``."""
+    the loglik identical, and the state draws (if given) identical given
+    the uniforms ``state_draws`` took from a generator seeded ``seed``."""
     B, D = draws.shape[:2]
     params, _ = model.unpack(draws.reshape(B * D, -1))
     lanes = {k: v.repeat_interleave(D, 0) for k, v in data.items()}
@@ -1393,18 +1509,19 @@ def check_zoo_vs_plain(name, model, draws, data, out, z_draws, seed):
     la_p, lb_p = a_p.permute(2, 0, 1), b_p.permute(2, 0, 1)
     ref = {"alpha": torch.softmax(la_p, dim=-1), "gamma": torch.exp(smooth(la_p, lb_p))}
     errs = {k: float((out[k].reshape(ref[k].shape) - v).abs().max()) for k, v in ref.items()}
-    gen = torch.Generator(device=log_obs.device)
-    gen.manual_seed(seed)
-    u = torch.rand((N, T), generator=gen, dtype=torch.float32, device=log_obs.device)
-    _, A_c, _, _, _, _ = cs.to_lanes(log_pi, log_A.clamp_min(-1e30), log_obs, ones)
-    _, alpha_p = cs.fwd_plain(pi_t, A_c, obs_t, mask_t)
-    z_p = cs.bwd_sample_plain(A_c, mask_t, alpha_p, u.t().contiguous())
     same = {
         "zstar": torch.equal(out["zstar"].reshape(N, T), path_p.t().long()),
         "logp_zstar": torch.equal(out["logp_zstar"].reshape(-1), sc_p),
         "loglik": torch.equal(out["loglik"].reshape(-1), ll_p),
-        "state_draws": torch.equal(z_draws.reshape(N, T), z_p.t().long()),
     }
+    if z_draws is not None:
+        gen = torch.Generator(device=log_obs.device)
+        gen.manual_seed(seed)
+        u = torch.rand((N, T), generator=gen, dtype=torch.float32, device=log_obs.device)
+        _, A_c, _, _, _, _ = cs.to_lanes(log_pi, log_A.clamp_min(-1e30), log_obs, ones)
+        _, alpha_p = cs.fwd_plain(pi_t, A_c, obs_t, mask_t)
+        z_p = cs.bwd_sample_plain(A_c, mask_t, alpha_p, u.t().contiguous())
+        same["state_draws"] = torch.equal(z_draws.reshape(N, T), z_p.t().long())
     if max(errs.values()) > PROB_ATOL or not all(same.values()):
         raise AssertionError(f"{name}: kernels vs plain {errs}, identical {same}")
     return errs, same
@@ -1474,6 +1591,57 @@ def phase_gaussian_k(device):
              viterbi_accuracy_mean=float(acc))
 
 
+def phase_decode_wide(device):
+    """``GaussianHMM(K=20).generated`` on 32 simulated series x 8 draws
+    (the true parameters plus noise from a seed: 256 lanes, T=500): a
+    warp a lane and byte-wide Viterbi maps (K above 16). Each decode
+    kernel launched once, every output against the plain versions on the
+    same lanes (``check_zoo_vs_plain``), and against the same call on the
+    CPU within ``WIDE_*``."""
+    K, S, D = K_WIDE, K_WIDE_SERIES, K_WIDE_DRAWS
+    A = np.full((K, K), (1 - GK_STAY) / (K - 1))
+    np.fill_diagonal(A, GK_STAY)
+    mu = 1.5 * (np.arange(K) - (K - 1) / 2)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED_GAUSS + K)
+    z_true, x = hmm_sim(gen, G_T, A.tolist(), np.ones(K) / K,
+                        obsmodel_gaussian(mu.tolist(), [GK_SIGMA] * K), batch=(S,))
+    model = GaussianHMM(K=K, nig_prior=NIGPrior(**G_PRIOR))
+    f32 = dict(dtype=torch.float32, device=device)
+    truth = {"p_1k": torch.full((K,), 1.0 / K, **f32), "A_ij": torch.as_tensor(A, **f32),
+             "mu_k": torch.as_tensor(mu, **f32), "sigma_k": torch.full((K,), GK_SIGMA, **f32)}
+    rng = np.random.default_rng(SEED_GAUSS + K)
+    noise = torch.as_tensor(0.05 * rng.normal(size=(S, D, model.n_free)), **f32)
+    draws = model.pack(truth) + noise
+    data = {"x": x}
+    before = launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    out = model.generated(draws, data, device=device)
+    sync()
+    wall = time.perf_counter() - t0
+    rose = rose_since(before)
+    check_decode_once(f"decode_wide K={K}", rose)
+    errs_plain, same = check_zoo_vs_plain(f"decode_wide K={K}", model, draws, data, out)
+    ref = model.generated(draws.cpu(), {"x": x.cpu()}, device="cpu")
+    errs = {k: float((out[k].cpu() - ref[k]).abs().max()) for k in ("alpha", "gamma")}
+    ll_rel = float(((out["loglik"].cpu() - ref["loglik"]) / ref["loglik"]).abs().max())
+    lp_rel = float(((out["logp_zstar"].cpu() - ref["logp_zstar"]) / ref["logp_zstar"]).abs().max())
+    path_mismatch = float((out["zstar"].cpu() != ref["zstar"]).float().mean())
+    finite = all(bool(torch.isfinite(out[k]).all()) for k in ("alpha", "gamma", "loglik"))
+    if (not finite or max(errs.values()) > WIDE_PROB_ATOL or max(ll_rel, lp_rel) > WIDE_LL_RTOL
+            or path_mismatch > WIDE_PATH_MISMATCH_MAX):
+        raise AssertionError(f"decode_wide: card vs CPU {errs}, loglik {ll_rel:.3g}, logp_zstar "
+                             f"{lp_rel:.3g}, path mismatch {path_mismatch:.3g}, finite {finite}")
+    acc = (out["zstar"] == z_true[:, None]).float().mean()
+    emit("decode_wide", series=S, draws_per_series=D, lanes=S * D, T=G_T, K=K, seconds=wall,
+         launches=rose, max_abs_err_vs_plain=errs_plain, identical_vs_plain=same,
+         max_abs_err_vs_cpu=errs, loglik_max_rel_err_vs_cpu=ll_rel,
+         logp_zstar_max_rel_err_vs_cpu=lp_rel, zstar_mismatch_share_vs_cpu=path_mismatch,
+         row_sum_max_dev=check_probabilities("decode_wide", out, "gamma"),
+         viterbi_accuracy_mean=float(acc))
+
+
 def ptxas_usage(log: str) -> dict:
     """``{kernel<template args>: [registers, spill store bytes, spill load
     bytes]}`` from an ``nvcc -Xptxas -v`` log (its entries named from the
@@ -1523,7 +1691,19 @@ def main() -> int:
     report = build_and_load(ALL_KERNELS)
     per_source = {s: {"seconds": r["seconds"], "cached": r["cached"]} for s, r in report.items()}
     emit("build", seconds=time.perf_counter() - t0, per_source=per_source)
-    emit("ptxas", **{src: ptxas_usage(r["log"]) for src, r in report.items()})
+    usage = {src: ptxas_usage(r["log"]) for src, r in report.items()}
+    emit("ptxas", **usage)
+    # the forward core (fwd_core.cuh) in its three modes (0 clamped: FWD,
+    # ungated and gated; 1 guarded: FILTER; 2 max-plus: VITERBI) at K=4,
+    # 16 and, for the decode, 32: registers, spill store and load bytes
+    # (None for a cached build)
+    emit("ptxas_fwd_core", **{
+        f"{mode}_K{K}": usage[k.source.name].get(f"forward_kernel<{K},{args}>")
+        for mode, k, args, ks in (
+            ("fwd", cs.FWD, "0,false", (4, 16)), ("fwd_gated", cs.FWD, "0,true", (4, 16)),
+            ("filter", cs.FILTER, "1,false", (4, 16, 32)),
+            ("viterbi", cs.VITERBI, "2,false", (4, 16, 32)))
+        for K in ks})
 
     kern = phase_kernels(device)
     vgk = phase_kernels_vg(device)
@@ -1554,6 +1734,7 @@ def main() -> int:
     phase_agreement(device, dec, chees_qs)
     phase_gaussian(device)
     phase_gaussian_k(device)
+    phase_decode_wide(device)
     zoo = {k.name: k.launches for k in ALL_KERNELS}
     check_loglik_vs_fwd(dec)
     del dec

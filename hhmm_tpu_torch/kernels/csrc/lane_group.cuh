@@ -1,14 +1,15 @@
-// What the kernels that run a group of threads a lane share
-// (ffbs_fwd.cu, and beta_core.cuh for semiring_beta.cu and vg_bwd.cu):
+// What the kernels that run a group of threads a lane share (fwd_core.cuh
+// for ffbs_fwd.cu, semiring_filter.cu and semiring_viterbi.cu, and
+// beta_core.cuh for semiring_beta.cu and vg_bwd.cu):
 // the group's shape, the order-fixed log-sum-exps, the warp gather, the
 // cp.async ring's three instructions and the dispatch of a runtime K to
 // its template.
 //
-// A group of G threads (the next power of two >= K, at least 2) owns one
-// lane; thread j of the group owns state j (threads K .. G-1 idle, as the
-// fourth does at K = 3). A warp holds 32 / G lanes, lane index fastest,
-// so at one step the warp's accesses to a [.., K, N] array are, per
-// state, 32 / G consecutive floats.
+// A group of G threads (the next power of two >= K, at least 2, at most
+// a warp) owns one lane; thread j of the group owns state j (threads K ..
+// G-1 idle, as the fourth does at K = 3). A warp holds 32 / G lanes,
+// lane index fastest, so at one step the warp's accesses to a [.., K, N]
+// array are, per state, 32 / G consecutive floats.
 
 #pragma once
 
@@ -22,12 +23,14 @@ namespace hhmm {
 constexpr float kClamp = -1.0e30f;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMinK = 2;
-constexpr int kMaxK = 16;
+constexpr int kMaxK = 16;        // FWD, BWD_SAMPLE and VG_BWD (4-bit sample maps)
+constexpr int kMaxDecodeK = 32;  // FILTER, BETA, VITERBI and BACKTRACK: a warp a lane
 
 template <int K>
 struct Group {
-  static_assert(kMinK <= K && K <= kMaxK, "K in 2..16");
-  static constexpr int G = K <= 2 ? 2 : (K <= 4 ? 4 : (K <= 8 ? 8 : 16));  // threads a lane
+  static_assert(kMinK <= K && K <= kMaxDecodeK, "K in 2..32");
+  // threads a lane
+  static constexpr int G = K <= 2 ? 2 : (K <= 4 ? 4 : (K <= 8 ? 8 : (K <= 16 ? 16 : 32)));
   static constexpr int kLanesPerWarp = 32 / G;
 };
 
@@ -107,15 +110,15 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
 }
 
-// f(std::integral_constant<int, K>{}) for the runtime k in 2..16, -1 for
-// any other k
-template <int K = kMinK, class F>
+// f(std::integral_constant<int, K>{}) for the runtime k in 2..KMAX, -1
+// for any other k
+template <int KMAX = kMaxK, int K = kMinK, class F>
 int for_k(int k, F&& f) {
-  if constexpr (K > kMaxK) {
+  if constexpr (K > KMAX) {
     return -1;
   } else {
     if (k == K) return f(std::integral_constant<int, K>{});
-    return for_k<K + 1>(k, f);
+    return for_k<KMAX, K + 1>(k, f);
   }
 }
 

@@ -25,14 +25,14 @@
 #include "beta_core.cuh"
 
 // Returns 0 on a good launch, the cudaError_t of a refused one, or -1 for
-// a K outside 2..16 or an empty shape. Launches on `stream`, does not
+// a K outside 2..32 or an empty shape. Launches on `stream`, does not
 // synchronise and allocates nothing: the caller owns every buffer.
 extern "C" int hhmm_semiring_beta(int K, const float* A, const float* obs,
                                   const float* mask, float* beta, int T, int N,
                                   void* stream) {
   if (T < 1 || N < 1) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int rc = hhmm::for_k(K, [&](auto k) {
+  const int rc = hhmm::for_k<hhmm::kMaxDecodeK>(K, [&](auto k) {
     return hhmm::launch_beta<decltype(k)::value, false, false>(
         A, obs, mask, nullptr, nullptr, nullptr, nullptr, beta, nullptr, nullptr, nullptr,
         T, N, s);

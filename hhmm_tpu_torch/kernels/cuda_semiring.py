@@ -17,7 +17,9 @@ kernel of that module:
   d_obs)`` of the forward log-likelihood;
 - ``FILTER`` (``semiring_filter.cu``) replaces ``_semiring_fwd_kernel``
   in mode "filter": the guarded forward filter of the decode (an
-  all-(−inf) row stays −inf, never NaN);
+  all-(−inf) row stays −inf, never NaN); it, ``VITERBI`` and ``FWD``
+  are one kernel template in three modes (``csrc/fwd_core.cuh``), as
+  the TPU kernel is one body for the first two;
 - ``BETA`` (``semiring_beta.cu``) replaces ``_beta_kernel``: the guarded
   backward recursion;
 - ``VITERBI`` and ``BACKTRACK`` (``semiring_viterbi.cu``) replace
@@ -26,14 +28,19 @@ kernel of that module:
   (packed four bits a state, see below), and the walk back through the
   maps.
 
-Every kernel takes K in 2..16 (``K_RANGE``) and raises a ``ValueError``
-for any other K; the plain versions take K up to 16 too, so a K above
-16 raises on either route. A backpointer map (``VITERBI``'s output, and
-``BWD_SAMPLE``'s candidate maps inside the kernel) is ``W = ceil(K /
-8)`` int32 words a step: nibble ``j % 8`` of word ``j // 8`` holds the
-pointer of state j. For K <= 8 the maps are ``[T, N]`` (one word a
-step); for 9 <= K <= 16 they are ``[T, 2, N]``, word-major within a
-step, so that each word row stays a run of N consecutive words
+The decode kernels (``FILTER``, ``BETA``, ``VITERBI``, ``BACKTRACK``)
+take K in 2..32 (``DECODE_K_RANGE``: up to a warp a lane), the FFBS and
+value-and-grad kernels (``FWD``, ``BWD_SAMPLE``, ``VG_BWD``) K in 2..16
+(``K_RANGE``: ``BWD_SAMPLE``'s candidate maps hold four bits a state);
+each raises a ``ValueError`` for any other K, and its plain version
+takes the same largest K, so a larger K raises on either route. A
+backpointer map (``VITERBI``'s output, and ``BWD_SAMPLE``'s candidate
+maps inside the kernel) is ``W`` int32 words a step of ``B``-bit fields,
+``B = 4`` up to K = 16 and 8 above, ``P = 32 / B`` states a word, ``W =
+ceil(K / P)``: field ``j % P`` of word ``j // P`` holds the pointer of
+state j. For K <= 8 the maps are ``[T, N]`` (one word a step); above
+they are ``[T, W, N]`` (W = 2 up to K = 16, 5 to 8 above), word-major
+within a step, so that each word row stays a run of N consecutive words
 (coalesced over the lanes, as the one-word layout) and the K <= 8
 layout is its W = 1 case with the word axis dropped.
 
@@ -69,6 +76,7 @@ __all__ = [
     "BACKTRACK",
     "KERNELS",
     "K_RANGE",
+    "DECODE_K_RANGE",
     "build_kernels",
     "reset_launches",
     "to_lanes",
@@ -96,7 +104,8 @@ __all__ = [
 ]
 
 _CLAMP = -1.0e30
-K_RANGE = (2, 16)  # the kernels' K, both ends included
+K_RANGE = (2, 16)  # FWD, BWD_SAMPLE and VG_BWD's K, both ends included
+DECODE_K_RANGE = (2, 32)  # FILTER, BETA, VITERBI and BACKTRACK's
 # BWD_SAMPLE keeps its packed candidate maps in shared memory up to this
 # many words a lane (kSmemMaxWords in ffbs_bwd_sample.cu: W words a step,
 # so T <= 2048 at K <= 8 and T <= 1024 at K > 8), beyond it in an int32
@@ -231,22 +240,30 @@ def to_lanes(
     return pi_t, A_t, obs_t, mask_t, gate_t, sk_t
 
 
+def _map_bits(K: int) -> int:
+    """Bits a state of a packed backpointer map: 4 up to K = 16, 8
+    above (a pointer to state 16 or more needs a fifth bit)."""
+    return 4 if K <= 16 else 8
+
+
 def _map_words(K: int) -> int:
-    """Words a step of a packed backpointer map: 8 states a word."""
-    return (K + 7) // 8
+    """Words a step of a packed backpointer map: ``32 / _map_bits(K)``
+    states a word."""
+    per = 32 // _map_bits(K)
+    return (K + per - 1) // per
 
 
 def _map_shape(T: int, K: int, N: int) -> tuple:
     return (T, N) if K <= 8 else (T, _map_words(K), N)
 
 
-def _check_lane_shapes(T: int, K: int, N: int, **named) -> None:
-    """K is at most ``K_RANGE[1]`` (on every route), every lane-layout
+def _check_lane_shapes(T: int, K: int, N: int, k_range=K_RANGE, **named) -> None:
+    """K is at most ``k_range[1]`` (on every route), every lane-layout
     operand has the shape its kernel indexes it with (the kernels read
     through raw pointers: a short operand would be read out of bounds),
     and the gate operands come together."""
-    if K > K_RANGE[1]:
-        raise ValueError(f"the kernels take K in {K_RANGE[0]}..{K_RANGE[1]}, got K={K}")
+    if K > k_range[1]:
+        raise ValueError(f"the kernels take K in {k_range[0]}..{k_range[1]}, got K={K}")
     if (named.get("gate") is None) != (named.get("sk") is None):
         raise ValueError("gate and sk must be given together")
     want = {
@@ -261,10 +278,10 @@ def _check_lane_shapes(T: int, K: int, N: int, **named) -> None:
             )
 
 
-def _check_cuda_operands(K: int, *tensors) -> None:
-    if not K_RANGE[0] <= K <= K_RANGE[1]:
+def _check_cuda_operands(K: int, *tensors, k_range=K_RANGE) -> None:
+    if not k_range[0] <= K <= k_range[1]:
         raise ValueError(
-            f"the CUDA kernels take K in {K_RANGE[0]}..{K_RANGE[1]}, got K={K}"
+            f"the CUDA kernels take K in {k_range[0]}..{k_range[1]}, got K={K}"
         )
     for t in tensors:
         if t is None:
@@ -412,16 +429,18 @@ def _argmax0(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def _pack(ptr: torch.Tensor) -> torch.Tensor:
-    """Pointers ``[K, N]`` (each in 0..15) → packed map words ``[W, N]``
-    int32: nibble ``j % 8`` of word ``j // 8`` holds ``ptr[j]``, the
-    unused nibbles are 0. A word with its top nibble at 8 or above is
-    the negative int32 of the same bits."""
+    """Pointers ``[K, N]`` (each in 0..K-1) → packed map words ``[W, N]``
+    int32: field ``j % P`` of word ``j // P`` holds ``ptr[j]`` (``B =
+    _map_bits(K)`` bits a field, ``P = 32 / B``), the unused fields are
+    0. A word with its top bit set is the negative int32 of the same
+    bits."""
     K, N = ptr.shape
-    W = _map_words(K)
-    p = torch.zeros((W * 8, N), dtype=torch.int64, device=ptr.device)
+    W, B = _map_words(K), _map_bits(K)
+    P = 32 // B
+    p = torch.zeros((W * P, N), dtype=torch.int64, device=ptr.device)
     p[:K] = ptr
-    shifts = 4 * torch.arange(8, dtype=torch.int64, device=ptr.device)
-    words = (p.view(W, 8, N) << shifts[None, :, None]).sum(1)
+    shifts = B * torch.arange(P, dtype=torch.int64, device=ptr.device)
+    words = (p.view(W, P, N) << shifts[None, :, None]).sum(1)
     return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
 
 
@@ -436,13 +455,15 @@ def _map_rows(back_t: torch.Tensor) -> torch.Tensor:
 
 
 def unpack_back(back_t: torch.Tensor, K: int) -> torch.Tensor:
-    """Packed maps (``[T, N]`` for K <= 8, ``[T, 2, N]`` above) int32 →
+    """Packed maps (``[T, N]`` for K <= 8, ``[T, W, N]`` above) int32 →
     backpointers ``[T, K, N]`` int64 (``[t, j, n]`` = the argmax
     predecessor of state j at step t)."""
+    B = _map_bits(K)
+    P = 32 // B
     j = torch.arange(K, device=back_t.device)
-    words = _map_rows(back_t)[:, j // 8]  # [T, K, N]
-    shifts = (4 * (j % 8)).to(torch.int32)
-    return ((words >> shifts[None, :, None]) & 15).long()
+    words = _map_rows(back_t)[:, j // P]  # [T, K, N]
+    shifts = (B * (j % P)).to(torch.int32)
+    return ((words >> shifts[None, :, None]) & (2**B - 1)).long()
 
 
 def filter_plain(pi_t, A_t, obs_t, mask_t):
@@ -478,7 +499,7 @@ def beta_plain(A_t, obs_t, mask_t):
 def viterbi_plain(pi_t, A_t, obs_t, mask_t):
     """Plain version of the ``VITERBI`` kernel on the lane layout:
     ``(score [N], dlast [K, N], back)``, one packed first-argmax map per
-    step (``back`` int32 ``[T, N]`` for K <= 8, ``[T, 2, N]`` above; the
+    step (``back`` int32 ``[T, N]`` for K <= 8, ``[T, W, N]`` above; the
     identity map at t = 0 and on masked steps); no mask case at t = 0."""
     T, K, N = obs_t.shape
     ident = _identity_map(K, N, obs_t.device)
@@ -496,15 +517,17 @@ def viterbi_plain(pi_t, A_t, obs_t, mask_t):
 def backtrack_plain(back_t, dlast):
     """Plain version of the ``BACKTRACK`` kernel: ``path [T, N]`` int32,
     ``z_{T-1}`` the first argmax of ``dlast [K, N]`` and ``z_{t-1} =
-    back_t[z_t]`` (nibble ``z % 8`` of word ``z // 8`` of step t)."""
+    back_t[z_t]`` (field ``z % P`` of word ``z // P`` of step t)."""
     words = _map_rows(back_t)
     T, _, N = words.shape
+    B = _map_bits(dlast.shape[0])
+    P = 32 // B
     path = torch.empty((T, N), dtype=torch.int32, device=back_t.device)
     z = _argmax0(dlast)[1]
     path[T - 1] = z
     for t in range(T - 1, 0, -1):
-        w = words[t].gather(0, (z >> 3).long()[None])[0]
-        z = (w >> (4 * (z & 7))) & 15
+        w = words[t].gather(0, (z // P).long()[None])[0]
+        z = (w >> (B * (z % P))) & (2**B - 1)
         path[t - 1] = z
     return path
 
@@ -601,12 +624,12 @@ def filter_lanes(pi_t, A_t, obs_t, mask_t):
     ``FILTER``."""
     dev = _check_same_device(pi_t, A_t, obs_t, mask_t)
     T, K, N = obs_t.shape
-    _check_lane_shapes(T, K, N, pi=pi_t, A=A_t, obs=obs_t, mask=mask_t)
+    _check_lane_shapes(T, K, N, DECODE_K_RANGE, pi=pi_t, A=A_t, obs=obs_t, mask=mask_t)
     if dev.type == "cpu":
         return filter_plain(pi_t, A_t, obs_t, mask_t)
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
-    _check_cuda_operands(K, pi_t, A_t, obs_t, mask_t)
+    _check_cuda_operands(K, pi_t, A_t, obs_t, mask_t, k_range=DECODE_K_RANGE)
     FILTER.load()
     ll = torch.empty((N,), dtype=torch.float32, device=dev)
     alpha = torch.empty((T, K, N), dtype=torch.float32, device=dev)
@@ -624,12 +647,12 @@ def beta_lanes(A_t, obs_t, mask_t):
     ``BETA``."""
     dev = _check_same_device(A_t, obs_t, mask_t)
     T, K, N = obs_t.shape
-    _check_lane_shapes(T, K, N, A=A_t, obs=obs_t, mask=mask_t)
+    _check_lane_shapes(T, K, N, DECODE_K_RANGE, A=A_t, obs=obs_t, mask=mask_t)
     if dev.type == "cpu":
         return beta_plain(A_t, obs_t, mask_t)
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
-    _check_cuda_operands(K, A_t, obs_t, mask_t)
+    _check_cuda_operands(K, A_t, obs_t, mask_t, k_range=DECODE_K_RANGE)
     BETA.load()
     beta = torch.empty((T, K, N), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -642,17 +665,17 @@ def beta_lanes(A_t, obs_t, mask_t):
 
 def viterbi_lanes(pi_t, A_t, obs_t, mask_t):
     """Max-plus pass on the lane layout: ``(score [N], dlast [K, N],
-    back)``, the packed int32 maps ``[T, N]`` (K <= 8) or ``[T, 2, N]``.
+    back)``, the packed int32 maps ``[T, N]`` (K <= 8) or ``[T, W, N]``.
     CPU tensors run :func:`viterbi_plain`; CUDA tensors launch
     ``VITERBI``."""
     dev = _check_same_device(pi_t, A_t, obs_t, mask_t)
     T, K, N = obs_t.shape
-    _check_lane_shapes(T, K, N, pi=pi_t, A=A_t, obs=obs_t, mask=mask_t)
+    _check_lane_shapes(T, K, N, DECODE_K_RANGE, pi=pi_t, A=A_t, obs=obs_t, mask=mask_t)
     if dev.type == "cpu":
         return viterbi_plain(pi_t, A_t, obs_t, mask_t)
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
-    _check_cuda_operands(K, pi_t, A_t, obs_t, mask_t)
+    _check_cuda_operands(K, pi_t, A_t, obs_t, mask_t, k_range=DECODE_K_RANGE)
     VITERBI.load()
     score = torch.empty((N,), dtype=torch.float32, device=dev)
     dlast = torch.empty((K, N), dtype=torch.float32, device=dev)
@@ -667,21 +690,21 @@ def viterbi_lanes(pi_t, A_t, obs_t, mask_t):
 
 def backtrack_lanes(back_t, dlast):
     """Viterbi backtrack on the lane layout: ``path [T, N]`` int32 from
-    the packed int32 maps ``back_t`` (``[T, N]`` for K <= 8, ``[T, 2,
+    the packed int32 maps ``back_t`` (``[T, N]`` for K <= 8, ``[T, W,
     N]`` above) and ``dlast [K, N]``. CPU tensors run
     :func:`backtrack_plain`; CUDA tensors launch ``BACKTRACK``."""
     dev = _check_same_device(back_t, dlast)
     if back_t.ndim not in (2, 3) or dlast.ndim != 2:
-        raise ValueError("back must be [T, N] or [T, 2, N] and dlast [K, N]")
+        raise ValueError("back must be [T, N] or [T, W, N] and dlast [K, N]")
     T, N, K = back_t.shape[0], back_t.shape[-1], dlast.shape[0]
-    _check_lane_shapes(T, K, N, back=back_t, dlast=dlast)
+    _check_lane_shapes(T, K, N, DECODE_K_RANGE, back=back_t, dlast=dlast)
     if back_t.dtype != torch.int32:
         raise TypeError(f"back must be the packed int32 maps, got {back_t.dtype}")
     if dev.type == "cpu":
         return backtrack_plain(back_t, dlast)
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
-    _check_cuda_operands(K, dlast)
+    _check_cuda_operands(K, dlast, k_range=DECODE_K_RANGE)
     if not back_t.is_contiguous():
         raise ValueError("the CUDA kernels take contiguous lane-layout operands")
     BACKTRACK.load()

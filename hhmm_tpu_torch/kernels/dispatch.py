@@ -7,11 +7,13 @@ series (``log_pi [N, K]``, ``log_obs [N, T, K]``, ``mask [N, T]``):
 
 - a homogeneous ``[N, K, K]`` ``log_A`` on CUDA goes to the kernels and
   must be float32 (any other dtype raises); on the CPU it goes to their
-  plain versions (any float dtype). ``forward_filter_dispatch`` runs
+  plain versions (any float dtype); both take K in ``DECODE_K_RANGE``
+  (2..32) and raise for any other K. ``forward_filter_dispatch`` runs
   ``FILTER``, ``backward_dispatch`` ``BETA``, ``smooth_dispatch`` both
-  (the guarded normalisation ``filtering.smooth`` applied as plain ops
-  outside the kernels, as the JAX pallas branch does), and
-  ``viterbi_dispatch`` ``VITERBI`` then ``BACKTRACK``;
+  on one lane-layout copy of the operands (the guarded normalisation
+  ``filtering.smooth`` applied as plain ops outside the kernels, as the
+  JAX pallas branch does), and ``viterbi_dispatch`` ``VITERBI`` then
+  ``BACKTRACK``;
 - a time-varying ``[N, T-1, K, K]`` ``log_A`` (the Tayal stan gate) runs
   the plain scans of ``kernels/filtering.py`` and ``kernels/viterbi.py``
   on either device, as in the JAX package, whose Pallas kernels never
@@ -19,7 +21,8 @@ series (``log_pi [N, K]``, ``log_obs [N, T, K]``, ``mask [N, T]``):
   stan-gate OOS Viterbi stays on the scan in both packages;
 - ``ffbs_dispatch``: homogeneous ``log_A`` only, the FFBS kernels
   (``FWD`` + ``BWD_SAMPLE``) on CUDA in float32, their plain versions on
-  the CPU.
+  the CPU; K above 16 raises (``BWD_SAMPLE``'s maps hold 4-bit
+  pointers).
 
 Operands on other devices, or on mixed devices, raise: no kernel ever
 falls back to its plain version. ``make_tayal_trajectory`` /
@@ -35,9 +38,12 @@ from typing import Optional, Tuple
 import torch
 
 from hhmm_tpu_torch.kernels.cuda_semiring import (
+    beta_lanes,
+    filter_lanes,
     semiring_beta,
     semiring_filter,
     semiring_viterbi,
+    to_lanes,
 )
 from hhmm_tpu_torch.kernels.cuda_traj import make_tayal_trajectory, tayal_trajectory
 from hhmm_tpu_torch.kernels.ffbs import ffbs_fused
@@ -70,7 +76,8 @@ def _device_type(*tensors) -> str:
 
 def _kernel_route(log_pi, log_A, log_obs, mask) -> bool:
     """True: the homogeneous kernels (or their plain versions on the
-    CPU); False: the time-varying scans. Raises for a device with no
+    CPU), which raise for a K outside ``DECODE_K_RANGE``; False: the
+    scans, for a time-varying ``log_A``. Raises for a device with no
     path and for a non-float32 operand on CUDA (``log_pi`` is None for
     the beta pass)."""
     kind = _device_type(log_pi, log_A, log_obs, mask)
@@ -130,12 +137,16 @@ def smooth_dispatch(
 ):
     """``(log_alpha, log_beta, log_gamma, loglik)``, the
     ``filtering.forward_backward`` contract; both passes take the same
-    route."""
+    route, and on the kernels' one the two passes share one lane-layout
+    copy of the operands."""
     if _kernel_route(log_pi, log_A, log_obs, mask):
         m = _ones_mask(log_obs, mask)
-        log_alpha, loglik = semiring_filter(log_pi, log_A, log_obs, m)
-        log_beta = semiring_beta(log_A, log_obs, m)
-        return log_alpha, log_beta, smooth(log_alpha, log_beta), loglik
+        pi_t, A_t, obs_t, mask_t, _, _ = to_lanes(log_pi, log_A, log_obs, m)
+        ll, alpha_t = filter_lanes(pi_t, A_t, obs_t, mask_t)
+        beta_t = beta_lanes(A_t, obs_t, mask_t)
+        del pi_t, A_t, obs_t, mask_t
+        log_alpha, log_beta = alpha_t.permute(2, 0, 1), beta_t.permute(2, 0, 1)
+        return log_alpha, log_beta, smooth(log_alpha, log_beta), ll
     return forward_backward(log_pi, log_A, log_obs, mask)
 
 

@@ -11,9 +11,9 @@ Generic step interface, batch-native (any leading batch axes ``...``):
 - ``mask``    [..., T] optional               1 valid, 0 padding; a
   masked step copies the carry.
 
-These are the recursions the decode runs on the CPU and for a
-time-varying ``log_A`` on any device; a homogeneous ``log_A`` on the
-card goes to the ``FILTER`` / ``BETA`` kernels
+These are the recursions the decode runs for a time-varying ``log_A``
+on any device; a homogeneous ``log_A`` goes to the ``FILTER`` / ``BETA``
+kernels on the card and to their plain versions on the CPU
 (``kernels/dispatch.py``).
 """
 

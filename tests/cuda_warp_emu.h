@@ -1,10 +1,13 @@
 // CPU emulation of the CUDA subset that csrc/tayal_traj.cu,
-// csrc/vg_bwd.cu and csrc/semiring_beta.cu (with their headers) use, so
-// the kernels' own sources run on a host without a card
-// (tests/test_torch_traj_emu.py, tests/test_torch_backward_emu.py): one
+// csrc/vg_bwd.cu, csrc/semiring_beta.cu, csrc/semiring_filter.cu and
+// csrc/semiring_viterbi.cu (with their headers) use, so the kernels' own
+// sources run on a host without a card (tests/test_torch_traj_emu.py,
+// tests/test_torch_backward_emu.py, tests/test_torch_forward_emu.py): one
 // std::thread per CUDA thread, a block at a time; __syncwarp and the
-// shuffles are a std::barrier per warp, dynamic shared memory a per-block
-// buffer, and the <<<...>>> launch is rewritten into a call of Launcher.
+// shuffles are a std::barrier per warp (the unsigned xor shuffle copies
+// the bits through the warp's float buffer unchanged), dynamic shared
+// memory a per-block buffer, and the <<<...>>> launch is rewritten into a
+// call of Launcher.
 // Static __shared__ arrays become per-thread arrays, which is what they
 // are to a kernel whose threads each use only their own column (the
 // cp.async rings). The tests rewrite a cp.async copy into a plain copy
@@ -45,6 +48,15 @@ inline float __shfl_xor_sync(unsigned, float v, int o) {
   g_warp.xbuf[lane] = v;
   g_warp.bar->arrive_and_wait();
   float r = g_warp.xbuf[lane ^ o];
+  g_warp.bar->arrive_and_wait();
+  return r;
+}
+inline unsigned __shfl_xor_sync(unsigned, unsigned v, int o) {
+  int lane = threadIdx.x & 31;
+  std::memcpy(&g_warp.xbuf[lane], &v, 4);
+  g_warp.bar->arrive_and_wait();
+  unsigned r;
+  std::memcpy(&r, &g_warp.xbuf[lane ^ o], 4);
   g_warp.bar->arrive_and_wait();
   return r;
 }

@@ -10,7 +10,8 @@ This runs the kernels' own schedule — a group of threads a lane, the
 gathers, the ring filled backward in time in chunks, the masked step as a
 select, the Baum-Welch sums in the recursion's threads — at K in {2, 3,
 4, 5, 8, 12, 16} (groups of 2, 4, 8 and 16 threads, idle threads at K =
-3, 5 and 12), gated and not, with ragged masks and masked runs at both
+3, 5 and 12), and for the guarded beta also at K in {17, 20, 32} (a warp
+a lane), gated and not, with ragged masks and masked runs at both
 ends, T off the ring's chunk and T = 1, on the CPU. The host's `expf` /
 `logf` are not the card's nor torch's, so the tolerances below are
 stated, not bitwise: a T-step recursion in f32 carries a few ulps of its
@@ -35,6 +36,7 @@ from hhmm_tpu_torch.kernels.cuda_build import CSRC_DIR
 
 HERE = Path(__file__).resolve().parent
 KS = (2, 3, 4, 5, 8, 12, 16)
+BETA_KS = KS + (17, 20, 32)  # the decode kernels take K up to 32
 LOG_ATOL = 1e-4  # log beta: a few ulps of |log beta| <= a few hundred
 GRAD_ATOL, GRAD_RTOL = 1e-5, 1e-4  # d_pi / d_obs (probabilities) and d_A (a sum of T terms)
 
@@ -155,7 +157,7 @@ def test_vg_bwd_source_matches_plain(emu, K, gated):
 
 
 @pytest.mark.parametrize("decode", [False, True])
-@pytest.mark.parametrize("K", KS)
+@pytest.mark.parametrize("K", BETA_KS)
 def test_beta_source_matches_plain(emu, K, decode):
     for N, T in SHAPES:
         _, A_t, obs_t, mask_t, _, _ = _lanes(20 * K + decode + T, N, T, K, decode=decode)
@@ -182,5 +184,9 @@ def test_sources_repeat_bitwise(emu):
 
 def test_sources_refuse_k_outside_the_range(emu):
     pi_t, A_t, obs_t, mask_t, _, _ = _lanes(3, 2, 4, 2)
-    for K in (1, 17):
+    for K in (1, 33):
         assert emu["semiring_beta"](K, *map(_ptr, (A_t, obs_t, mask_t, obs_t)), 4, 2, None) == -1
+    out = torch.zeros(64)
+    for K in (1, 17):
+        assert emu["vg_bwd"](K, 0, *map(_ptr, (A_t, obs_t, mask_t, obs_t, out, None, None)),
+                             *map(_ptr, (out, out, out)), 4, 2, None) == -1

@@ -27,8 +27,19 @@ JAX package on the same numpy inputs.
   ``kernels/viterbi.py::viterbi``, the numpy first-argmax maps and, in
   float64, ``tests/oracle.py``; ``GaussianHMM(K).generated`` against the
   JAX ``generated`` and ``state_draws`` against the JAX FFBS reference on
-  the same uniforms, at K in {5, 9, 12, 16}; K above 16 raises on the
-  CPU route and on the card, K = 1 on the card only;
+  the same uniforms, at K in {5, 9, 12, 16}; the FFBS entries raise for
+  K above 16 and the decode entries above 32, on the CPU route and on
+  the card, K = 1 on the card only;
+- K from 17 to 32 (byte-wide map fields, up to eight words a step): the
+  plain versions against the JAX pallas branch, the numpy maps and the
+  float64 oracle; the decode dispatch's plain versions against the
+  port's scans; ``GaussianHMM(K).generated`` at K in {17, 20} against
+  the JAX ``generated`` on its pallas and seq routes (zstar identical,
+  loglik within rtol 1e-5, probabilities within 7e-5 and no farther from
+  the float64 oracle than the JAX package's); ``state_draws`` still
+  raises there;
+- ``smooth_dispatch`` on one lane-layout copy: bitwise the two entries
+  called apart;
 - routing: the CPU runs the plain versions, a time-varying ``log_A``
   the scans, a CUDA operand the kernels (or a raise), mixed devices and
   non-float32 CUDA operands raise; ``cuda``-marked cases launch each
@@ -54,6 +65,7 @@ from hhmm_tpu_torch.core.lmath import MASK_NEG
 from hhmm_tpu_torch.kernels import cuda_semiring as cs
 from hhmm_tpu_torch.kernels import dispatch as td
 from hhmm_tpu_torch.kernels import filtering as tf
+from hhmm_tpu_torch.kernels.viterbi import viterbi as t_viterbi
 from hhmm_tpu_torch.models import GaussianHMM, TayalHHMM
 from hhmm_tpu_torch.sim import tayal_batch
 
@@ -66,6 +78,11 @@ PROB_ATOL = 1e-5
 # differ by up to twice that; the port is held to be no farther from the
 # oracle than the JAX package, within WIDE_ORACLE_SLACK
 WIDE_PROB_ATOL, WIDE_ORACLE_SLACK = 3e-5, 1e-6
+# K > 16: at K = 20 either package's gamma is up to 3.1e-5 off the
+# float64 oracle (T = 30), in opposite directions (6.0e-5 apart), so the
+# packages are held within twice that plus a margin, and the port again
+# no farther from the oracle than the JAX one
+WIDEST_PROB_ATOL = 7e-5
 LL_RTOL = 1e-5
 
 
@@ -380,7 +397,7 @@ def test_state_draws_stan_gate_uses_the_gate_keys(rng):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("K", [5, 9, 12, 16])
+@pytest.mark.parametrize("K", [5, 9, 12, 16, 20, 32])
 @pytest.mark.parametrize("case", ["sparse", "ties"])
 def test_wide_k_plain_versions_match_jax(rng, K, case):
     args = _case(rng, 3, 24, K, neg_inf=case == "sparse", **{case: True})
@@ -399,12 +416,13 @@ def test_wide_k_plain_versions_match_jax(rng, K, case):
     np.testing.assert_array_equal(dscore.numpy(), np.asarray(jscore))
 
 
-@pytest.mark.parametrize("K", range(9, 17))
+@pytest.mark.parametrize("K", [*range(9, 18), 20, 24, 25, 32])
 def test_wide_k_viterbi_plain_matches_jax_and_oracle(rng, K):
     args = _case(rng, 4, 40, K, sparse=True)
     pi_t, A_t, obs_t, mask_t, _, _ = cs.to_lanes(*_t(args))
     score, dlast, back = cs.viterbi_plain(pi_t, A_t, obs_t, mask_t)
-    assert back.shape == (40, 2, 4) and back.dtype == torch.int32
+    words = 2 if K <= 16 else -(-K // 4)  # nibbles up to K = 16, bytes above
+    assert back.shape == (40, words, 4) and back.dtype == torch.int32
     np.testing.assert_array_equal(cs.unpack_back(back, K).permute(2, 0, 1).numpy(),
                                   _np_maps(*args))
     path = cs.backtrack_plain(back, dlast).t()
@@ -434,17 +452,21 @@ def _oracle_probs(log_pi, log_A, log_obs):
     return {"alpha": norm(la), "gamma": norm(lg)}
 
 
-@pytest.mark.parametrize("K", [5, 9, 12, 16])
-def test_generated_gaussian_k_matches_jax(rng, K):
+def _check_generated_gaussian_k(rng, K, route):
+    """``GaussianHMM(K).generated`` against the JAX ``generated`` on
+    ``route``: zstar identical, loglik and logp_zstar within ``LL_RTOL``,
+    probabilities within ``PROB_ATOL`` (``WIDE_PROB_ATOL`` from K = 9,
+    ``WIDEST_PROB_ATOL`` above 16) and no farther from the float64
+    oracle than the JAX package's."""
     B, D, T = 2, 2, 30
     x = _gaussian_k_data(rng, K, B, T)
     model = GaussianHMM(K=K)
     theta = _theta(rng, model, (B, D))
     out = model.generated(torch.from_numpy(theta), {"x": torch.from_numpy(x)}, device="cpu")
     jm = JGaussianHMM(K=K)
-    atol = PROB_ATOL if K <= 8 else WIDE_PROB_ATOL
+    atol = PROB_ATOL if K <= 8 else (WIDE_PROB_ATOL if K <= 16 else WIDEST_PROB_ATOL)
     for b in range(B):
-        ref = jm.generated(jnp.asarray(theta[b]), {"x": jnp.asarray(x[b])}, time_parallel="seq")
+        ref = jm.generated(jnp.asarray(theta[b]), {"x": jnp.asarray(x[b])}, time_parallel=route)
         got = {k: v[b].numpy() for k, v in out.items()}
         want = {k: np.asarray(v) for k, v in ref.items()}
         np.testing.assert_array_equal(got["zstar"], want["zstar"])
@@ -458,6 +480,11 @@ def test_generated_gaussian_k_matches_jax(rng, K):
                 port_err = np.abs(got[k][d] - truth[k]).max()
                 jax_err = np.abs(want[k][d] - truth[k]).max()
                 assert port_err <= jax_err + WIDE_ORACLE_SLACK, (k, port_err, jax_err)
+
+
+@pytest.mark.parametrize("K", [5, 9, 12, 16])
+def test_generated_gaussian_k_matches_jax(rng, K):
+    _check_generated_gaussian_k(rng, K, "seq")
 
 
 @pytest.mark.parametrize("K", [5, 9, 12, 16])
@@ -482,16 +509,66 @@ def test_state_draws_gaussian_k_match_jax_ffbs(rng, K):
 
 
 def test_k_above_16_raises_on_every_route(rng):
-    K = 17
-    args = _t(_case(rng, 2, 6, K))
-    for run in (lambda: cs.semiring_viterbi(*args), lambda: td.viterbi_dispatch(*args),
-                lambda: cs.semiring_filter(*args), lambda: cs.semiring_beta(*args[1:])):
+    """The FFBS entries (and their plain versions, on the CPU) take K up
+    to 16 on every route (four-bit sample maps), the decode entries K up
+    to 32 (a warp a lane)."""
+    ffbs = _t(_case(rng, 2, 6, 17))
+    u = torch.rand(2, 6)
+    for run in (lambda: cs.semiring_ffbs(*ffbs, u), lambda: cs.fwd_lanes(*cs.to_lanes(*ffbs))):
         with pytest.raises(ValueError, match="K in 2..16"):
             run()
-    model = GaussianHMM(K=K)
+    model = GaussianHMM(K=17)
     theta = torch.from_numpy(_theta(rng, model, (1,)))
     with pytest.raises(ValueError, match="K in 2..16"):
+        model.state_draws(torch.Generator(), theta, {"x": torch.zeros(6)}, device="cpu")
+    args = _t(_case(rng, 2, 6, 33))
+    for run in (lambda: cs.semiring_viterbi(*args), lambda: td.viterbi_dispatch(*args),
+                lambda: cs.semiring_filter(*args), lambda: cs.semiring_beta(*args[1:]),
+                lambda: td.smooth_dispatch(*args),
+                lambda: cs.filter_lanes(*cs.to_lanes(*args)[:4])):
+        with pytest.raises(ValueError, match="K in 2..32"):
+            run()
+    model = GaussianHMM(K=33)
+    theta = torch.from_numpy(_theta(rng, model, (1,)))
+    with pytest.raises(ValueError, match="K in 2..32"):
         model.generated(theta, {"x": torch.zeros(6)}, device="cpu")
+
+
+@pytest.mark.parametrize("K", [17, 20])
+@pytest.mark.parametrize("route", ["pallas", "seq"])
+def test_generated_gaussian_k_above_16_matches_jax(rng, K, route):
+    _check_generated_gaussian_k(rng, K, route)
+
+
+@pytest.mark.parametrize("K", [17, 32])
+def test_dispatch_above_16_plain_versions_match_the_scans(rng, record_plain, K):
+    """Above K = 16 the decode dispatch still takes the kernels' route
+    (their plain versions here): the Viterbi path and score equal the
+    port's scan, the log-probabilities agree within ``RTOL`` and
+    ``ATOL``, with -inf at the same places."""
+    args = _t(_case(rng, 3, 24, K, neg_inf=True, sparse=True))
+    for got, want in zip(td.viterbi_dispatch(*args), t_viterbi(*args)):
+        assert torch.equal(got, want)
+    for got, want in zip(td.smooth_dispatch(*args), tf.forward_backward(*args)):
+        _assert_logs_close(got.numpy(), want.numpy())
+    for got, want in zip(td.forward_filter_dispatch(*args), tf.forward_filter(*args)):
+        _assert_logs_close(got.numpy(), want.numpy())
+    _assert_logs_close(td.backward_dispatch(*args[1:]).numpy(),
+                       tf.backward_pass(*args[1:]).numpy())
+    assert record_plain == ["viterbi_plain", "backtrack_plain", "filter_plain", "beta_plain",
+                            "filter_plain", "beta_plain"]
+
+
+def test_smooth_dispatch_one_layout_copy_equals_two_entries(rng):
+    """The kernels' route of ``smooth_dispatch`` builds the lane layout once
+    for both passes; its outputs are bitwise those of ``semiring_filter``
+    and ``semiring_beta`` called apart."""
+    args = _t(_case(rng, 3, 40, 5, neg_inf=True, sparse=True))
+    la, lb, lg, ll = td.smooth_dispatch(*args)
+    want_la, want_ll = cs.semiring_filter(*args)
+    want_lb = cs.semiring_beta(*args[1:])
+    assert torch.equal(la, want_la) and torch.equal(ll, want_ll) and torch.equal(lb, want_lb)
+    assert torch.equal(lg, tf.smooth(want_la, want_lb))
 
 
 def test_k_1_runs_on_the_cpu_and_raises_on_the_card():
@@ -499,7 +576,7 @@ def test_k_1_runs_on_the_cpu_and_raises_on_the_card():
     path, score = cs.semiring_viterbi(z(2, 1), z(2, 1, 1), z(2, 5, 1), torch.ones(2, 5))
     assert int(path.abs().sum()) == 0 and score.tolist() == [0.0, 0.0]
     lanes = _cudalike([np.zeros(s) for s in ((1, 2), (1, 1, 2), (5, 1, 2), (5, 2))])
-    with pytest.raises(ValueError, match="K in 2..16"):
+    with pytest.raises(ValueError, match="K in 2..32"):
         cs.viterbi_lanes(*lanes)
 
 
@@ -598,8 +675,8 @@ def test_cuda_wrappers_check_k_and_layout():
     K, N, T = 5, 3, 4
     shapes = ((K, N), (K, K, N), (T, K, N), (T, N))
     lanes = _cudalike([np.zeros(s) for s in shapes])
-    wide = _cudalike([np.zeros(s) for s in ((17, N), (17, 17, N), (T, 17, N), (T, N))])
-    with pytest.raises(ValueError, match="K in 2..16"):
+    wide = _cudalike([np.zeros(s) for s in ((33, N), (33, 33, N), (T, 33, N), (T, N))])
+    with pytest.raises(ValueError, match="K in 2..32"):
         cs.filter_lanes(*wide)
     with pytest.raises(TypeError, match="int32"):
         cs.backtrack_lanes(torch.zeros(T, N).as_subclass(_CudaLike), lanes[0])
