@@ -10,8 +10,11 @@ backward pass (``VG_BWD``: ``vg_bwd.cu``), the guarded beta (``BETA``:
 ``semiring_viterbi.cu``).
 
     python3 bench_kernel_pair.py --other DIR [--label NAME]
-                                 [--only ffbs|traj|chees|vg|beta|decode]
-                                 [--seeds N] [--out FILE]
+                                 [--only PART[,PART...]] [--seeds N] [--out FILE]
+                                 [--no-variants]
+
+PART is one of ffbs, traj, chees, vg, beta, decode, backtrack (all but
+backtrack by default).
 
 ``DIR`` holds the other tree's sources (for example
 ``hhmm_tpu_torch/kernels/csrc`` of a ``git archive`` of an earlier
@@ -36,7 +39,12 @@ the FFBS builds are timed at N in {1, 256, 512, 2048, 8192} lanes
 lanes (T=1024, 16 leapfrogs a launch, ms a leapfrog and ns a recursion
 step), ``VG_BWD`` at N in {1, 512, 2048} (T=1024, K=4, gated), ``BETA``
 and the decode kernels at N in {1, 512, 8192} (T=1024, K=4, dense
-mask), in the order other, this, variants, this, other.
+mask), in the order other, this, variants, this, other. ``backtrack``:
+``BACKTRACK`` of both trees and of this tree's variants (lanes a block,
+ring layout and depth), bitwise equal to this checkout's and to ``backtrack_plain``
+on random maps at K in {4, 16, 32, 64, 128} (the other tree where it
+takes K), then timed at N in {1, 256, 8192} lanes, T=1024, at each K, in
+the same order.
 Last, the fused ChEES fit of ``chip_smoke.py`` runs with each tree's
 ``TRAJ`` at sampler seeds 0 .. N - 1 (the two in turns, which one first
 alternating by seed): transition time, divergent sampling transitions,
@@ -101,9 +109,21 @@ FWD_CORE_VARIANTS = (
     ("fwd_core.cuh", "core_ring4", {"kFwdStages = 3;": "kFwdStages = 4;"}),
     ("fwd_core.cuh", "core_block128", {"kFwdBlock = 64;": "kFwdBlock = 128;"}),
 )
+# BACKTRACK's lanes a block and ring depth (semiring_viterbi.cu)
+BACKTRACK_VARIANTS = (
+    ("semiring_viterbi.cu", "bt_lanemajor",
+     {"kBtLaneFastestLanes = 16;": "kBtLaneFastestLanes = 64;"}),
+    ("semiring_viterbi.cu", "bt_lanefastest",
+     {"kBtLaneFastestLanes = 16;": "kBtLaneFastestLanes = 1;"}),
+    ("semiring_viterbi.cu", "bt_lanes16", {"kBtMaxLanes = 32;": "kBtMaxLanes = 16;"}),
+)
+BACKTRACK_KS = (4, 16, 32, 64, 128)
+BACKTRACK_LANES = (1, 256, 8192)
+PARTS = ("ffbs", "traj", "chees", "vg", "beta", "decode", "backtrack")
 # VG_BWD without the Baum-Welch sums: what keeping them in the
 # recursion's threads costs (its d_A is not computed)
 VG_NO_SUMS = ("beta_core.cuh", "vg_no_sums", {"dA[j] += xi * m01;": "(void)xi;"})
+VG_VARIANTS = (*BETA_VARIANTS, VG_NO_SUMS)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -255,7 +275,7 @@ def bench_ffbs(label, other_dir: Path, work: Path, records) -> None:
         emit(records, phase="build", kernel="ffbs", label=name, ptxas=b.regs)
 
     # every build bitwise equal to this checkout's
-    for K in (2, 3, 4, 8):
+    for K in (2, 3, 4, 8, 12, 16):
         for gated in (False, True):
             lanes, u_t = make_lanes(10 + K + gated, 256, T_BENCH, K, gated)
             ll0, a0 = builds["this"].run_fwd(lanes)
@@ -478,7 +498,7 @@ def run_decode(kernel, fn, lanes):
         rc = fn(K, *_ptrs(pi_t, A_t, obs_t, mask_t, *out), T, N, _stream())
     elif kernel is cs.VITERBI:
         out = [torch.empty((N,), **f32), torch.empty((K, N), **f32),
-               torch.empty((T, N), dtype=torch.int32, device="cuda")]
+               torch.empty(cs._map_shape(T, K, N), dtype=torch.int32, device="cuda")]
         rc = fn(K, *_ptrs(pi_t, A_t, obs_t, mask_t, *out), T, N, _stream())
     else:
         back, dlast = lanes[4], lanes[5]
@@ -518,8 +538,7 @@ def _timing_order(label, names):
 
 def bench_vg(label, other_dir: Path, work: Path, records) -> None:
     this_src, other_src = tree(CSRC_DIR), tree(other_dir)
-    variants = [(name, substitute(this_src, f, subs, name))
-                for f, name, subs in (*BETA_VARIANTS, VG_NO_SUMS)]
+    variants = [(name, substitute(this_src, f, subs, name)) for f, name, subs in VG_VARIANTS]
     trees = [(label, other_src), ("this", this_src), *variants]
     libs = build([(f"{name}_vg", files, "vg_bwd.cu") for name, files in trees], work)
     builds = {}
@@ -529,7 +548,7 @@ def bench_vg(label, other_dir: Path, work: Path, records) -> None:
         emit(records, phase="build", kernel="vg_bwd", label=name, ptxas=regs)
 
     # bitwise equal to this checkout's (vg_no_sums on d_pi and d_obs only)
-    for K in (3, 4, 8):
+    for K in (3, 4, 8, 16):
         for gated in (False, True):
             lanes, _ = make_lanes(30 + K + gated, 512, T_BENCH, K, gated)
             ll, alpha = cs.fwd_lanes(*lanes)
@@ -570,9 +589,9 @@ def bench_decode_kernels(label, other_dir: Path, work: Path, records, kernels, v
             builds[name, k.name] = bind(lib, k)
             emit(records, phase="build", kernel=k.name, label=name, ptxas=regs)
 
-    for K in (3, 4, 8):
+    for K in (3, 4, 8, 16, 20, 32):
         for finite in (True, False):
-            lanes = _decode_lanes(40 + K + finite, 2048, K, finite)
+            lanes = _decode_lanes(40 + K + finite, 2048 if K <= 8 else 256, K, finite)
             for k in kernels:
                 ref = run_decode(k, builds["this", k.name], lanes)
                 for name, _ in trees:
@@ -596,16 +615,86 @@ def bench_decode_kernels(label, other_dir: Path, work: Path, records, kernels, v
         del lanes
 
 
+def random_maps(seed: int, N: int, T: int, K: int):
+    """Packed maps ``[T, W, N]`` (``[T, N]`` up to K = 8) of uniform
+    random pointers and a random ``dlast [K, N]``, made on the card a
+    step at a time: the backtrack's work does not depend on the maps'
+    content, only on their shape."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    back = torch.empty(cs._map_shape(T, K, N), dtype=torch.int32, device="cuda")
+    for t in range(T):
+        back[t] = cs._pack(torch.randint(0, K, (K, N), generator=g, device="cuda")).view(
+            back.shape[1:])
+    return back, torch.randn((K, N), generator=g, device="cuda")
+
+
+def bench_backtrack(label, other_dir: Path, work: Path, records) -> None:
+    this_src, other_src = tree(CSRC_DIR), tree(other_dir)
+    trees = [(label, other_src), ("this", this_src)]
+    trees += [(name, substitute(this_src, f, subs, name)) for f, name, subs in BACKTRACK_VARIANTS]
+    libs = build([(f"{name}_bt", files, cs.BACKTRACK.source.name) for name, files in trees],
+                 work)
+    builds = {}
+    for name, _ in trees:
+        lib, regs = libs[f"{name}_bt"]
+        builds[name] = bind(lib, cs.BACKTRACK)
+        emit(records, phase="build", kernel=cs.BACKTRACK.name, label=name, ptxas=regs)
+
+    def run(fn, back, dlast):
+        T, N, K = back.shape[0], back.shape[-1], dlast.shape[0]
+        path = torch.empty((T, N), dtype=torch.int32, device="cuda")
+        rc = fn(K, *_ptrs(back, dlast, path), T, N, _stream())
+        return path if rc == 0 else None  # the other tree may not take K
+
+    takes = {}
+    for K in BACKTRACK_KS:
+        for N, T in ((300, T_BENCH), (9, 75), (1, 33)):
+            back, dlast = random_maps(K + N + T, N, T, K)
+            want = cs.backtrack_plain(back, dlast)
+            for name, fn in builds.items():
+                got = run(fn, back, dlast)
+                torch.cuda.synchronize()
+                takes[name, K] = got is not None
+                if got is not None and not torch.equal(got, want):
+                    raise AssertionError(f"{name} BACKTRACK differs from backtrack_plain at K={K} "
+                                         f"N={N} T={T}")
+    emit(records, phase="agree", kernel=cs.BACKTRACK.name, bitwise_equal_to_plain=True,
+         takes={f"{n}:K{K}": v for (n, K), v in takes.items()})
+
+    order = _timing_order(label, [v[1] for v in BACKTRACK_VARIANTS])
+    for K in BACKTRACK_KS:
+        for N in BACKTRACK_LANES:
+            back, dlast = random_maps(7 + K, N, T_BENCH, K)
+            for turn, name in enumerate(order):
+                if not takes[name, K]:
+                    continue
+                fn = builds[name]
+                ms = time_ms(lambda: run(fn, back, dlast), 50 if N <= 256 else 20)
+                emit(records, phase="timing", kernel=cs.BACKTRACK.name, label=name, turn=turn,
+                     N=N, T=T_BENCH, K=K, ms=ms, ns_per_step=ms * 1e6 / T_BENCH)
+            del back, dlast
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", required=True, type=Path,
                     help="directory with the other tree's kernel sources (kernels/csrc)")
     ap.add_argument("--label", default="other", help="name of the other tree in the output")
-    ap.add_argument("--only", choices=("ffbs", "traj", "chees", "vg", "beta", "decode"),
-                    help="run one of the six")
+    ap.add_argument("--only", type=lambda v: v.split(","), default=list(PARTS[:-1]),
+                    help="comma-separated parts to run: " + ", ".join(PARTS))
     ap.add_argument("--seeds", type=int, default=4, help="sampler seeds of the ChEES comparison")
     ap.add_argument("--out", type=Path, help="also write every record to this JSON file")
+    ap.add_argument("--no-variants", action="store_true",
+                    help="build and time only the two trees, none of the constants' variants")
     args = ap.parse_args()
+    if args.no_variants:
+        global VARIANTS, TRAJ_VARIANTS, BETA_VARIANTS, FWD_CORE_VARIANTS, BACKTRACK_VARIANTS
+        global VG_VARIANTS
+        VARIANTS = TRAJ_VARIANTS = BETA_VARIANTS = FWD_CORE_VARIANTS = BACKTRACK_VARIANTS = ()
+        VG_VARIANTS = ()
+    if not set(args.only) <= set(PARTS):
+        ap.error(f"--only takes parts of {PARTS}, got {args.only}")
     if not torch.cuda.is_available():
         print("bench_kernel_pair: no CUDA device", file=sys.stderr)
         return 2
@@ -616,20 +705,22 @@ def main() -> int:
     emit(records, phase="device", nvidia_smi=smi.splitlines()[0],
          kind=torch.cuda.get_device_name(0), torch=torch.__version__)
     with tempfile.TemporaryDirectory() as tmp:
-        if args.only in (None, "ffbs"):
+        if "ffbs" in args.only:
             bench_ffbs(args.label, args.other, Path(tmp), records)
-        if args.only in (None, "traj"):
+        if "traj" in args.only:
             bench_traj(args.label, args.other, Path(tmp), records)
-        if args.only in (None, "chees"):
+        if "chees" in args.only:
             bench_chees(args.label, args.other, Path(tmp), records, args.seeds)
-        if args.only in (None, "vg"):
+        if "vg" in args.only:
             bench_vg(args.label, args.other, Path(tmp), records)
-        if args.only in (None, "beta"):
+        if "beta" in args.only:
             bench_decode_kernels(args.label, args.other, Path(tmp), records, (cs.BETA,),
                                  BETA_VARIANTS)
-        if args.only in (None, "decode"):
+        if "decode" in args.only:
             bench_decode_kernels(args.label, args.other, Path(tmp), records,
                                  (cs.FILTER, cs.VITERBI, cs.BACKTRACK), FWD_CORE_VARIANTS)
+        if "backtrack" in args.only:
+            bench_backtrack(args.label, args.other, Path(tmp), records)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(records, indent=1))

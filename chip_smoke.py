@@ -4,7 +4,7 @@ its hand-written CUDA kernels against its plain PyTorch version there.
 
     python3 chip_smoke.py
 
-Three main paths, each driven with the kernel counts set to 0 just
+Four main paths, each driven with the kernel counts set to 0 just
 before it and read just after:
 
 - the batched Tayal Gibbs fit that ``bench.py`` runs by default (256
@@ -22,7 +22,11 @@ before it and read just after:
   T=1024, the Gaussian HMM of ``hmm/main.R`` (K=3, T=500, 256 series)
   fitted by Gibbs, decoded and path-sampled, the same model with K=5
   and K=12 states (the 12 of ``bench_zoo.py``'s expanded HSMM), and
-  with K=20 decoded (a warp a lane, byte-wide Viterbi maps).
+  with K=20 decoded (a warp a lane, byte-wide Viterbi maps);
+- the zoo above K=32: the same model at K=64 (a block a lane, the
+  lane's A in shared memory) on 256 series x T=500 — a short Gibbs fit,
+  ``state_draws``, ``generated`` and one value-and-grad call, so every
+  semiring kernel in its widest layout.
 
 Phases, one JSON object per line:
 
@@ -30,9 +34,12 @@ Phases, one JSON object per line:
    card's ``nvidia-smi`` name and power limit on a line of its own.
 2. build   — builds every kernel from ``hhmm_tpu_torch/kernels/csrc``
    with ``nvcc`` (all sources in parallel); ``ptxas`` reports each
-   kernel instantiation's registers and spills (line ``ptxas``; line
-   ``ptxas_fwd_core``: the forward core of ``FWD``, ``FILTER`` and
-   ``VITERBI`` at K=4 and K=16, the last two also at K=32).
+   kernel instantiation's registers, spills and static shared memory
+   (line ``ptxas``; line ``ptxas_fwd_core``: the forward core of
+   ``FWD``, ``FILTER`` and ``VITERBI`` at K=4 and K=16, the last two
+   also at K=32; line ``kernel_resources``: each semiring kernel's
+   instantiation at K in {4, 16, 32, 64, 128} with its registers,
+   spills, static and dynamic shared bytes).
 3. kernels — each kernel against its plain version on the card: the
    FFBS pair bitwise (alpha, ll and every draw) at K in {2, 3, 4, 8},
    ungated and gated, at N=256, T=1024 with a ragged tail and at
@@ -72,9 +79,14 @@ Phases, one JSON object per line:
    at N=8192, T=1024, K in {3, 4, 8} (every other K in 2..32 at N=256),
    ragged mask, ``MASK_NEG``-sparse A, tie lanes, with and without all
    -inf evidence rows: bitwise equal to their plain versions, ``FILTER``
-   bitwise equal to ``FWD`` on finite inputs (K up to 16, ``FWD``'s
-   range); then times each at
+   bitwise equal to ``FWD`` on finite inputs; then times each at
    N=8192, T=1024, K=4.
+   kernels_wide — every semiring kernel bitwise equal to its plain
+   version at K in {17, 24, 32, 33, 48, 64, 96, 128} (a warp a lane to
+   32, a block a lane above), at (N, T) = (64, 256) and (9, 75): the FFBS
+   and value-and-grad kernels ungated and gated with masked runs at both
+   ends, the decode kernels on sparse A with tie lanes and -inf evidence
+   rows; then each timed at K=64, N=256, T=500.
    decode_smooth — ``TayalHHMM(gate_mode="hard").generated`` on 32
    Gibbs draws x 256 series: shapes, probability rows, each decode
    kernel launched once, every output against the plain versions on
@@ -104,7 +116,16 @@ Phases, one JSON object per line:
    each decode kernel launched once, every output against the plain
    versions on the same lanes and against the same call on the CPU
    (``WIDE_*`` tolerances).
-9. the kernels line, then the last line ``{"ok": true, "device": ...}``.
+   zoo_wide — the fourth main path: ``GaussianHMM(K=64)``, 256 series x
+   T=500, a 10 + 10 Gibbs fit (``FWD`` and ``BWD_SAMPLE`` once a sweep),
+   ``state_draws``, ``generated`` on 2 draws a series (each decode
+   kernel once) and one ``forward_value_and_grad`` (``FWD`` and
+   ``VG_BWD`` once): every output bitwise equal to the plain versions
+   on the card, the decode and value-and-grad of 16 series against the
+   CPU within ``WIDE_*``; each of the seven kernels launched.
+9. the kernels line (every kernel; the semiring kernels with their K
+   range, their time at K=64 and their zoo_wide launches), then the last
+   line ``{"ok": true, "device": ...}``.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line. It imports nothing of JAX or of ``hhmm_tpu``.
@@ -134,6 +155,7 @@ from hhmm_tpu_torch.core.lmath import MASK_NEG
 from hhmm_tpu_torch.kernels import cuda_semiring as cs
 from hhmm_tpu_torch.kernels import cuda_traj as ct
 from hhmm_tpu_torch.kernels import dispatch as td
+from hhmm_tpu_torch.kernels import forward_value_and_grad
 from hhmm_tpu_torch.kernels.cuda_build import build_and_load
 from hhmm_tpu_torch.kernels.filtering import smooth
 from hhmm_tpu_torch.models import GaussianHMM, NIGPrior, TayalHHMM, TayalHHMMLite
@@ -170,6 +192,17 @@ GK_WARMUP, GK_SAMPLES, GK_DRAWS = 20, 20, 8
 # above K=16 (a warp a lane, byte-wide Viterbi maps): the Gaussian HMM at
 # K=20, decoded only, 32 series x 8 random draws = 256 lanes, T=500
 K_WIDE, K_WIDE_SERIES, K_WIDE_DRAWS = 20, 32, 8
+# above K=32 (a block a lane, the lane's A in shared memory): the same
+# model at K=64 on 256 series, T=500, through the whole zoo path — a
+# short Gibbs fit, state_draws, generated and one value-and-grad call —
+# with 2 draws a series through the decode; the first 16 series also on
+# the CPU
+ZW_K, ZW_WARMUP, ZW_SAMPLES, ZW_DRAWS, ZW_CPU_SERIES = 64, 10, 10, 2, 16
+# every semiring kernel against its plain version above K=16: a warp a
+# lane (17..32) and a block a lane (33..128), at (N, T) = (64, 256) and
+# at (9, 75), T off every ring's and chunk's length
+WIDE_KS = (17, 24, 32, 33, 48, 64, 96, 128)
+WIDE_SHAPES = ((64, 256), (9, 75))
 
 # the FFBS checks (each bitwise against the plain versions): every K the
 # kernels take, gated and not, at the main path's shape with a ragged
@@ -179,9 +212,10 @@ K_WIDE, K_WIDE_SERIES, K_WIDE_DRAWS = 20, 32, 8
 FFBS_KS = (2, 3, 4, 8)
 FFBS_SHAPES = ((N_SERIES, T_FIT, False), (250, 1000, True), (1, T_FIT, True), (N_SERIES, 1, True),
                (5, 2100, True))
-# every other K the kernels take (2..16: groups of 8 and 16 threads a
-# lane, two map words a step above 8), at fewer lanes
-EXTRA_KS = tuple(k for k in range(cs.K_RANGE[0], cs.K_RANGE[1] + 1) if k not in FFBS_KS)
+# every other K of four-bit maps (2..16: groups of 8 and 16 threads a
+# lane, two map words a step above 8), at fewer lanes; K above 16 in
+# phase_kernels_wide
+EXTRA_KS = tuple(k for k in range(2, 17) if k not in FFBS_KS)
 EXTRA_FFBS_SHAPES = ((64, T_FIT, True), (3, 2100, True))
 EXTRA_VG_LANES = 64
 EXTRA_DECODE_LANES = 256
@@ -216,6 +250,11 @@ G_MU_TOL = 0.35  # Gaussian posterior-mean mu, mean over series (tests/test_gibb
 # comparison is deterministic). The limits are twice the readings: four
 # ulps, and no path may differ
 WIDE_PROB_ATOL, WIDE_LL_RTOL, WIDE_PATH_MISMATCH_MAX = 2.5e-4, 2e-6, 0.0
+# the K=64 value-and-grad call on the card against the same call on the
+# CPU: d_A is a sum over T=500 steps, compared relative to its largest
+# entry (a first run read 5.0e-8; d_pi and d_obs 1.2e-7 absolute, under
+# WIDE_PROB_ATOL; loglik 0 relative, under WIDE_LL_RTOL)
+WIDE_DA_RTOL = 1e-6
 G_ACC_MIN = 0.9  # Gaussian Viterbi accuracy (tests/test_models.py)
 # trajectory (tests/test_pallas_traj.py's tolerances): (rtol, atol)
 TRAJ_TOL = {"q": (2e-4, 2e-4), "p": (2e-3, 2e-3), "logp": (1e-4, 5e-3), "grad": (2e-3, 2e-3)}
@@ -605,7 +644,7 @@ def phase_kernels_vg(device):
     every other K in 2..16, gated and not, ragged mask."""
     errs = {"ll_rel": 0.0, "d_pi": 0.0, "d_obs": 0.0, "d_A_rel": 0.0, "d_A": 0.0}
     grid = [(N_LANES, K, g) for K, g in [(4, False), (4, True), (8, False), (8, True), (3, False)]]
-    grid += [(EXTRA_VG_LANES, K, g) for K in range(cs.K_RANGE[0], cs.K_RANGE[1] + 1)
+    grid += [(EXTRA_VG_LANES, K, g) for K in range(2, 17)
              for g in (False, True) if (K, g) not in {(4, False), (4, True), (8, False),
                                                       (8, True), (3, False)}]
     for i, (N, K, gated) in enumerate(grid):
@@ -1103,11 +1142,11 @@ def phase_kernels_decode(device):
     plain versions at N=8192, T=1024, K in {3, 4, 8}, and at N=256 at
     every other K in 2..32: bitwise equal (log-values, -inf at the same
     places, no NaN; maps, paths and scores identical), and ``FILTER``
-    bitwise equal to ``FWD`` on finite inputs (K up to 16); then each
-    timed at the main shape (K=4, dense mask)."""
+    bitwise equal to ``FWD`` on finite inputs; then each timed at the
+    main shape (K=4, dense mask)."""
     cases = []
-    grid = [(N_DEC, K) for K in (3, 4, 8)] + [(EXTRA_DECODE_LANES, K) for K in range(
-        cs.DECODE_K_RANGE[0], cs.DECODE_K_RANGE[1] + 1) if K not in (3, 4, 8)]
+    grid = [(N_DEC, K) for K in (3, 4, 8)] + [(EXTRA_DECODE_LANES, K) for K in range(2, 33)
+                                              if K not in (3, 4, 8)]
     for i, (N, K) in enumerate(grid):
         for finite in (True, False):
             lanes = make_decode_case(5000 + 2 * i + finite, N, T_FIT, K, device, finite)
@@ -1136,7 +1175,7 @@ def phase_kernels_decode(device):
             row = dict(N=N, K=K, finite=finite, neg_inf_alpha=int(torch.isinf(a_k).sum()),
                        neg_inf_beta=int(torch.isinf(b_k).sum()),
                        masked_steps=int((mask_t == 0).sum()))
-            if finite and K <= cs.K_RANGE[1]:
+            if finite:
                 ll_f, a_f = cs.fwd_lanes(*lanes)
                 sync()
                 if not (torch.equal(a_f, a_k) and torch.equal(ll_f, ll_k)):
@@ -1642,10 +1681,192 @@ def phase_decode_wide(device):
          viterbi_accuracy_mean=float(acc))
 
 
+def phase_kernels_wide(device):
+    """Every semiring kernel bitwise equal to its plain version at each K
+    of ``WIDE_KS`` and (N, T) of ``WIDE_SHAPES``: ``FWD``, ``BWD_SAMPLE``
+    and ``VG_BWD`` ungated and gated, ragged masks with masked runs at
+    both ends; ``FILTER``, ``BETA``, ``VITERBI`` and ``BACKTRACK`` on
+    ``MASK_NEG``-sparse A with tie lanes, with and without all -inf
+    evidence rows (``make_decode_case``). Then each kernel timed at K=64
+    on the zoo_wide lanes' shape (N=256, T=500)."""
+    cases = []
+    for i, K in enumerate(WIDE_KS):
+        for j, (N, T) in enumerate(WIDE_SHAPES):
+            for gated in (False, True):
+                lanes, u_t = make_case(7000 + 8 * i + 2 * j + gated, N, T, K, gated, device,
+                                       both_ends=True)
+                pi_t, A_t, obs_t, mask_t, gate_t, sk_t = lanes
+                ll_k, a_k = cs.fwd_lanes(*lanes)
+                z_k = cs.bwd_sample_lanes(A_t, mask_t, a_k, u_t, gate_t, sk_t)
+                vg_k = cs.vg_bwd_lanes(A_t, obs_t, mask_t, a_k, ll_k, gate_t, sk_t)
+                ll_p, a_p = cs.fwd_plain(*lanes)
+                z_p = cs.bwd_sample_plain(A_t, mask_t, a_p, u_t, gate_t, sk_t)
+                vg_p = cs.vg_bwd_plain(A_t, obs_t, mask_t, a_p, ll_p, gate_t, sk_t)
+                sync()
+                same = {cs.FWD.name: torch.equal(a_k, a_p) and torch.equal(ll_k, ll_p),
+                        cs.BWD_SAMPLE.name: torch.equal(z_k, z_p),
+                        cs.VG_BWD.name: all(torch.equal(g, w) for g, w in zip(vg_k, vg_p))}
+                if not all(same.values()):
+                    raise AssertionError(f"wide K={K} N={N} T={T} gated={gated}: not bitwise "
+                                         f"equal to the plain versions {same}, "
+                                         f"{int((z_k != z_p).sum())} draws differ")
+                cases.append(dict(K=K, N=N, T=T, gated=gated, kernels=list(same)))
+            for finite in (True, False):
+                lanes = make_decode_case(7500 + 8 * i + 2 * j + finite, N, T, K, device, finite)
+                pi_t, A_t, obs_t, mask_t = lanes
+                vit = cs.VITERBI.name
+                got = {cs.FILTER.name: cs.filter_lanes(*lanes),
+                       cs.BETA.name: (cs.beta_lanes(A_t, obs_t, mask_t),),
+                       vit: cs.viterbi_lanes(*lanes)}
+                got[cs.BACKTRACK.name] = (cs.backtrack_lanes(got[vit][2], got[vit][1]),)
+                want = {cs.FILTER.name: cs.filter_plain(*lanes),
+                        cs.BETA.name: (cs.beta_plain(A_t, obs_t, mask_t),),
+                        vit: cs.viterbi_plain(*lanes)}
+                want[cs.BACKTRACK.name] = (cs.backtrack_plain(want[vit][2], want[vit][1]),)
+                sync()
+                bad = [k for k in got if not all(torch.equal(a, b) for a, b in zip(got[k], want[k]))]
+                if bad:
+                    raise AssertionError(f"wide decode K={K} N={N} T={T} finite={finite}: not "
+                                         f"identical to the plain versions {bad}")
+                cases.append(dict(K=K, N=N, T=T, finite=finite, kernels=list(got)))
+            emit("wide_kernels_vs_plain", K=K, N=N, T=T, bitwise_equal=True,
+                 layout="warp a lane" if K <= 32 else "block a lane")
+            del lanes, got, want
+
+    # each kernel at K=64, N=256, T=500 (the zoo_wide lanes), dense mask
+    lanes, u_t = make_case(7900, N_SERIES, G_T, ZW_K, False, device)
+    pi_t, A_t, obs_t, mask_t, _, _ = lanes
+    mask_t.fill_(1.0)
+    ll, alpha = cs.fwd_lanes(*lanes)
+    _, dl, bk = cs.viterbi_lanes(pi_t, A_t, obs_t, mask_t)
+    calls = {
+        cs.FWD.name: lambda: cs.fwd_lanes(*lanes),
+        cs.BWD_SAMPLE.name: lambda: cs.bwd_sample_lanes(A_t, mask_t, alpha, u_t),
+        cs.VG_BWD.name: lambda: cs.vg_bwd_lanes(A_t, obs_t, mask_t, alpha, ll),
+        cs.FILTER.name: lambda: cs.filter_lanes(pi_t, A_t, obs_t, mask_t),
+        cs.BETA.name: lambda: cs.beta_lanes(A_t, obs_t, mask_t),
+        cs.VITERBI.name: lambda: cs.viterbi_lanes(pi_t, A_t, obs_t, mask_t),
+        cs.BACKTRACK.name: lambda: cs.backtrack_lanes(bk, dl),
+    }
+    timing = {name: time_ms(fn, reps=5) for name, fn in calls.items()}
+    emit("wide_kernel_timing", shape=dict(N=N_SERIES, T=G_T, K=ZW_K), ms=timing)
+    return dict(cases=cases, timing=timing)
+
+
+def phase_zoo_wide(device):
+    """The Gaussian HMM at K=64 (a block a lane on the card) on 256
+    simulated series, T=500 (sticky A, means 1.5 apart, as
+    ``phase_gaussian_k``): a 10 + 10 Gibbs fit (``FWD`` and
+    ``BWD_SAMPLE`` once a sweep, every chain healthy), ``state_draws``
+    (each once), ``generated`` (each decode kernel once) on 2 draws a
+    series, and one ``forward_value_and_grad`` call on the same lanes
+    (``FWD`` and ``VG_BWD`` once). Every output against the plain
+    versions on the same lanes on the card (bitwise); the decode and the
+    value-and-grad call on the first 16 series also against the same
+    calls on the CPU, within ``WIDE_*``. Returns the launch counts."""
+    K = ZW_K
+    A = np.full((K, K), (1 - GK_STAY) / (K - 1))
+    np.fill_diagonal(A, GK_STAY)
+    mu = (1.5 * (np.arange(K) - (K - 1) / 2)).tolist()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED_GAUSS + K)
+    z_true, x = hmm_sim(gen, G_T, A.tolist(), np.ones(K) / K,
+                        obsmodel_gaussian(mu, [GK_SIGMA] * K), batch=(N_SERIES,))
+    data = {"x": x}
+    model = GaussianHMM(K=K, nig_prior=NIGPrior(**G_PRIOR))
+    init = default_init(model, data, N_SERIES, 1, seed=SEED_INIT, device=device)
+    cfg = GibbsConfig(num_warmup=ZW_WARMUP, num_samples=ZW_SAMPLES, num_chains=1)
+    counts = {}
+    sync()
+    t0 = time.perf_counter()
+    before = launch_counts()
+    qs, stats = sample_gibbs(model, data, init, cfg, seed=SEED_SAMPLER, device=device)
+    sync()
+    fit_wall = time.perf_counter() - t0
+    counts["fit"] = rose_since(before)
+    sweeps = ZW_WARMUP + ZW_SAMPLES
+    if counts["fit"] != {cs.FWD.name: sweeps, cs.BWD_SAMPLE.name: sweeps}:
+        raise AssertionError(f"zoo_wide: fit launches {counts['fit']}, expected {sweeps} FWD "
+                             "and BWD_SAMPLE")
+    if not bool(stats["chain_healthy"].all()) or not bool(torch.isfinite(stats["logp"]).all()):
+        raise AssertionError("zoo_wide: an unhealthy chain or a non-finite logp")
+
+    draws = thin(qs[:, 0], ZW_DRAWS)
+    before = launch_counts()
+    gen_z = torch.Generator(device=device)
+    gen_z.manual_seed(SEED_GAUSS + 100 + K)
+    z_draws = model.state_draws(gen_z, draws, data, device=device)
+    sync()
+    counts["state_draws"] = rose_since(before)
+    if counts["state_draws"] != {cs.FWD.name: 1, cs.BWD_SAMPLE.name: 1}:
+        raise AssertionError(f"zoo_wide: state_draws launched {counts['state_draws']}")
+    before = launch_counts()
+    sync()
+    t1 = time.perf_counter()
+    out = model.generated(draws, data, device=device)
+    sync()
+    gen_wall = time.perf_counter() - t1
+    counts["generated"] = rose_since(before)
+    check_decode_once("zoo_wide", counts["generated"])
+    row_dev = {k: check_probabilities("zoo_wide", out, k) for k in ("alpha", "gamma")}
+    errs_plain, same = check_zoo_vs_plain("zoo_wide", model, draws, data, out, z_draws,
+                                          SEED_GAUSS + 100 + K)
+
+    # one value-and-grad call on the decode's lanes
+    B, D = draws.shape[:2]
+    params, _ = model.unpack(draws.reshape(B * D, -1))
+    lanes = {k: v.repeat_interleave(D, 0) for k, v in data.items()}
+    log_pi, log_A, log_obs, _ = model.build(params, lanes)
+    ones = torch.ones(log_obs.shape[:2], dtype=torch.float32, device=device)
+    before = launch_counts()
+    vg = forward_value_and_grad(log_pi, log_A, log_obs, ones)
+    sync()
+    counts["value_and_grad"] = rose_since(before)
+    if counts["value_and_grad"] != {cs.FWD.name: 1, cs.VG_BWD.name: 1}:
+        raise AssertionError(f"zoo_wide: value-and-grad launched {counts['value_and_grad']}")
+    pi_t, A_t, obs_t, mask_t, _, _ = cs.to_lanes(log_pi, log_A, log_obs, ones)
+    ll_p, a_p = cs.fwd_plain(pi_t, A_t, obs_t, mask_t)
+    vg_p = cs.vg_bwd_plain(A_t, obs_t, mask_t, a_p, ll_p)
+    sync()
+    vg_lanes = (vg[0], vg[1].t(), vg[2].permute(1, 2, 0), vg[3].permute(1, 2, 0))
+    if not all(torch.equal(g, w) for g, w in zip(vg_lanes, (ll_p,) + tuple(vg_p))):
+        raise AssertionError("zoo_wide: value-and-grad not bitwise equal to the plain versions")
+
+    # the first ZW_CPU_SERIES series on the CPU: decode and value-and-grad
+    S, n = ZW_CPU_SERIES, ZW_CPU_SERIES * D
+    ref = model.generated(draws[:S].cpu(), {"x": x[:S].cpu()}, device="cpu")
+    errs = {k: float((out[k][:S].cpu() - ref[k]).abs().max()) for k in ("alpha", "gamma")}
+    ll_rel = float(((out["loglik"][:S].cpu() - ref["loglik"]) / ref["loglik"]).abs().max())
+    path_mismatch = float((out["zstar"][:S].cpu() != ref["zstar"]).float().mean())
+    vg_cpu = forward_value_and_grad(*(t[:n].cpu() for t in (log_pi, log_A, log_obs, ones)))
+    vg_errs = {
+        "loglik_rel": float(((vg[0][:n].cpu() - vg_cpu[0]) / vg_cpu[0]).abs().max()),
+        "d_pi": float((vg[1][:n].cpu() - vg_cpu[1]).abs().max()),
+        "d_obs": float((vg[3][:n].cpu() - vg_cpu[3]).abs().max()),
+        "d_A_rel": float((vg[2][:n].cpu() - vg_cpu[2]).abs().max() / vg_cpu[2].abs().max()),
+    }
+    if (max(errs.values()) > WIDE_PROB_ATOL or ll_rel > WIDE_LL_RTOL
+            or path_mismatch > WIDE_PATH_MISMATCH_MAX or vg_errs["loglik_rel"] > WIDE_LL_RTOL
+            or max(vg_errs["d_pi"], vg_errs["d_obs"]) > WIDE_PROB_ATOL
+            or vg_errs["d_A_rel"] > WIDE_DA_RTOL):
+        raise AssertionError(f"zoo_wide: card vs CPU {errs}, loglik {ll_rel:.3g}, path mismatch "
+                             f"{path_mismatch:.3g}, value-and-grad {vg_errs}")
+    acc = (out["zstar"] == z_true[:, None]).float().mean()
+    emit("zoo_wide", series=N_SERIES, T=G_T, K=K, warmup=ZW_WARMUP, samples=ZW_SAMPLES,
+         draws_per_series=D, fit_seconds=fit_wall, sweeps_per_s=sweeps / fit_wall,
+         generated_seconds=gen_wall, launches=counts, row_sum_max_dev=row_dev,
+         max_abs_err_vs_plain=errs_plain, identical_vs_plain=same,
+         value_and_grad_identical_vs_plain=True, cpu_series=S, max_abs_err_vs_cpu=errs,
+         loglik_max_rel_err_vs_cpu=ll_rel, zstar_mismatch_share_vs_cpu=path_mismatch,
+         value_and_grad_err_vs_cpu=vg_errs, viterbi_accuracy_mean=float(acc))
+    return counts
+
+
 def ptxas_usage(log: str) -> dict:
     """``{kernel<template args>: [registers, spill store bytes, spill load
-    bytes]}`` from an ``nvcc -Xptxas -v`` log (its entries named from the
-    mangled symbols: ``Li16E`` is 16, ``Lb1E`` true)."""
+    bytes, static shared bytes]}`` from an ``nvcc -Xptxas -v`` log (its
+    entries named from the mangled symbols: ``Li16E`` is 16, ``Lb1E``
+    true)."""
     usage, name = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '_Z\w*?(?<=\d)([a-z_]+_kernel)I(\w*?)EEv", ln)
@@ -1653,16 +1874,79 @@ def ptxas_usage(log: str) -> dict:
             args = re.findall(r"L([ib])(\d+)E", m.group(2))
             vals = [str(int(v)) if t == "i" else ("true" if v == "1" else "false") for t, v in args]
             name = f"{m.group(1)}<{','.join(vals)}>"
-            usage[name] = [None, 0, 0]
+            usage[name] = [None, 0, 0, 0]
         elif name and "spill" in ln:
             st = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
             if st:
-                usage[name][1:] = [int(st.group(1)), int(st.group(2))]
+                usage[name][1:3] = [int(st.group(1)), int(st.group(2))]
         elif name and "Used" in ln:
             r = re.search(r"Used (\d+) registers", ln)
             if r:
                 usage[name][0] = int(r.group(1))
+            sm = re.search(r"(\d+) bytes smem", ln)
+            if sm:
+                usage[name][3] = int(sm.group(1))
     return usage
+
+
+# the K of the kernel table's resource columns, and the main path's shape
+# for the two kernels whose dynamic shared memory depends on it
+TABLE_KS = (4, 16, 32, 64, 128)
+
+
+def dynamic_smem(kernel, K: int, T: int = T_FIT, N: int = N_DEC) -> int:
+    """Bytes of dynamic shared memory a block of ``kernel`` takes at K
+    (the kernels' own formulas: wide_core.cuh's wide_smem_bytes,
+    ffbs_bwd_sample.cu's smem_stride and wide_bwd_smem_bytes,
+    semiring_viterbi.cu's bt_smem_bytes); the group kernels take none."""
+    if kernel is cs.BWD_SAMPLE:
+        if K <= 16:  # kLanes rows of W map_words(T) + 8 words, if they fit 2048 a lane
+            W, words = -(-K // 8), -(-T // 32) * 32
+            return 0 if W * words > 2048 else 4 * 4 * (W * words + 8)
+        return 4 * (K * K + 32 * (K + 3)) + 32 * K
+    if kernel is cs.BACKTRACK:  # up to 32 lanes a block, a block an SM, at most 100 KB
+        W = 1 if K <= 8 else 2 if K <= 16 else -(-K // 4)
+        chunk, stages = (64, 4) if K <= 16 else (32, 3)
+
+        def ring(lanes):
+            return 4 * (stages * lanes * (chunk * W + 4) + 2 * chunk * lanes)
+
+        lanes = 32
+        while lanes > 1 and (-(-N // lanes) < 132 or ring(lanes) > 100 * 1024):
+            lanes //= 2
+        return ring(lanes)
+    if K <= 32:
+        return 0
+    return 4 * (2 * K * K + 3 * K) if kernel is cs.VG_BWD else 4 * (K * K + 2 * K)
+
+
+def kernel_resources(usage) -> dict:
+    """Per semiring kernel and K of ``TABLE_KS``: the instantiation that
+    runs (ungated), its registers, spill bytes (stores, loads), static
+    shared bytes and dynamic shared bytes."""
+    def inst(k, K):
+        if k is cs.BACKTRACK:
+            return f"viterbi_backtrack_kernel<{1 if K <= 8 else 2 if K <= 16 else 0}>"
+        if k is cs.BWD_SAMPLE:
+            return (f"ffbs_bwd_sample_kernel<{K},false>" if K <= 16
+                    else "ffbs_bwd_sample_wide_kernel<false>")
+        mode = {cs.FWD: "0", cs.FILTER: "1", cs.VITERBI: "2"}.get(k)
+        if mode is not None:
+            return (f"forward_kernel<{K},{mode},false>" if K <= 32
+                    else f"wide_forward_kernel<{mode},false>")
+        vg = "true" if k is cs.VG_BWD else "false"
+        return f"beta_kernel<{K},{vg},false>" if K <= 32 else f"wide_beta_kernel<{vg},false>"
+
+    out = {}
+    for k in cs.KERNELS:
+        rows = {}
+        for K in TABLE_KS:
+            name = inst(k, K)
+            regs, st, ld, static = usage.get(k.source.name, {}).get(name) or [None] * 4
+            rows[K] = dict(instance=name, registers=regs, spill_stores=st, spill_loads=ld,
+                           static_smem=static, dynamic_smem=dynamic_smem(k, K))
+        out[k.name] = rows
+    return out
 
 
 def reset_all() -> None:
@@ -1705,6 +1989,8 @@ def main() -> int:
             ("viterbi", cs.VITERBI, "2,false", (4, 16, 32)))
         for K in ks})
 
+    emit("kernel_resources", K=list(TABLE_KS), **kernel_resources(usage))
+
     kern = phase_kernels(device)
     vgk = phase_kernels_vg(device)
     trk = phase_kernels_traj(device)
@@ -1726,6 +2012,7 @@ def main() -> int:
     phase_chees_unfused(device)
     unfused = {k.name: k.launches for k in ALL_KERNELS}
     deck = phase_kernels_decode(device)
+    widek = phase_kernels_wide(device)
     # main path 3, the zoo's generated quantities: the hard-gate Tayal
     # decode of the Gibbs draws, the same decode of the ChEES draws, and
     # the Gaussian HMM's fit, decode and state draws
@@ -1738,10 +2025,16 @@ def main() -> int:
     zoo = {k.name: k.launches for k in ALL_KERNELS}
     check_loglik_vs_fwd(dec)
     del dec
+    # main path 4, the zoo above K=32: the K=64 Gaussian HMM's fit, state
+    # draws, decode and value-and-grad, every semiring kernel a block a lane
+    reset_all()
+    phase_zoo_wide(device)
+    zoo_wide = {k.name: k.launches for k in ALL_KERNELS}
     missing = [n for n in (cs.FWD.name, cs.BWD_SAMPLE.name) if gibbs[n] == 0]
     missing += [n for n in (cs.FWD.name, cs.VG_BWD.name, ct.TRAJ.name) if chees[n] == 0]
     missing += [n for n in (cs.FWD.name, cs.VG_BWD.name) if unfused[n] == 0]
     missing += [k.name for k in (cs.FWD, cs.BWD_SAMPLE) + DECODE_KERNELS if zoo[k.name] == 0]
+    missing += [f"{k.name} (zoo_wide)" for k in cs.KERNELS if zoo_wide[k.name] == 0]
     if missing:
         raise AssertionError(f"a main path never launched {missing}")
 
@@ -1802,6 +2095,12 @@ def main() -> int:
             "library_ms": None,
             **extra,
         })
+        if k in cs.KERNELS:  # the semiring kernels' K range, and K=64 (a block a lane)
+            rows[-1].update(k_range=list(cs.K_RANGE), ms_k64=widek["timing"][k.name],
+                            shape_k64=dict(N=N_SERIES, T=G_T, K=ZW_K),
+                            launches_zoo_wide=zoo_wide[k.name],
+                            bitwise_equal_cases_above_16=sum(
+                                k.name in c["kernels"] for c in widek["cases"]))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

@@ -27,7 +27,8 @@
 // Layout: batch-minor, lane n fastest — A [K,K,N], obs/alpha/beta/d_obs
 // [T,K,N], mask/gate [T,N], sk/d_pi [K,N], ll [N], d_A [K,K,N].
 //
-// Thread mapping (lane_group.cuh): a group of G threads owns a lane;
+// Thread mapping (lane_group.cuh), K <= 32 (above, wide_core.cuh's
+// block a lane): a group of G threads owns a lane;
 // thread i owns beta[i], the row A[i, :], and in VG_BWD the row d_A[i, :]
 // of the sums, in registers. Each step thread i computes its e[i] and
 // gathers e[0..K-1] from the group with __shfl_sync, then its own

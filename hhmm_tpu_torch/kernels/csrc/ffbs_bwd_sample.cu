@@ -19,8 +19,10 @@
 //
 // The chain is serial only in form: the draw of z_t given z_{t+1} = s
 // reads alpha_t, u_t, mask_{t+1}, gate_{t+1}, sk[s] and A[:, s], none of
-// which depends on the chain. So the kernel runs in three phases, a
-// block owning kLanes lanes and all T steps:
+// which depends on the chain. So the kernel runs in three phases. Up to K
+// = 16 (ffbs_bwd_sample_kernel, below), a block owns kLanes lanes and all
+// T steps; above (ffbs_bwd_sample_wide_kernel, further below: K up to
+// 128), a block owns one lane and walks it a chunk at a time.
 // - Phase A, parallel over (step, lane) and the block's threads: every
 //   candidate map_t[s] = invcdf(alpha_t + g_s * A[:, s], u_t), with
 //   g_s = (mask_{t+1} > 0) [* (gate_{t+1} == sk[s])], the arithmetic of
@@ -62,6 +64,7 @@
 #include <stdint.h>
 
 #include "lane_group.cuh"
+#include "wide_core.cuh"
 
 namespace {
 
@@ -249,6 +252,105 @@ ffbs_bwd_sample_kernel(const float* __restrict__ A,
   }
 }
 
+// ---- above K = 16: byte-field candidate maps, a block a lane
+//
+// The same function by the same three phases, in a layout that takes any
+// K in 17..128 at runtime: a block owns one lane, thread s (of ceil(K /
+// 32) warps) owns successor state s, and the lane's A (K^2 floats) lives
+// in shared memory. The block walks the lane backward in chunks of
+// kWideChunkSteps steps:
+// - it stages the chunk's alpha rows, u, mask_{t+1} and gate_{t+1} in
+//   shared memory (plain loads, the whole block);
+// - phase A: thread s draws every step's candidate map_t[s] =
+//   invcdf(alpha_t + g_s A[:, s], u_t), the arithmetic of the serial
+//   draw in the serial order (the max, the exponentials summed in index
+//   order, the running cum), K exponentials twice over, and stores it as
+//   byte s of the step's map (the maps' byte fields: P = 4 states a word,
+//   as VITERBI's above 16, stored here byte by byte); the last step's
+//   candidates all equal the draw from alpha_{T-1} (g = 0);
+// - phase B: thread 0 chases the chunk's maps, z_t = map_t[z_{t+1}], one
+//   shared byte load a step, and writes z_t out;
+// while the others stage the next chunk. Maps never leave the chip (a
+// chunk's K bytes a step), so there is no device scratch. Shared memory:
+// A, kWideChunkSteps (K + 3) floats and kWideChunkSteps K bytes, 84 KB at
+// K = 128 (wide_core.cuh's wide_launch_setup: the opt-in past 48 KB).
+constexpr int kWideChunkSteps = 32;
+
+__host__ __device__ constexpr size_t wide_bwd_smem_bytes(int K) {
+  return sizeof(float) * (static_cast<size_t>(K) * K + kWideChunkSteps * (K + 3)) +
+         static_cast<size_t>(kWideChunkSteps) * K;
+}
+
+template <bool GATED>
+__global__ void __launch_bounds__(hhmm::kMaxK)
+ffbs_bwd_sample_wide_kernel(int K, const float* __restrict__ A,
+                            const float* __restrict__ mask,
+                            const float* __restrict__ alpha,
+                            const float* __restrict__ u,
+                            const float* __restrict__ gate,
+                            const float* __restrict__ sk, int* __restrict__ z_out,
+                            int T, int N) {
+  extern __shared__ __align__(16) float wide_smem[];
+  constexpr int C = kWideChunkSteps;
+  float* sA = wide_smem;         // A[k][s] at sA[k K + s]
+  float* sal = sA + K * K;       // alpha_t of the chunk's step k at sal[k K ..]
+  float* su = sal + C * K;       // u_t
+  float* sm = su + C;            // mask_{t+1} (0 at t = T - 1)
+  float* sg = sm + C;            // gate_{t+1}
+  uint8_t* maps = reinterpret_cast<uint8_t*>(sg + C);  // map_t[s] at maps[k K + s]
+  const int s = threadIdx.x;
+  const int n = blockIdx.x;
+  const bool live = s < K;
+  const size_t sN = static_cast<size_t>(N);
+
+  for (int e = s; e < K * K; e += blockDim.x) sA[e] = A[e * sN + n];
+  const float sks = (GATED && live) ? sk[s * sN + n] : 0.0f;
+  int z = 0;  // thread 0: the chase; the last step's candidates all agree
+  const int chunks = (T + C - 1) / C;
+  for (int c = 0; c < chunks; ++c) {
+    const int top = T - 1 - c * C;                // step of slot 0
+    const int valid = top + 1 < C ? top + 1 : C;  // slots k: steps top - k >= 0
+    for (int e = s; e < valid * K; e += blockDim.x) {
+      const int k = e / K;
+      sal[e] = alpha[(static_cast<size_t>(top - k) * K + (e - k * K)) * sN + n];
+    }
+    for (int k = s; k < valid; k += blockDim.x) {
+      const int t = top - k;
+      su[k] = u[static_cast<size_t>(t) * sN + n];
+      sm[k] = t + 1 < T ? mask[static_cast<size_t>(t + 1) * sN + n] : 0.0f;
+      sg[k] = (GATED && t + 1 < T) ? gate[static_cast<size_t>(t + 1) * sN + n] : 0.0f;
+    }
+    __syncthreads();  // the chunk's inputs; the last chase is done
+    if (live) {
+      for (int k = 0; k < valid; ++k) {
+        float g = sm[k] > 0.0f ? 1.0f : 0.0f;
+        if (GATED && !(sg[k] == sks)) g = 0.0f;
+        const float* al = sal + k * K;
+        float m = al[0] + g * sA[s];
+        for (int i = 1; i < K; ++i) m = fmaxf(m, al[i] + g * sA[i * K + s]);
+        m = fmaxf(m, kClamp);
+        float sum = 0.0f;
+        for (int i = 0; i < K; ++i) sum += expf(al[i] + g * sA[i * K + s] - m);
+        const float lse = m + logf(sum);
+        float cum = 0.0f;
+        int draw = 0;
+        for (int i = 0; i < K - 1; ++i) {
+          cum += expf(al[i] + g * sA[i * K + s] - lse);
+          draw += (su[k] >= cum) ? 1 : 0;
+        }
+        maps[k * K + s] = static_cast<uint8_t>(draw);
+      }
+    }
+    __syncthreads();  // the chunk's maps
+    if (s == 0) {
+      for (int k = 0; k < valid; ++k) {
+        z = maps[k * K + z];
+        z_out[static_cast<size_t>(top - k) * sN + n] = z;
+      }
+    }
+  }
+}
+
 template <int K, bool GATED>
 int launch(const float* A, const float* mask, const float* alpha,
            const float* u, const float* gate, const float* sk, int* z,
@@ -272,15 +374,28 @@ int launch_k(int gated, const float* A, const float* mask, const float* alpha,
   return launch<K, false>(A, mask, alpha, u, gate, sk, z, scratch, T, N, stream);
 }
 
+template <bool GATED>
+int launch_wide(int K, const float* A, const float* mask, const float* alpha,
+                const float* u, const float* gate, const float* sk, int* z, int T, int N,
+                cudaStream_t stream) {
+  const size_t smem = wide_bwd_smem_bytes(K);
+  const int rc = hhmm::wide_launch_setup<ffbs_bwd_sample_wide_kernel<GATED>>(smem);
+  if (rc != 0) return rc;
+  ffbs_bwd_sample_wide_kernel<GATED><<<N, (K + 31) / 32 * 32, smem, stream>>>(
+      K, A, mask, alpha, u, gate, sk, z, T, N);
+  return 0;
+}
+
 }  // namespace
 
 // Returns 0 on a good launch, the cudaError_t of a refused one, or -1 for
-// a K outside 2..16, an empty shape, or maps over 2048 words a lane
-// without a scratch. `scratch` is null (the maps live in shared memory)
-// or an int32 [N, W * map_words(T)] buffer the caller owns, required
-// when W * map_words(T) > 2048 (T > 2048 at K <= 8, T > 1024 above), with
-// W = ceil(K / 8) and map_words(T) = T rounded up to a multiple of 32.
-// Launches on `stream`, does not synchronise and allocates nothing.
+// a K outside 2..128, an empty shape, or (K <= 16) maps over 2048 words a
+// lane without a scratch. `scratch` is null (the maps live in shared
+// memory) or, at K <= 16, an int32 [N, W * map_words(T)] buffer the
+// caller owns, required when W * map_words(T) > 2048 (T > 2048 at K <=
+// 8, T > 1024 at K in 9..16), with W = ceil(K / 8) and map_words(T) = T
+// rounded up to a multiple of 32; above K = 16 it is not read. Launches
+// on `stream`, does not synchronise and allocates nothing.
 extern "C" int hhmm_ffbs_bwd_sample(int K, int gated, const float* A,
                                     const float* mask, const float* alpha,
                                     const float* u, const float* gate,
@@ -289,9 +404,15 @@ extern "C" int hhmm_ffbs_bwd_sample(int K, int gated, const float* A,
   if (T < 1 || N < 1) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   uint32_t* m = reinterpret_cast<uint32_t*>(scratch);
-  const int rc = for_k(K, [&](auto k) {
-    return launch_k<decltype(k)::value>(gated, A, mask, alpha, u, gate, sk, z, m, T, N, s);
-  });
+  int rc;
+  if (K > hhmm::kMaxNibbleK && K <= hhmm::kMaxK) {
+    rc = gated ? launch_wide<true>(K, A, mask, alpha, u, gate, sk, z, T, N, s)
+               : launch_wide<false>(K, A, mask, alpha, u, gate, sk, z, T, N, s);
+  } else {
+    rc = for_k<hhmm::kMaxNibbleK>(K, [&](auto k) {
+      return launch_k<decltype(k)::value>(gated, A, mask, alpha, u, gate, sk, z, m, T, N, s);
+    });
+  }
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
 }

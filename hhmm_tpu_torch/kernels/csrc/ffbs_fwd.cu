@@ -24,11 +24,13 @@
 //   exponentials runs in index order. The max is taken as a tree, which
 //   gives the same value as a chain (max is exact).
 //
-// The kernel is fwd_core.cuh's forward_kernel in its clamped mode: that
-// header has the layout, the thread mapping, what bounds it and what the
-// design does about it.
+// The kernel is fwd_core.cuh's forward_kernel in its clamped mode at K
+// <= 32, and wide_core.cuh's wide_forward_kernel (a block a lane) above:
+// those headers have the layout, the thread mapping, what bounds it and
+// what the design does about it.
 
 #include "fwd_core.cuh"
+#include "wide_core.cuh"
 
 namespace {
 
@@ -44,10 +46,21 @@ int launch_k(int gated, const float* pi, const float* A, const float* obs,
                                                   nullptr, nullptr, T, N, stream);
 }
 
+int launch_wide(int K, int gated, const float* pi, const float* A, const float* obs,
+                const float* mask, const float* gate, const float* sk, float* ll,
+                float* alpha, int T, int N, cudaStream_t stream) {
+  using hhmm::kClamped;
+  if (gated)
+    return hhmm::launch_wide_forward<kClamped, true>(K, pi, A, obs, mask, gate, sk, ll, alpha,
+                                                     nullptr, nullptr, T, N, stream);
+  return hhmm::launch_wide_forward<kClamped, false>(K, pi, A, obs, mask, gate, sk, ll, alpha,
+                                                    nullptr, nullptr, T, N, stream);
+}
+
 }  // namespace
 
 // Returns 0 on a good launch, the cudaError_t of a refused one, or -1 for
-// a K outside 2..16 or an empty shape. Launches on `stream`, does not
+// a K outside 2..128 or an empty shape. Launches on `stream`, does not
 // synchronise and allocates nothing: the caller owns every buffer.
 extern "C" int hhmm_ffbs_fwd(int K, int gated, const float* pi,
                              const float* A, const float* obs,
@@ -56,8 +69,12 @@ extern "C" int hhmm_ffbs_fwd(int K, int gated, const float* pi,
                              int N, void* stream) {
   if (T < 1 || N < 1) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int rc = hhmm::for_k(K, [&](auto k) {
-    return launch_k<decltype(k)::value>(gated, pi, A, obs, mask, gate, sk, ll, alpha, T, N, s);
-  });
+  const int rc =
+      K > hhmm::kMaxGroupK && K <= hhmm::kMaxK
+          ? launch_wide(K, gated, pi, A, obs, mask, gate, sk, ll, alpha, T, N, s)
+          : hhmm::for_k<hhmm::kMaxGroupK>(K, [&](auto k) {
+              return launch_k<decltype(k)::value>(gated, pi, A, obs, mask, gate, sk, ll, alpha,
+                                                  T, N, s);
+            });
   return rc != 0 ? rc : static_cast<int>(cudaGetLastError());
 }

@@ -50,7 +50,8 @@
 // Layout: batch-minor, lane n fastest — pi/dlast/sk [K,N], A [K,K,N],
 // obs/alpha [T,K,N], mask/gate [T,N], ll/score [N], back [T,W,N].
 //
-// Thread mapping (lane_group.cuh): a group of G threads (G = 2, 4, 4, 8,
+// Thread mapping (lane_group.cuh), K <= 32 (above, wide_core.cuh's
+// block a lane): a group of G threads (G = 2, 4, 4, 8,
 // 16, 32 for K = 2, 3, 4, 5..8, 9..16, 17..32) owns a lane; thread j owns
 // c[j] and the column A[:, j] in registers (threads K .. G-1 idle), so a
 // thread holds K floats of A, not K^2. Each step thread j gathers
@@ -87,14 +88,9 @@ constexpr int kFwdBlock = 64;   // threads a block
 constexpr int kFwdChunk = 8;    // steps a ring stage
 constexpr int kFwdStages = 3;   // ring stages; chunks in flight: kFwdStages - 1
 
-// the modes of forward_kernel
-constexpr int kClamped = 0;  // FWD
-constexpr int kGuarded = 1;  // FILTER
-constexpr int kMaxPlus = 2;  // VITERBI
-
 // map fields: bits a state, states a word, words a step
 template <int K>
-constexpr int kMapBits = K <= 16 ? 4 : 8;
+constexpr int kMapBits = K <= kMaxNibbleK ? 4 : 8;
 template <int K>
 constexpr int kMapPerWord = 32 / kMapBits<K>;
 template <int K>

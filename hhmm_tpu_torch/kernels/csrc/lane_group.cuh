@@ -1,7 +1,8 @@
-// What the kernels that run a group of threads a lane share (fwd_core.cuh
-// for ffbs_fwd.cu, semiring_filter.cu and semiring_viterbi.cu, and
-// beta_core.cuh for semiring_beta.cu and vg_bwd.cu):
-// the group's shape, the order-fixed log-sum-exps, the warp gather, the
+// What the semiring kernels share (fwd_core.cuh for ffbs_fwd.cu,
+// semiring_filter.cu and semiring_viterbi.cu, beta_core.cuh for
+// semiring_beta.cu and vg_bwd.cu, wide_core.cuh for all five above K =
+// 32, and ffbs_bwd_sample.cu): the K range, the forward modes, the
+// group's shape, the order-fixed log-sum-exps, the warp gather, the
 // cp.async ring's three instructions and the dispatch of a runtime K to
 // its template.
 //
@@ -15,6 +16,7 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #include <type_traits>
 
@@ -23,12 +25,18 @@ namespace hhmm {
 constexpr float kClamp = -1.0e30f;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMinK = 2;
-constexpr int kMaxK = 16;        // FWD, BWD_SAMPLE and VG_BWD (4-bit sample maps)
-constexpr int kMaxDecodeK = 32;  // FILTER, BETA, VITERBI and BACKTRACK: a warp a lane
+constexpr int kMaxK = 128;      // every semiring kernel: a lane's A (and d_A) in shared memory
+constexpr int kMaxGroupK = 32;  // a group of threads a lane, a warp at most; a block above
+constexpr int kMaxNibbleK = 16; // packed maps of four bits a state; bytes above
+
+// the modes of the forward recursion (fwd_core.cuh, wide_core.cuh)
+constexpr int kClamped = 0;  // FWD
+constexpr int kGuarded = 1;  // FILTER
+constexpr int kMaxPlus = 2;  // VITERBI
 
 template <int K>
 struct Group {
-  static_assert(kMinK <= K && K <= kMaxDecodeK, "K in 2..32");
+  static_assert(kMinK <= K && K <= kMaxGroupK, "K in 2..32");
   // threads a lane
   static constexpr int G = K <= 2 ? 2 : (K <= 4 ? 4 : (K <= 8 ? 8 : (K <= 16 ? 16 : 32)));
   static constexpr int kLanesPerWarp = 32 / G;
@@ -110,9 +118,21 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
 }
 
+// 16 bytes (global and shared addresses 16-byte aligned), past L1
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem)
+               : "memory");
+}
+
+// the 4-byte copy of a 32-bit word (BACKTRACK's maps)
+__device__ __forceinline__ void cp_async4(uint32_t* smem, const uint32_t* gmem) {
+  cp_async4(reinterpret_cast<float*>(smem), reinterpret_cast<const float*>(gmem));
+}
+
 // f(std::integral_constant<int, K>{}) for the runtime k in 2..KMAX, -1
 // for any other k
-template <int KMAX = kMaxK, int K = kMinK, class F>
+template <int KMAX, int K = kMinK, class F>
 int for_k(int k, F&& f) {
   if constexpr (K > KMAX) {
     return -1;

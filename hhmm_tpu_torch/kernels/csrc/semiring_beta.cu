@@ -18,24 +18,31 @@
 //   gives -inf, never NaN; otherwise m + log(sum exp(x - m)), the
 //   exponentials summed in index order as the plain version sums them.
 //
-// The kernel is beta_core.cuh's beta_kernel in its guarded mode: that
-// header has the layout, the thread mapping, what bounds it and what the
-// design does about it.
+// The kernel is beta_core.cuh's beta_kernel in its guarded mode at K <=
+// 32, and wide_core.cuh's wide_beta_kernel (a block a lane) above: those
+// headers have the layout, the thread mapping, what bounds it and what
+// the design does about it.
 
 #include "beta_core.cuh"
+#include "wide_core.cuh"
 
 // Returns 0 on a good launch, the cudaError_t of a refused one, or -1 for
-// a K outside 2..32 or an empty shape. Launches on `stream`, does not
+// a K outside 2..128 or an empty shape. Launches on `stream`, does not
 // synchronise and allocates nothing: the caller owns every buffer.
 extern "C" int hhmm_semiring_beta(int K, const float* A, const float* obs,
                                   const float* mask, float* beta, int T, int N,
                                   void* stream) {
   if (T < 1 || N < 1) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int rc = hhmm::for_k<hhmm::kMaxDecodeK>(K, [&](auto k) {
-    return hhmm::launch_beta<decltype(k)::value, false, false>(
-        A, obs, mask, nullptr, nullptr, nullptr, nullptr, beta, nullptr, nullptr, nullptr,
-        T, N, s);
-  });
+  const int rc =
+      K > hhmm::kMaxGroupK && K <= hhmm::kMaxK
+          ? hhmm::launch_wide_beta<false, false>(K, A, obs, mask, nullptr, nullptr, nullptr,
+                                                 nullptr, beta, nullptr, nullptr, nullptr, T, N,
+                                                 s)
+          : hhmm::for_k<hhmm::kMaxGroupK>(K, [&](auto k) {
+              return hhmm::launch_beta<decltype(k)::value, false, false>(
+                  A, obs, mask, nullptr, nullptr, nullptr, nullptr, beta, nullptr, nullptr,
+                  nullptr, T, N, s);
+            });
   return rc != 0 ? rc : static_cast<int>(cudaGetLastError());
 }

@@ -21,16 +21,18 @@
 //   otherwise m + log(sum exp(x - m)), the exponentials summed in index
 //   order. On finite inputs this is the arithmetic of ffbs_fwd.cu (whose
 //   clamp at -1e30 never binds there), so the two kernels' alphas are
-//   bitwise equal. K in 2..32 (FWD: 2..16).
+//   bitwise equal. K in 2..128.
 //
-// The kernel is fwd_core.cuh's forward_kernel in its guarded mode: that
-// header has the layout, the thread mapping, what bounds it and what the
-// design does about it.
+// The kernel is fwd_core.cuh's forward_kernel in its guarded mode at K
+// <= 32, and wide_core.cuh's wide_forward_kernel (a block a lane) above:
+// those headers have the layout, the thread mapping, what bounds it and
+// what the design does about it.
 
 #include "fwd_core.cuh"
+#include "wide_core.cuh"
 
 // Returns 0 on a good launch, the cudaError_t of a refused one, or -1 for
-// a K outside 2..32 or an empty shape. Launches on `stream`, does not
+// a K outside 2..128 or an empty shape. Launches on `stream`, does not
 // synchronise and allocates nothing: the caller owns every buffer.
 extern "C" int hhmm_semiring_filter(int K, const float* pi, const float* A,
                                     const float* obs, const float* mask,
@@ -38,9 +40,13 @@ extern "C" int hhmm_semiring_filter(int K, const float* pi, const float* A,
                                     void* stream) {
   if (T < 1 || N < 1) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int rc = hhmm::for_k<hhmm::kMaxDecodeK>(K, [&](auto k) {
-    return hhmm::launch_forward<decltype(k)::value, hhmm::kGuarded, false>(
-        pi, A, obs, mask, nullptr, nullptr, ll, alpha, nullptr, nullptr, T, N, s);
-  });
+  const int rc =
+      K > hhmm::kMaxGroupK && K <= hhmm::kMaxK
+          ? hhmm::launch_wide_forward<hhmm::kGuarded, false>(
+                K, pi, A, obs, mask, nullptr, nullptr, ll, alpha, nullptr, nullptr, T, N, s)
+          : hhmm::for_k<hhmm::kMaxGroupK>(K, [&](auto k) {
+              return hhmm::launch_forward<decltype(k)::value, hhmm::kGuarded, false>(
+                  pi, A, obs, mask, nullptr, nullptr, ll, alpha, nullptr, nullptr, T, N, s);
+            });
   return rc != 0 ? rc : static_cast<int>(cudaGetLastError());
 }

@@ -28,11 +28,13 @@
 //   summed in index order), as in ffbs_fwd.cu. A is used as given: the
 //   vg path does not clamp it (semiring_vg, unlike semiring_ffbs).
 //
-// The kernel is beta_core.cuh's beta_kernel in its value-and-grad mode:
-// that header has the layout, the thread mapping, what bounds it and
-// what the design does about it.
+// The kernel is beta_core.cuh's beta_kernel in its value-and-grad mode at
+// K <= 32, and wide_core.cuh's wide_beta_kernel (a block a lane, A and
+// d_A in shared memory) above: those headers have the layout, the thread
+// mapping, what bounds it and what the design does about it.
 
 #include "beta_core.cuh"
+#include "wide_core.cuh"
 
 namespace {
 
@@ -48,10 +50,20 @@ int launch_k(int gated, const float* A, const float* obs, const float* mask,
                                            d_pi, d_A, d_obs, T, N, stream);
 }
 
+int launch_wide(int K, int gated, const float* A, const float* obs, const float* mask,
+                const float* alpha, const float* ll, const float* gate, const float* sk,
+                float* d_pi, float* d_A, float* d_obs, int T, int N, cudaStream_t stream) {
+  if (gated)
+    return hhmm::launch_wide_beta<true, true>(K, A, obs, mask, gate, sk, alpha, ll, nullptr,
+                                              d_pi, d_A, d_obs, T, N, stream);
+  return hhmm::launch_wide_beta<true, false>(K, A, obs, mask, gate, sk, alpha, ll, nullptr,
+                                             d_pi, d_A, d_obs, T, N, stream);
+}
+
 }  // namespace
 
 // Returns 0 on a good launch, the cudaError_t of a refused one, or -1 for
-// a K outside 2..16 or an empty shape. Launches on `stream`, does not
+// a K outside 2..128 or an empty shape. Launches on `stream`, does not
 // synchronise and allocates nothing: the caller owns every buffer.
 extern "C" int hhmm_vg_bwd(int K, int gated, const float* A, const float* obs,
                            const float* mask, const float* alpha,
@@ -60,9 +72,12 @@ extern "C" int hhmm_vg_bwd(int K, int gated, const float* A, const float* obs,
                            void* stream) {
   if (T < 1 || N < 1) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int rc = hhmm::for_k(K, [&](auto k) {
-    return launch_k<decltype(k)::value>(gated, A, obs, mask, alpha, ll, gate, sk, d_pi, d_A,
-                                        d_obs, T, N, s);
-  });
+  const int rc =
+      K > hhmm::kMaxGroupK && K <= hhmm::kMaxK
+          ? launch_wide(K, gated, A, obs, mask, alpha, ll, gate, sk, d_pi, d_A, d_obs, T, N, s)
+          : hhmm::for_k<hhmm::kMaxGroupK>(K, [&](auto k) {
+              return launch_k<decltype(k)::value>(gated, A, obs, mask, alpha, ll, gate, sk,
+                                                  d_pi, d_A, d_obs, T, N, s);
+            });
   return rc != 0 ? rc : static_cast<int>(cudaGetLastError());
 }

@@ -28,21 +28,20 @@ kernel of that module:
   (packed four bits a state, see below), and the walk back through the
   maps.
 
-The decode kernels (``FILTER``, ``BETA``, ``VITERBI``, ``BACKTRACK``)
-take K in 2..32 (``DECODE_K_RANGE``: up to a warp a lane), the FFBS and
-value-and-grad kernels (``FWD``, ``BWD_SAMPLE``, ``VG_BWD``) K in 2..16
-(``K_RANGE``: ``BWD_SAMPLE``'s candidate maps hold four bits a state);
-each raises a ``ValueError`` for any other K, and its plain version
-takes the same largest K, so a larger K raises on either route. A
-backpointer map (``VITERBI``'s output, and ``BWD_SAMPLE``'s candidate
-maps inside the kernel) is ``W`` int32 words a step of ``B``-bit fields,
-``B = 4`` up to K = 16 and 8 above, ``P = 32 / B`` states a word, ``W =
-ceil(K / P)``: field ``j % P`` of word ``j // P`` holds the pointer of
-state j. For K <= 8 the maps are ``[T, N]`` (one word a step); above
-they are ``[T, W, N]`` (W = 2 up to K = 16, 5 to 8 above), word-major
-within a step, so that each word row stays a run of N consecutive words
-(coalesced over the lanes, as the one-word layout) and the K <= 8
-layout is its W = 1 case with the word axis dropped.
+Every kernel takes K in 2..128 (``K_RANGE``: a group of threads a lane
+up to K = 32, a block a lane above, with the lane's A, and for
+``VG_BWD`` its d_A, in shared memory, ``csrc/wide_core.cuh``) and raises
+a ``ValueError`` for any other K; its plain version takes the same
+largest K, so a larger K raises on either route. A backpointer map
+(``VITERBI``'s output, and ``BWD_SAMPLE``'s candidate maps inside the
+kernel) is ``W`` int32 words a step of ``B``-bit fields, ``B = 4`` up to
+K = 16 and 8 above, ``P = 32 / B`` states a word, ``W = ceil(K / P)``:
+field ``j % P`` of word ``j // P`` holds the pointer of state j. For K <=
+8 the maps are ``[T, N]`` (one word a step); above they are ``[T, W,
+N]`` (W = 2 up to K = 16, 5 to 32 above), word-major within a step, so
+that each word row stays a run of N consecutive words (coalesced over
+the lanes, as the one-word layout) and the K <= 8 layout is its W = 1
+case with the word axis dropped.
 
 All work on the batch-minor lane layout (``[T, K, N]`` residual, lane
 fastest); :func:`to_lanes` makes it from the JAX package's ``[N, T, K]``
@@ -76,7 +75,6 @@ __all__ = [
     "BACKTRACK",
     "KERNELS",
     "K_RANGE",
-    "DECODE_K_RANGE",
     "build_kernels",
     "reset_launches",
     "to_lanes",
@@ -104,13 +102,15 @@ __all__ = [
 ]
 
 _CLAMP = -1.0e30
-K_RANGE = (2, 16)  # FWD, BWD_SAMPLE and VG_BWD's K, both ends included
-DECODE_K_RANGE = (2, 32)  # FILTER, BETA, VITERBI and BACKTRACK's
-# BWD_SAMPLE keeps its packed candidate maps in shared memory up to this
-# many words a lane (kSmemMaxWords in ffbs_bwd_sample.cu: W words a step,
-# so T <= 2048 at K <= 8 and T <= 1024 at K > 8), beyond it in an int32
-# scratch of W * (T rounded up to a multiple of 32) words a lane
+K_RANGE = (2, 128)  # every kernel's K, both ends included
+# BWD_SAMPLE at K <= 16 keeps its packed candidate maps in shared memory
+# up to this many words a lane (kSmemMaxWords in ffbs_bwd_sample.cu: W
+# words a step, so T <= 2048 at K <= 8 and T <= 1024 at K in 9..16),
+# beyond it in an int32 scratch of W * (T rounded up to a multiple of
+# 32) words a lane; above K = 16 its maps stay in shared memory a chunk
+# at a time, with no scratch
 _BWD_SMEM_MAX_WORDS = 2048
+_NIBBLE_MAX_K = 16
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -242,8 +242,9 @@ def to_lanes(
 
 def _map_bits(K: int) -> int:
     """Bits a state of a packed backpointer map: 4 up to K = 16, 8
-    above (a pointer to state 16 or more needs a fifth bit)."""
-    return 4 if K <= 16 else 8
+    above (a pointer to state 16 or more needs a fifth bit, and K = 128
+    a seventh)."""
+    return 4 if K <= _NIBBLE_MAX_K else 8
 
 
 def _map_words(K: int) -> int:
@@ -257,13 +258,13 @@ def _map_shape(T: int, K: int, N: int) -> tuple:
     return (T, N) if K <= 8 else (T, _map_words(K), N)
 
 
-def _check_lane_shapes(T: int, K: int, N: int, k_range=K_RANGE, **named) -> None:
-    """K is at most ``k_range[1]`` (on every route), every lane-layout
+def _check_lane_shapes(T: int, K: int, N: int, **named) -> None:
+    """K is at most ``K_RANGE[1]`` (on every route), every lane-layout
     operand has the shape its kernel indexes it with (the kernels read
     through raw pointers: a short operand would be read out of bounds),
     and the gate operands come together."""
-    if K > k_range[1]:
-        raise ValueError(f"the kernels take K in {k_range[0]}..{k_range[1]}, got K={K}")
+    if K > K_RANGE[1]:
+        raise ValueError(f"the kernels take K in {K_RANGE[0]}..{K_RANGE[1]}, got K={K}")
     if (named.get("gate") is None) != (named.get("sk") is None):
         raise ValueError("gate and sk must be given together")
     want = {
@@ -278,11 +279,9 @@ def _check_lane_shapes(T: int, K: int, N: int, k_range=K_RANGE, **named) -> None
             )
 
 
-def _check_cuda_operands(K: int, *tensors, k_range=K_RANGE) -> None:
-    if not k_range[0] <= K <= k_range[1]:
-        raise ValueError(
-            f"the CUDA kernels take K in {k_range[0]}..{k_range[1]}, got K={K}"
-        )
+def _check_cuda_operands(K: int, *tensors) -> None:
+    if not K_RANGE[0] <= K <= K_RANGE[1]:
+        raise ValueError(f"the CUDA kernels take K in {K_RANGE[0]}..{K_RANGE[1]}, got K={K}")
     for t in tensors:
         if t is None:
             continue
@@ -577,7 +576,7 @@ def bwd_sample_lanes(A_t, mask_t, alpha_t, u_t, gate_t=None, sk_t=None):
     z = torch.empty((T, N), dtype=torch.int32, device=dev)
     scratch = None
     words = _map_words(K) * (-(-T // 32) * 32)  # a lane's map words
-    if words > _BWD_SMEM_MAX_WORDS:
+    if K <= _NIBBLE_MAX_K and words > _BWD_SMEM_MAX_WORDS:
         scratch = torch.empty((N, words), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         BWD_SAMPLE.launch(
@@ -624,12 +623,12 @@ def filter_lanes(pi_t, A_t, obs_t, mask_t):
     ``FILTER``."""
     dev = _check_same_device(pi_t, A_t, obs_t, mask_t)
     T, K, N = obs_t.shape
-    _check_lane_shapes(T, K, N, DECODE_K_RANGE, pi=pi_t, A=A_t, obs=obs_t, mask=mask_t)
+    _check_lane_shapes(T, K, N, pi=pi_t, A=A_t, obs=obs_t, mask=mask_t)
     if dev.type == "cpu":
         return filter_plain(pi_t, A_t, obs_t, mask_t)
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
-    _check_cuda_operands(K, pi_t, A_t, obs_t, mask_t, k_range=DECODE_K_RANGE)
+    _check_cuda_operands(K, pi_t, A_t, obs_t, mask_t)
     FILTER.load()
     ll = torch.empty((N,), dtype=torch.float32, device=dev)
     alpha = torch.empty((T, K, N), dtype=torch.float32, device=dev)
@@ -647,12 +646,12 @@ def beta_lanes(A_t, obs_t, mask_t):
     ``BETA``."""
     dev = _check_same_device(A_t, obs_t, mask_t)
     T, K, N = obs_t.shape
-    _check_lane_shapes(T, K, N, DECODE_K_RANGE, A=A_t, obs=obs_t, mask=mask_t)
+    _check_lane_shapes(T, K, N, A=A_t, obs=obs_t, mask=mask_t)
     if dev.type == "cpu":
         return beta_plain(A_t, obs_t, mask_t)
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
-    _check_cuda_operands(K, A_t, obs_t, mask_t, k_range=DECODE_K_RANGE)
+    _check_cuda_operands(K, A_t, obs_t, mask_t)
     BETA.load()
     beta = torch.empty((T, K, N), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -670,12 +669,12 @@ def viterbi_lanes(pi_t, A_t, obs_t, mask_t):
     ``VITERBI``."""
     dev = _check_same_device(pi_t, A_t, obs_t, mask_t)
     T, K, N = obs_t.shape
-    _check_lane_shapes(T, K, N, DECODE_K_RANGE, pi=pi_t, A=A_t, obs=obs_t, mask=mask_t)
+    _check_lane_shapes(T, K, N, pi=pi_t, A=A_t, obs=obs_t, mask=mask_t)
     if dev.type == "cpu":
         return viterbi_plain(pi_t, A_t, obs_t, mask_t)
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
-    _check_cuda_operands(K, pi_t, A_t, obs_t, mask_t, k_range=DECODE_K_RANGE)
+    _check_cuda_operands(K, pi_t, A_t, obs_t, mask_t)
     VITERBI.load()
     score = torch.empty((N,), dtype=torch.float32, device=dev)
     dlast = torch.empty((K, N), dtype=torch.float32, device=dev)
@@ -697,14 +696,14 @@ def backtrack_lanes(back_t, dlast):
     if back_t.ndim not in (2, 3) or dlast.ndim != 2:
         raise ValueError("back must be [T, N] or [T, W, N] and dlast [K, N]")
     T, N, K = back_t.shape[0], back_t.shape[-1], dlast.shape[0]
-    _check_lane_shapes(T, K, N, DECODE_K_RANGE, back=back_t, dlast=dlast)
+    _check_lane_shapes(T, K, N, back=back_t, dlast=dlast)
     if back_t.dtype != torch.int32:
         raise TypeError(f"back must be the packed int32 maps, got {back_t.dtype}")
     if dev.type == "cpu":
         return backtrack_plain(back_t, dlast)
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
-    _check_cuda_operands(K, dlast, k_range=DECODE_K_RANGE)
+    _check_cuda_operands(K, dlast)
     if not back_t.is_contiguous():
         raise ValueError("the CUDA kernels take contiguous lane-layout operands")
     BACKTRACK.load()

@@ -1,20 +1,25 @@
-// CPU emulation of the CUDA subset that csrc/tayal_traj.cu,
-// csrc/vg_bwd.cu, csrc/semiring_beta.cu, csrc/semiring_filter.cu and
-// csrc/semiring_viterbi.cu (with their headers) use, so the kernels' own
-// sources run on a host without a card (tests/test_torch_traj_emu.py,
+// CPU emulation of the CUDA subset that the kernel sources of
+// hhmm_tpu_torch/kernels/csrc (with their headers) use, so the kernels'
+// own sources run on a host without a card (tests/test_torch_traj_emu.py,
 // tests/test_torch_backward_emu.py, tests/test_torch_forward_emu.py): one
 // std::thread per CUDA thread, a block at a time; __syncwarp and the
 // shuffles are a std::barrier per warp (the unsigned xor shuffle copies
-// the bits through the warp's float buffer unchanged), dynamic shared
-// memory a per-block buffer, and the <<<...>>> launch is rewritten into a
-// call of Launcher.
+// the bits through the warp's float buffer unchanged), __syncthreads a
+// std::barrier across the block's threads, dynamic shared memory a
+// per-block buffer (the tests rewrite `extern __shared__ T name[];` into
+// a pointer to it), and the <<<...>>> launch is rewritten into a call of
+// Launcher.
 // Static __shared__ arrays become per-thread arrays, which is what they
 // are to a kernel whose threads each use only their own column (the
-// cp.async rings). The tests rewrite a cp.async copy into a plain copy
-// and commit_group / wait_group into nothing: the copy has landed by the
-// time the thread reads it, which is what wait_group guarantees. Host
-// float arithmetic stands in for the card's (no fused multiply-add), so
-// results agree with the card's within rounding, not bitwise.
+// cp.async rings); a kernel that shares data across its threads does so
+// in dynamic shared memory. The tests rewrite a cp.async copy into a
+// plain copy and commit_group / wait_group into nothing: the copy has
+// landed by the time the thread reads it, which is what wait_group
+// guarantees (and a __syncthreads() after it makes it visible to the
+// block, as on the card). Host float arithmetic stands in for the card's
+// (no fused multiply-add), so results agree with the card's within
+// rounding, not bitwise.
+#pragma once
 #include <barrier>
 #include <cmath>
 #include <cstdint>
@@ -34,15 +39,19 @@ using std::min; using std::max;
 #define __align__(x)
 #define __restrict__
 struct uint4 { unsigned x, y, z, w; };
+struct int4 { int x, y, z, w; };
 struct float4 { float x, y, z, w; };
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
+inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a, b, c, d}; }
 struct dim3 { unsigned x = 0, y = 0, z = 0; };
 thread_local dim3 threadIdx, blockIdx;
 thread_local uint8_t* g_smem;
 dim3 blockDim;
 struct WarpCtx { std::barrier<>* bar; float* xbuf; };
 thread_local WarpCtx g_warp;
+thread_local std::barrier<>* g_block;
 inline void __syncwarp() { g_warp.bar->arrive_and_wait(); }
+inline void __syncthreads() { g_block->arrive_and_wait(); }
 inline float __shfl_xor_sync(unsigned, float v, int o) {
   int lane = threadIdx.x & 31;
   g_warp.xbuf[lane] = v;
@@ -73,8 +82,14 @@ inline float __uint_as_float(unsigned u) { float f; std::memcpy(&f, &u, 4); retu
 inline unsigned __float_as_uint(float f) { unsigned u; std::memcpy(&u, &f, 4); return u; }
 typedef void* cudaStream_t;
 typedef int cudaError_t;
-enum { cudaSuccess = 0, cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum { cudaSuccess = 0, cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
+       cudaDevAttrMultiProcessorCount = 16 };
 inline int cudaGetLastError() { return 0; }
+inline int cudaGetDevice(int* d) { *d = 0; return 0; }
+// four SMs: the backtrack, which takes up to 32 lanes a block while that
+// leaves a block an SM, then takes 2 lanes at N = 9, 4 at 17, 8 at 40, 16
+// at 70 and 32 at 128, so small N reach each of its block shapes
+inline int cudaDeviceGetAttribute(int* v, int, int) { *v = 4; return 0; }
 template <class F> int cudaFuncSetAttribute(F, int, int) { return 0; }
 struct Launcher {
   int grid, block; size_t bytes;
@@ -84,6 +99,7 @@ struct Launcher {
       std::vector<uint8_t> sm(bytes + 16);
       int warps = block / 32;
       std::vector<std::unique_ptr<std::barrier<>>> bars;
+      std::barrier<> block_bar(block);
       std::vector<float> xb(32 * warps);
       for (int w = 0; w < warps; ++w) bars.emplace_back(new std::barrier<>(32));
       std::vector<std::thread> th;
@@ -91,6 +107,7 @@ struct Launcher {
         th.emplace_back([&, t] {
           threadIdx.x = t; blockIdx.x = bx; g_smem = sm.data();
           g_warp = {bars[t / 32].get(), xb.data() + 32 * (t / 32)};
+          g_block = &block_bar;
           f(a...);
         });
       for (auto& x : th) x.join();

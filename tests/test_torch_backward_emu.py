@@ -1,94 +1,53 @@
-"""The backward-recursion kernels' CUDA sources (`hhmm_tpu_torch/kernels/
-csrc/vg_bwd.cu` and `semiring_beta.cu`, both on `beta_core.cuh` and
-`lane_group.cuh`), compiled for the host with `g++` over a warp emulation
-(`tests/cuda_warp_emu.h`: a thread per CUDA thread, barriers for the
-shuffles; each `cp.async` rewritten into a plain copy and its commit and
-wait into nothing), against `vg_bwd_plain` / `beta_plain` on the same
-inputs.
+"""The backward kernels' CUDA sources (`hhmm_tpu_torch/kernels/csrc/
+vg_bwd.cu` and `semiring_beta.cu`, on `beta_core.cuh`, `wide_core.cuh`
+and `lane_group.cuh`, and `ffbs_bwd_sample.cu`), compiled for the host
+with `g++` over a warp emulation (`tests/cuda_warp_emu.h`, built by
+`tests/cuda_emu.py`: a thread per CUDA thread, barriers for the shuffles
+and `__syncthreads`, a per-block buffer for dynamic shared memory; each
+`cp.async` rewritten into a plain copy and its commit and wait into
+nothing), against `vg_bwd_plain`, `beta_plain` and `bwd_sample_plain`
+on the same inputs.
 
-This runs the kernels' own schedule — a group of threads a lane, the
-gathers, the ring filled backward in time in chunks, the masked step as a
-select, the Baum-Welch sums in the recursion's threads — at K in {2, 3,
-4, 5, 8, 12, 16} (groups of 2, 4, 8 and 16 threads, idle threads at K =
-3, 5 and 12), and for the guarded beta also at K in {17, 20, 32} (a warp
-a lane), gated and not, with ragged masks and masked runs at both
-ends, T off the ring's chunk and T = 1, on the CPU. The host's `expf` /
-`logf` are not the card's nor torch's, so the tolerances below are
-stated, not bitwise: a T-step recursion in f32 carries a few ulps of its
-largest values (|log beta| up to a few hundred at T = 256: 1e-4
-absolute). On the card, `chip_smoke.py` holds the same sources bitwise to
-the plain versions.
+This runs the kernels' own schedule — a group of threads a lane up to
+K = 32 (the gathers, the ring filled backward in time in chunks, the
+masked step as a select, the Baum-Welch sums in the recursion's
+threads), a block a lane above (A and d_A in shared memory, e exchanged
+there with one barrier a step); and for backward sampling the three
+phases at K <= 16 (every candidate draw packed four bits a state, the
+chase, the copy out; the maps in shared memory or, at T = 2100, in the
+device scratch) and the chunked block-a-lane layout above (byte maps,
+one chunk of them on chip at a time) — at K in {2, 3, 4, 5, 8, 12, 16,
+17, 20, 32, 33, 64}, gated and not, with ragged masks and masked runs
+at both ends, T off the rings' chunks and T = 1, on the CPU. The host's
+`expf` / `logf` are not the card's nor torch's, so the tolerances below
+are stated, not bitwise: a T-step recursion in f32 carries a few ulps of
+its largest values (|log beta| up to a few hundred at T = 256: 1e-4
+absolute); the draws are held identical, on uniforms redrawn until each
+lies at least 1e-4 from an inverse-CDF edge (`tests/test_torch_kernels.py`'s
+helper), so that host and torch exponentials do not decide a draw. On
+the card, `chip_smoke.py` holds the same sources bitwise to the plain
+versions.
 """
-
-import ctypes
-import re
-import shutil
-import subprocess
-from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
+from cuda_emu import build
+from test_torch_kernels import _lane_uniforms_off_edges
 from hhmm_tpu_torch.core.lmath import MASK_NEG
 from hhmm_tpu_torch.kernels import cuda_semiring as cs
-from hhmm_tpu_torch.kernels.cuda_build import CSRC_DIR
 
-HERE = Path(__file__).resolve().parent
-KS = (2, 3, 4, 5, 8, 12, 16)
-BETA_KS = KS + (17, 20, 32)  # the decode kernels take K up to 32
+KS = (2, 3, 4, 5, 8, 12, 16, 17, 20, 32, 33, 64)
 LOG_ATOL = 1e-4  # log beta: a few ulps of |log beta| <= a few hundred
 GRAD_ATOL, GRAD_RTOL = 1e-5, 1e-4  # d_pi / d_obs (probabilities) and d_A (a sum of T terms)
-
-# the three inline-asm statements of lane_group.cuh's cp.async helpers
-_ASM = {
-    "cp.async.ca.shared.global": "*smem = *gmem;",
-    "cp.async.commit_group": ";",
-    "cp.async.wait_group": ";",
-}
-
-
-def _emulated(text: str) -> str:
-    text = text.replace("#include <cuda_runtime.h>", '#include "cuda_warp_emu.h"')
-
-    def asm(m):
-        for key, body in _ASM.items():
-            if key in m.group(0):
-                return body
-        raise AssertionError(f"unknown inline asm: {m.group(0)}")
-
-    return re.sub(r"asm volatile\(.*?\);", asm, text, flags=re.S)
 
 
 @pytest.fixture(scope="module")
 def emu(tmp_path_factory):
-    """Both sources built for the host over the warp emulation, their C
-    entries bound with the wrappers' argument types."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs g++ to build the kernel sources over the warp emulation")
-    work = tmp_path_factory.mktemp("backward_emu")
-    header = _emulated((CSRC_DIR / "lane_group.cuh").read_text())
-    assert header.count("*smem = *gmem;") == 1 and "asm" not in header
-    (work / "lane_group.cuh").write_text(header)
-    core, n = re.subn(r"(beta_kernel<[^>]*>)<<<(.*?), (.*?), (.*?), stream>>>\(",
-                      r"Launcher{\2, \3, (size_t)(\4)}(\1, ", (CSRC_DIR / "beta_core.cuh").read_text())
-    assert n == 1, "the launch of the kernel is rewritten"
-    (work / "beta_core.cuh").write_text(core)
-    fns = {}
-    for kernel in (cs.VG_BWD, cs.BETA):
-        src = work / f"{kernel.source.stem}.cpp"
-        src.write_text(kernel.source.read_text())
-        lib = work / f"lib{kernel.name}_emu.so"
-        out = subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
-                              "-pthread", f"-I{HERE}", f"-I{work}", "-o", str(lib), str(src)],
-                             capture_output=True, text=True, timeout=600)
-        assert out.returncode == 0, out.stderr
-        fn = getattr(ctypes.CDLL(str(lib)), kernel.symbol)
-        fn.argtypes = kernel.argtypes
-        fn.restype = ctypes.c_int
-        fns[kernel.name] = fn
-    return fns
+    """The three sources built for the host over the warp emulation, their
+    C entries bound with the wrappers' argument types."""
+    return build((cs.VG_BWD, cs.BETA, cs.BWD_SAMPLE), tmp_path_factory.mktemp("backward_emu"))
 
 
 def _lanes(seed, N, T, K, *, gated=False, decode=False):
@@ -141,12 +100,17 @@ def _run_beta(fn, A_t, obs_t, mask_t):
 
 
 SHAPES = [(5, 75), (8, 256), (3, 1)]  # (N, T): T off the 8-step chunk, T = 256, T = 1
+WIDE_SHAPES = [(3, 75), (2, 1)]  # a block a lane: fewer lanes
+
+
+def _shapes(K):
+    return SHAPES if K <= 32 else WIDE_SHAPES
 
 
 @pytest.mark.parametrize("gated", [False, True])
 @pytest.mark.parametrize("K", KS)
 def test_vg_bwd_source_matches_plain(emu, K, gated):
-    for N, T in SHAPES:
+    for N, T in _shapes(K):
         pi_t, A_t, obs_t, mask_t, gate_t, sk_t = _lanes(10 * K + gated + T, N, T, K, gated=gated)
         ll, alpha = cs.fwd_plain(pi_t, A_t, obs_t, mask_t, gate_t, sk_t)
         got = _run_vg(emu["vg_bwd"], A_t, obs_t, mask_t, alpha, ll, gate_t, sk_t)
@@ -157,9 +121,9 @@ def test_vg_bwd_source_matches_plain(emu, K, gated):
 
 
 @pytest.mark.parametrize("decode", [False, True])
-@pytest.mark.parametrize("K", BETA_KS)
+@pytest.mark.parametrize("K", KS)
 def test_beta_source_matches_plain(emu, K, decode):
-    for N, T in SHAPES:
+    for N, T in _shapes(K):
         _, A_t, obs_t, mask_t, _, _ = _lanes(20 * K + decode + T, N, T, K, decode=decode)
         got = _run_beta(emu["semiring_beta"], A_t, obs_t, mask_t).numpy()
         want = cs.beta_plain(A_t, obs_t, mask_t).numpy()
@@ -170,23 +134,63 @@ def test_beta_source_matches_plain(emu, K, decode):
                                    err_msg=f"N={N} T={T}")
 
 
+def _run_bwd_sample(fn, A_t, mask_t, alpha_t, u_t, gate_t, sk_t):
+    T, K, N = alpha_t.shape
+    z = torch.full((T, N), -1, dtype=torch.int32)
+    words = cs._map_words(K) * (-(-T // 32) * 32)
+    scratch = (torch.zeros((N, words), dtype=torch.int32)
+               if K <= 16 and words > cs._BWD_SMEM_MAX_WORDS else None)
+    rc = fn(K, int(gate_t is not None), *map(_ptr, (A_t, mask_t, alpha_t, u_t, gate_t, sk_t, z,
+                                                    scratch)), T, N, None)
+    assert rc == 0
+    return z
+
+
+BWD_SAMPLE_CASES = [(3, (5, 75)), (3, (2, 2100)), (16, (5, 75)), (16, (2, 1100)),
+                    (20, (5, 75)), (33, (3, 75)), (64, (2, 40))]
+
+
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("K,shape", BWD_SAMPLE_CASES)
+def test_bwd_sample_source_matches_plain(emu, K, shape, gated):
+    """``BWD_SAMPLE``, four-bit maps in shared memory or (T = 2100 at K =
+    3, T = 1100 at K = 16) in the device scratch, byte maps a chunk at a
+    time above 16; every draw identical, at T off the chunks and at T =
+    1, with masked runs at both ends; the clamped A (as ``semiring_ffbs``
+    hands it over) with a fifth of its entries at ``MASK_NEG``, and two
+    lanes with an all -inf evidence row (zero-width buckets)."""
+    N, T = shape
+    for n_lanes, steps in ((N, T), (2, 1)):
+        pi_t, A_t, obs_t, mask_t, gate_t, sk_t = _lanes(60 * K + gated + steps, n_lanes, steps,
+                                                        K, gated=gated, decode=True)
+        A_t = A_t.clamp_min(-1e30)
+        _, alpha = cs.fwd_plain(pi_t, A_t, obs_t, mask_t, gate_t, sk_t)
+        u_t = _lane_uniforms_off_edges(np.random.default_rng(K + steps), A_t, mask_t, alpha,
+                                       gate_t, sk_t)
+        got = _run_bwd_sample(emu["ffbs_bwd_sample"], A_t, mask_t, alpha, u_t, gate_t, sk_t)
+        want = cs.bwd_sample_plain(A_t, mask_t, alpha, u_t, gate_t, sk_t)
+        assert torch.equal(got, want), f"K={K} N={n_lanes} T={steps}"
+
+
 def test_sources_repeat_bitwise(emu):
     """Two launches on the same inputs give the same bits: every sum has a
     fixed order (no atomics)."""
-    pi_t, A_t, obs_t, mask_t, gate_t, sk_t = _lanes(7, 6, 90, 5, gated=True)
-    ll, alpha = cs.fwd_plain(pi_t, A_t, obs_t, mask_t, gate_t, sk_t)
-    a = _run_vg(emu["vg_bwd"], A_t, obs_t, mask_t, alpha, ll, gate_t, sk_t)
-    b = _run_vg(emu["vg_bwd"], A_t, obs_t, mask_t, alpha, ll, gate_t, sk_t)
-    assert all(torch.equal(u, v) for u, v in zip(a, b))
-    assert torch.equal(_run_beta(emu["semiring_beta"], A_t, obs_t, mask_t),
-                       _run_beta(emu["semiring_beta"], A_t, obs_t, mask_t))
+    for K in (5, 40):
+        pi_t, A_t, obs_t, mask_t, gate_t, sk_t = _lanes(7, 6, 90, K, gated=True)
+        ll, alpha = cs.fwd_plain(pi_t, A_t, obs_t, mask_t, gate_t, sk_t)
+        a = _run_vg(emu["vg_bwd"], A_t, obs_t, mask_t, alpha, ll, gate_t, sk_t)
+        b = _run_vg(emu["vg_bwd"], A_t, obs_t, mask_t, alpha, ll, gate_t, sk_t)
+        assert all(torch.equal(u, v) for u, v in zip(a, b))
+        assert torch.equal(_run_beta(emu["semiring_beta"], A_t, obs_t, mask_t),
+                           _run_beta(emu["semiring_beta"], A_t, obs_t, mask_t))
 
 
 def test_sources_refuse_k_outside_the_range(emu):
     pi_t, A_t, obs_t, mask_t, _, _ = _lanes(3, 2, 4, 2)
-    for K in (1, 33):
-        assert emu["semiring_beta"](K, *map(_ptr, (A_t, obs_t, mask_t, obs_t)), 4, 2, None) == -1
     out = torch.zeros(64)
-    for K in (1, 17):
+    for K in (1, 129):
+        assert emu["semiring_beta"](K, *map(_ptr, (A_t, obs_t, mask_t, obs_t)), 4, 2, None) == -1
         assert emu["vg_bwd"](K, 0, *map(_ptr, (A_t, obs_t, mask_t, obs_t, out, None, None)),
                              *map(_ptr, (out, out, out)), 4, 2, None) == -1
+        assert emu["ffbs_bwd_sample"](K, 0, *map(_ptr, (A_t, mask_t, obs_t, out, None, None, out,
+                                                        None)), 4, 2, None) == -1

@@ -27,17 +27,19 @@ JAX package on the same numpy inputs.
   ``kernels/viterbi.py::viterbi``, the numpy first-argmax maps and, in
   float64, ``tests/oracle.py``; ``GaussianHMM(K).generated`` against the
   JAX ``generated`` and ``state_draws`` against the JAX FFBS reference on
-  the same uniforms, at K in {5, 9, 12, 16}; the FFBS entries raise for
-  K above 16 and the decode entries above 32, on the CPU route and on
-  the card, K = 1 on the card only;
-- K from 17 to 32 (byte-wide map fields, up to eight words a step): the
-  plain versions against the JAX pallas branch, the numpy maps and the
-  float64 oracle; the decode dispatch's plain versions against the
-  port's scans; ``GaussianHMM(K).generated`` at K in {17, 20} against
-  the JAX ``generated`` on its pallas and seq routes (zstar identical,
-  loglik within rtol 1e-5, probabilities within 7e-5 and no farther from
-  the float64 oracle than the JAX package's); ``state_draws`` still
-  raises there;
+  the same uniforms, at K in {5, 9, 12, 16}; every entry raises for K
+  above 128, on the CPU route and on the card, K = 1 on the card only;
+- K from 17 to 128 (byte-wide map fields, up to 32 words a step; on the
+  card a block a lane above 32): the plain versions against the JAX
+  pallas branch (K 20 and 32 here, the rest in
+  ``tests/test_torch_wide_k.py``), the numpy maps and the float64
+  oracle; the decode dispatch's plain versions against the port's
+  scans; ``GaussianHMM(K).generated`` at K in {17, 20} here (24 to 128
+  in ``test_torch_wide_k.py``) against the JAX ``generated`` on its
+  pallas and seq routes (zstar identical, loglik within rtol 1e-5,
+  probabilities within 7e-5, 5e-4 from K = 33, and no farther from the
+  float64 oracle than the JAX package's, from K = 24 within 1.5 times
+  its distance); T <= 32 and two series from K = 33 on;
 - ``smooth_dispatch`` on one lane-layout copy: bitwise the two entries
   called apart;
 - routing: the CPU runs the plain versions, a time-varying ``log_A``
@@ -83,6 +85,17 @@ WIDE_PROB_ATOL, WIDE_ORACLE_SLACK = 3e-5, 1e-6
 # packages are held within twice that plus a margin, and the port again
 # no farther from the oracle than the JAX one
 WIDEST_PROB_ATOL = 7e-5
+# K >= 33: at T = 30 either package's gamma is up to 2.5e-4 off the
+# float64 oracle (K = 128; 2.1e-4 at K = 64), and the two packages differ
+# by up to 2.4e-4 (K = 64): the limit is twice that, with the oracle
+# check as above
+WIDER_PROB_ATOL = 5e-4
+# K >= 24 (the cases of the K = 128 range): the port's largest error off
+# the oracle within 1.5 times the JAX package's, plus WIDE_ORACLE_SLACK.
+# Each sums its exponentials in another order, so which is the closer is
+# a matter of rounding: over three seeds at K in {17, 20, 24, 33, 64, 128}
+# and both routes the ratio reached 1.27 (K = 17), 1.12 from K = 24 on
+WIDER_ORACLE_RATIO = 1.5
 LL_RTOL = 1e-5
 
 
@@ -397,10 +410,23 @@ def test_state_draws_stan_gate_uses_the_gate_keys(rng):
 # ---------------------------------------------------------------------------
 
 
+def _series(K):
+    """Series a case takes: two from K = 33 on (a block a lane on the
+    card), to keep the plain versions' Python loops short."""
+    return 3 if K <= 32 else 2
+
+
 @pytest.mark.parametrize("K", [5, 9, 12, 16, 20, 32])
 @pytest.mark.parametrize("case", ["sparse", "ties"])
 def test_wide_k_plain_versions_match_jax(rng, K, case):
-    args = _case(rng, 3, 24, K, neg_inf=case == "sparse", **{case: True})
+    check_plain_versions_match_jax(rng, K, case)
+
+
+def check_plain_versions_match_jax(rng, K, case):
+    """The filter, beta and Viterbi plain versions (and the decode
+    dispatch's Viterbi) against the JAX pallas branch in interpret mode,
+    on sparse A with -inf evidence rows or on exact ties."""
+    args = _case(rng, _series(K), 24, K, neg_inf=case == "sparse", **{case: True})
     la, ll = cs.semiring_filter(*_t(args))
     jla, jll = _jax_pallas(jd.forward_filter_dispatch, *args)
     _assert_logs_close(la.numpy(), jla)
@@ -416,13 +442,14 @@ def test_wide_k_plain_versions_match_jax(rng, K, case):
     np.testing.assert_array_equal(dscore.numpy(), np.asarray(jscore))
 
 
-@pytest.mark.parametrize("K", [*range(9, 18), 20, 24, 25, 32])
+@pytest.mark.parametrize("K", [*range(9, 18), 20, 24, 25, 32, 33, 64, 128])
 def test_wide_k_viterbi_plain_matches_jax_and_oracle(rng, K):
-    args = _case(rng, 4, 40, K, sparse=True)
+    B, T = (4, 40) if K <= 32 else (2, 32)
+    args = _case(rng, B, T, K, sparse=True)
     pi_t, A_t, obs_t, mask_t, _, _ = cs.to_lanes(*_t(args))
     score, dlast, back = cs.viterbi_plain(pi_t, A_t, obs_t, mask_t)
     words = 2 if K <= 16 else -(-K // 4)  # nibbles up to K = 16, bytes above
-    assert back.shape == (40, words, 4) and back.dtype == torch.int32
+    assert back.shape == (T, words, B) and back.dtype == torch.int32
     np.testing.assert_array_equal(cs.unpack_back(back, K).permute(2, 0, 1).numpy(),
                                   _np_maps(*args))
     path = cs.backtrack_plain(back, dlast).t()
@@ -456,15 +483,17 @@ def _check_generated_gaussian_k(rng, K, route):
     """``GaussianHMM(K).generated`` against the JAX ``generated`` on
     ``route``: zstar identical, loglik and logp_zstar within ``LL_RTOL``,
     probabilities within ``PROB_ATOL`` (``WIDE_PROB_ATOL`` from K = 9,
-    ``WIDEST_PROB_ATOL`` above 16) and no farther from the float64
-    oracle than the JAX package's."""
+    ``WIDEST_PROB_ATOL`` above 16, ``WIDER_PROB_ATOL`` from 33) and no
+    farther from the float64 oracle than the JAX package's (from K = 24
+    within ``WIDER_ORACLE_RATIO`` times its distance)."""
     B, D, T = 2, 2, 30
     x = _gaussian_k_data(rng, K, B, T)
     model = GaussianHMM(K=K)
     theta = _theta(rng, model, (B, D))
     out = model.generated(torch.from_numpy(theta), {"x": torch.from_numpy(x)}, device="cpu")
     jm = JGaussianHMM(K=K)
-    atol = PROB_ATOL if K <= 8 else (WIDE_PROB_ATOL if K <= 16 else WIDEST_PROB_ATOL)
+    atol = (PROB_ATOL if K <= 8 else WIDE_PROB_ATOL if K <= 16
+            else WIDEST_PROB_ATOL if K <= 32 else WIDER_PROB_ATOL)
     for b in range(B):
         ref = jm.generated(jnp.asarray(theta[b]), {"x": jnp.asarray(x[b])}, time_parallel=route)
         got = {k: v[b].numpy() for k, v in out.items()}
@@ -479,7 +508,8 @@ def _check_generated_gaussian_k(rng, K, route):
                 np.testing.assert_allclose(got[k][d], want[k][d], atol=atol, err_msg=k)
                 port_err = np.abs(got[k][d] - truth[k]).max()
                 jax_err = np.abs(want[k][d] - truth[k]).max()
-                assert port_err <= jax_err + WIDE_ORACLE_SLACK, (k, port_err, jax_err)
+                ratio = 1.0 if K <= 20 else WIDER_ORACLE_RATIO
+                assert port_err <= ratio * jax_err + WIDE_ORACLE_SLACK, (k, port_err, jax_err)
 
 
 @pytest.mark.parametrize("K", [5, 9, 12, 16])
@@ -489,10 +519,14 @@ def test_generated_gaussian_k_matches_jax(rng, K):
 
 @pytest.mark.parametrize("K", [5, 9, 12, 16])
 def test_state_draws_gaussian_k_match_jax_ffbs(rng, K):
+    check_state_draws_gaussian_k(rng, K)
+
+
+def check_state_draws_gaussian_k(rng, K):
     """``state_draws`` draws its uniforms from the generator, then runs
     the FFBS plain versions; the JAX FFBS reference on the JAX model's
     terms and the same uniforms draws the same paths."""
-    B, T = 3, 30
+    B, T = _series(K), 30
     x = _gaussian_k_data(rng, K, B, T)
     model = GaussianHMM(K=K)
     theta = _theta(rng, model, (B,))
@@ -509,29 +543,27 @@ def test_state_draws_gaussian_k_match_jax_ffbs(rng, K):
 
 
 def test_k_above_16_raises_on_every_route(rng):
-    """The FFBS entries (and their plain versions, on the CPU) take K up
-    to 16 on every route (four-bit sample maps), the decode entries K up
-    to 32 (a warp a lane)."""
-    ffbs = _t(_case(rng, 2, 6, 17))
-    u = torch.rand(2, 6)
-    for run in (lambda: cs.semiring_ffbs(*ffbs, u), lambda: cs.fwd_lanes(*cs.to_lanes(*ffbs))):
-        with pytest.raises(ValueError, match="K in 2..16"):
-            run()
-    model = GaussianHMM(K=17)
+    """Above K = 16 (and 32) every entry now answers: it is above 128 that
+    the FFBS, value-and-grad and decode entries, their plain versions and
+    the models' ``generated`` / ``state_draws`` raise, on the CPU route
+    here and, for float32 operands on a CUDA device, before any launch."""
+    args = _t(_case(rng, 1, 4, 129))
+    u = torch.rand(1, 4)
+    runs = [lambda a: cs.semiring_ffbs(*a, u), lambda a: cs.fwd_lanes(*cs.to_lanes(*a)),
+            lambda a: cs.semiring_vg(*a), lambda a: cs.semiring_viterbi(*a),
+            lambda a: td.viterbi_dispatch(*a), lambda a: cs.semiring_filter(*a),
+            lambda a: cs.semiring_beta(*a[1:]), lambda a: td.smooth_dispatch(*a),
+            lambda a: cs.filter_lanes(*cs.to_lanes(*a)[:4])]
+    for a in (args, _cudalike(args)):
+        for run in runs:
+            with pytest.raises(ValueError, match="K in 2..128"):
+                run(a)
+    model = GaussianHMM(K=129)
     theta = torch.from_numpy(_theta(rng, model, (1,)))
-    with pytest.raises(ValueError, match="K in 2..16"):
-        model.state_draws(torch.Generator(), theta, {"x": torch.zeros(6)}, device="cpu")
-    args = _t(_case(rng, 2, 6, 33))
-    for run in (lambda: cs.semiring_viterbi(*args), lambda: td.viterbi_dispatch(*args),
-                lambda: cs.semiring_filter(*args), lambda: cs.semiring_beta(*args[1:]),
-                lambda: td.smooth_dispatch(*args),
-                lambda: cs.filter_lanes(*cs.to_lanes(*args)[:4])):
-        with pytest.raises(ValueError, match="K in 2..32"):
-            run()
-    model = GaussianHMM(K=33)
-    theta = torch.from_numpy(_theta(rng, model, (1,)))
-    with pytest.raises(ValueError, match="K in 2..32"):
-        model.generated(theta, {"x": torch.zeros(6)}, device="cpu")
+    with pytest.raises(ValueError, match="K in 2..128"):
+        model.state_draws(torch.Generator(), theta, {"x": torch.zeros(4)}, device="cpu")
+    with pytest.raises(ValueError, match="K in 2..128"):
+        model.generated(theta, {"x": torch.zeros(4)}, device="cpu")
 
 
 @pytest.mark.parametrize("K", [17, 20])
@@ -540,13 +572,13 @@ def test_generated_gaussian_k_above_16_matches_jax(rng, K, route):
     _check_generated_gaussian_k(rng, K, route)
 
 
-@pytest.mark.parametrize("K", [17, 32])
+@pytest.mark.parametrize("K", [17, 32, 64])
 def test_dispatch_above_16_plain_versions_match_the_scans(rng, record_plain, K):
     """Above K = 16 the decode dispatch still takes the kernels' route
     (their plain versions here): the Viterbi path and score equal the
     port's scan, the log-probabilities agree within ``RTOL`` and
     ``ATOL``, with -inf at the same places."""
-    args = _t(_case(rng, 3, 24, K, neg_inf=True, sparse=True))
+    args = _t(_case(rng, _series(K), 24, K, neg_inf=True, sparse=True))
     for got, want in zip(td.viterbi_dispatch(*args), t_viterbi(*args)):
         assert torch.equal(got, want)
     for got, want in zip(td.smooth_dispatch(*args), tf.forward_backward(*args)):
@@ -576,7 +608,7 @@ def test_k_1_runs_on_the_cpu_and_raises_on_the_card():
     path, score = cs.semiring_viterbi(z(2, 1), z(2, 1, 1), z(2, 5, 1), torch.ones(2, 5))
     assert int(path.abs().sum()) == 0 and score.tolist() == [0.0, 0.0]
     lanes = _cudalike([np.zeros(s) for s in ((1, 2), (1, 1, 2), (5, 1, 2), (5, 2))])
-    with pytest.raises(ValueError, match="K in 2..32"):
+    with pytest.raises(ValueError, match="K in 2..128"):
         cs.viterbi_lanes(*lanes)
 
 
@@ -675,8 +707,8 @@ def test_cuda_wrappers_check_k_and_layout():
     K, N, T = 5, 3, 4
     shapes = ((K, N), (K, K, N), (T, K, N), (T, N))
     lanes = _cudalike([np.zeros(s) for s in shapes])
-    wide = _cudalike([np.zeros(s) for s in ((33, N), (33, 33, N), (T, 33, N), (T, N))])
-    with pytest.raises(ValueError, match="K in 2..32"):
+    wide = _cudalike([np.zeros(s) for s in ((129, N), (129, 129, N), (T, 129, N), (T, N))])
+    with pytest.raises(ValueError, match="K in 2..128"):
         cs.filter_lanes(*wide)
     with pytest.raises(TypeError, match="int32"):
         cs.backtrack_lanes(torch.zeros(T, N).as_subclass(_CudaLike), lanes[0])
@@ -697,7 +729,7 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("K", [2, 3, 4, 5, 8, 9, 12, 16])
+@pytest.mark.parametrize("K", [2, 3, 4, 5, 8, 9, 12, 16, 20, 33, 64])
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_cuda_decode_kernels_match_plain(rng, cuda_device, K, case):
     args = [a.to(cuda_device) for a in _t(_case(rng, 300, 130, K, **CASES[case]))]

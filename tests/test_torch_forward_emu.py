@@ -1,70 +1,53 @@
 """The forward kernels' CUDA sources (`hhmm_tpu_torch/kernels/csrc/
-ffbs_fwd.cu`, `semiring_filter.cu` and `semiring_viterbi.cu`, all on
-`fwd_core.cuh` and `lane_group.cuh`), compiled for the host with `g++`
-over a warp emulation (`tests/cuda_warp_emu.h`: a thread per CUDA
-thread, barriers for the shuffles; each `cp.async` rewritten into a plain
-copy and its commit and wait into nothing), against `fwd_plain`,
-`filter_plain`, `viterbi_plain` and `backtrack_plain` on the same inputs.
+ffbs_fwd.cu`, `semiring_filter.cu` and `semiring_viterbi.cu`, on
+`fwd_core.cuh`, `wide_core.cuh` and `lane_group.cuh`), compiled for the
+host with `g++` over a warp emulation (`tests/cuda_warp_emu.h`, built by
+`tests/cuda_emu.py`: a thread per CUDA thread, barriers for the shuffles
+and `__syncthreads`, a per-block buffer for dynamic shared memory; each
+`cp.async` rewritten into a plain copy and its commit and wait into
+nothing), against `fwd_plain`, `filter_plain`, `viterbi_plain` and
+`backtrack_plain` on the same inputs.
 
-This runs the kernels' own schedule — a group of threads a lane, the
-gathers, the ring filled in chunks with a checked partial chunk, the
-masked step as a select, the map words ORed across the group — at K in
-{2, 3, 4, 5, 8, 12, 16} (groups of 2, 4, 8 and 16 threads, idle threads
-at K = 3, 5 and 12, two map words a step above 8) and, for the decode's
-two, at K in {17, 20, 32} (a warp a lane, byte-wide map fields, five to
-eight words a step), with masked runs at both ends of every lane, T off
-the ring's chunk and T = 1, all -inf evidence rows and
+This runs the kernels' own schedule — a group of threads a lane up to
+K = 32 (the gathers, the ring filled in chunks with a checked partial
+chunk, the masked step as a select, the map words ORed across the
+group), a block a lane above (A in shared memory, the step's vector
+exchanged there with one barrier a step, byte fields ORed across four
+threads), and the backtrack's ring of map chunks in shared memory, its
+chase (registers at K <= 16, a byte load above) and the coalesced copy
+out, on 1 to 32 lanes a block — at K in {2, 3, 4, 5, 8, 12, 16,
+17, 20, 32, 33, 64}, with masked runs at both ends of every lane, T off
+the rings' chunks and T = 1, all -inf evidence rows and
 ``MASK_NEG``-sparse A, lanes whose max-plus scores tie exactly, and the
-clamped filter gated and not. Max-plus is exact on the host too, so the maps, dlast, the
-scores and the paths are held identical. The host's `expf` / `logf` are
-not the card's nor torch's, so the filter is held within a stated
-tolerance: a T-step recursion in f32 carries a few ulps of its largest
-values (|log alpha| up to a few hundred at T = 256: 1e-4 absolute). On
-the card, `chip_smoke.py` holds the same sources bitwise to the plain
-versions.
+clamped filter gated and not. Max-plus is exact on the host too, so the
+maps, dlast, the scores and the paths are held identical. The host's
+`expf` / `logf` are not the card's nor torch's, so the filter is held
+within a stated tolerance: a T-step recursion in f32 carries a few ulps
+of its largest values (|log alpha| up to a few hundred at T = 256: 1e-4
+absolute). On the card, `chip_smoke.py` holds the same sources bitwise
+to the plain versions.
 """
-
-import ctypes
-import re
-import shutil
-import subprocess
-from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
+from cuda_emu import build
 from hhmm_tpu_torch.core.lmath import MASK_NEG
 from hhmm_tpu_torch.kernels import cuda_semiring as cs
-from hhmm_tpu_torch.kernels.cuda_build import CSRC_DIR
 
-HERE = Path(__file__).resolve().parent
-KS = (2, 3, 4, 5, 8, 12, 16)
-DECODE_KS = KS + (17, 20, 32)  # FILTER and VITERBI take K up to 32, FWD up to 16
+# a group of 2, 4, 8, 16 and 32 threads a lane (idle threads at K = 3, 5,
+# 12, 17 and 20; two nibble words a step above 8, byte fields above 16),
+# then a block a lane (two warps, idle threads at K = 33)
+KS = (2, 3, 4, 5, 8, 12, 16, 17, 20, 32, 33, 64)
 LOG_ATOL = 1e-4  # log alpha: a few ulps of |log alpha| <= a few hundred
 # (N, T): T off the 8-step chunk, T - 1 one full chunk, T = 256, T = 1
 SHAPES = [(5, 75), (4, 9), (8, 256), (3, 1)]
-
-# the three inline-asm statements of lane_group.cuh's cp.async helpers
-_ASM = {
-    "cp.async.ca.shared.global": "*smem = *gmem;",
-    "cp.async.commit_group": ";",
-    "cp.async.wait_group": ";",
-}
-_LAUNCH = re.compile(r"(\w+_kernel<[^>]*>)<<<(.*?), (.*?), (.*?), stream>>>\(", re.S)
+WIDE_SHAPES = [(3, 75), (2, 9), (2, 1)]  # a block a lane: fewer lanes
 
 
-def _emulated(text: str) -> str:
-    text = text.replace("#include <cuda_runtime.h>", '#include "cuda_warp_emu.h"')
-
-    def asm(m):
-        for key, body in _ASM.items():
-            if key in m.group(0):
-                return body
-        raise AssertionError(f"unknown inline asm: {m.group(0)}")
-
-    text = re.sub(r"asm volatile\(.*?\);", asm, text, flags=re.S)
-    return _LAUNCH.sub(r"Launcher{\2, \3, (size_t)(\4)}(\1, ", text)
+def _shapes(K):
+    return SHAPES if K <= 32 else WIDE_SHAPES
 
 
 @pytest.fixture(scope="module")
@@ -72,39 +55,8 @@ def emu(tmp_path_factory):
     """The three sources built for the host over the warp emulation (the
     ``g++`` runs at once), their C entries bound with the wrappers'
     argument types."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs g++ to build the kernel sources over the warp emulation")
-    work = tmp_path_factory.mktemp("forward_emu")
-    header = _emulated((CSRC_DIR / "lane_group.cuh").read_text())
-    assert header.count("*smem = *gmem;") == 1 and "asm" not in header
-    (work / "lane_group.cuh").write_text(header)
-    core = _emulated((CSRC_DIR / "fwd_core.cuh").read_text())
-    assert core.count("Launcher{") == 1, "the launch of the kernel is rewritten"
-    (work / "fwd_core.cuh").write_text(core)
-    procs = {}
-    for source in (cs.FWD.source, cs.FILTER.source, cs.VITERBI.source):
-        text = _emulated(source.read_text())
-        assert "<<<" not in text
-        src = work / f"{source.stem}.cpp"
-        src.write_text(text)
-        lib = work / f"lib{source.stem}_emu.so"
-        procs[source] = lib, subprocess.Popen(
-            [gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-shared", "-fPIC", "-pthread",
-             f"-I{HERE}", f"-I{work}", "-o", str(lib), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    libs = {}
-    for source, (lib, proc) in procs.items():
-        _, err = proc.communicate(timeout=600)
-        assert proc.returncode == 0, err
-        libs[source] = ctypes.CDLL(str(lib))
-    fns = {}
-    for kernel in (cs.FWD, cs.FILTER, cs.VITERBI, cs.BACKTRACK):
-        fn = getattr(libs[kernel.source], kernel.symbol)
-        fn.argtypes = kernel.argtypes
-        fn.restype = ctypes.c_int
-        fns[kernel.name] = fn
-    return fns
+    return build((cs.FWD, cs.FILTER, cs.VITERBI, cs.BACKTRACK),
+                 tmp_path_factory.mktemp("forward_emu"))
 
 
 def _lanes(seed, N, T, K, *, decode=False, ties=False, gated=False):
@@ -189,8 +141,8 @@ def _assert_logs_close(got, want, what):
 @pytest.mark.parametrize("gated", [False, True])
 @pytest.mark.parametrize("K", KS)
 def test_fwd_source_matches_plain(emu, K, gated):
-    """``FWD``, the clamped mode of the same core, gated and not."""
-    for N, T in SHAPES:
+    """``FWD``, the clamped mode of the same cores, gated and not."""
+    for N, T in _shapes(K):
         lanes = _lanes(50 * K + gated + T, N, T, K, gated=True)
         if not gated:
             lanes = lanes[:4] + (None, None)
@@ -201,9 +153,9 @@ def test_fwd_source_matches_plain(emu, K, gated):
 
 
 @pytest.mark.parametrize("decode", [False, True])
-@pytest.mark.parametrize("K", DECODE_KS)
+@pytest.mark.parametrize("K", KS)
 def test_filter_source_matches_plain(emu, K, decode):
-    for N, T in SHAPES:
+    for N, T in _shapes(K):
         lanes = _lanes(30 * K + decode + T, N, T, K, decode=decode)
         ll, alpha = _run_filter(emu["semiring_filter"], *lanes)
         ll_p, alpha_p = cs.filter_plain(*lanes)
@@ -216,9 +168,9 @@ def test_filter_source_matches_plain(emu, K, decode):
 
 
 @pytest.mark.parametrize("case", ["plain", "decode", "ties"])
-@pytest.mark.parametrize("K", DECODE_KS)
+@pytest.mark.parametrize("K", KS)
 def test_viterbi_source_matches_plain(emu, K, case):
-    for N, T in SHAPES:
+    for N, T in _shapes(K):
         lanes = _lanes(40 * K + len(case) + T, N, T, K, decode=case == "decode",
                        ties=case == "ties")
         score, dlast, back, path = _run_viterbi(emu, *lanes)
@@ -230,7 +182,37 @@ def test_viterbi_source_matches_plain(emu, K, case):
         assert torch.equal(path, cs.backtrack_plain(back_p, dlast_p)), what
 
 
-@pytest.mark.parametrize("K", [12, 20])
+def _random_maps(rng, T, K, N):
+    """Packed maps of uniform random pointers, identity maps on a masked
+    run at each lane's end, and a ``dlast`` with exact ties."""
+    ptr = torch.as_tensor(rng.integers(0, K, size=(T, K, N)))
+    for n in range(N):
+        ptr[rng.integers(T // 2, T + 1):, :, n] = torch.arange(K)
+    back = torch.stack([cs._pack(ptr[t]) for t in range(T)]).view(cs._map_shape(T, K, N))
+    dlast = torch.as_tensor(np.round(rng.normal(size=(K, N))), dtype=torch.float32)
+    return back.contiguous(), dlast
+
+
+@pytest.mark.parametrize("K", [3, 8, 9, 16, 20, 33, 64, 128])
+def test_backtrack_source_matches_plain(emu, K):
+    """``BACKTRACK`` alone on random maps: nibble words in registers (one
+    word a step up to K = 8, two up to 16), byte loads above; 1 to 32
+    lanes a block (N = 1, 9, 17, 40, 70, 128, 130 over the emulation's
+    four SMs; 8 at K = 128 from N = 128, where 32 would pass the ring's
+    100 KB; 16-byte copies and stores at N = 40 and 128),
+    T off the 32- and 64-step chunks, one chunk and one step past it, and
+    T = 1 and 2."""
+    rng = np.random.default_rng(K)
+    for N in (1, 9, 17, 40, 70, 128, 130):
+        for T in (1, 2, 33, 65, 70):
+            back, dlast = _random_maps(rng, T, K, N)
+            path = torch.full((T, N), -1, dtype=torch.int32)
+            rc = emu["viterbi_backtrack"](K, *map(_ptr, (back, dlast, path)), T, N, None)
+            assert rc == 0
+            assert torch.equal(path, cs.backtrack_plain(back, dlast)), f"K={K} N={N} T={T}"
+
+
+@pytest.mark.parametrize("K", [12, 20, 40])
 def test_full_ties_take_the_lowest_index(emu, K):
     """Uniform pi and A and one emission for every state at a step: every
     score of every step ties, so each map points every state at state 0
@@ -250,10 +232,11 @@ def test_full_ties_take_the_lowest_index(emu, K):
     assert int(path[-1].abs().sum()) == 0
 
 
-def test_sources_repeat_bitwise(emu):
+@pytest.mark.parametrize("K", [5, 40])
+def test_sources_repeat_bitwise(emu, K):
     """Two launches on the same inputs give the same bits: every sum has a
     fixed order and every map word a fixed OR (no atomics)."""
-    lanes = _lanes(7, 6, 90, 5, decode=True)
+    lanes = _lanes(7, 6, 90, K, decode=True)
     a, b = _run_filter(emu["semiring_filter"], *lanes), _run_filter(emu["semiring_filter"], *lanes)
     assert all(torch.equal(u, v) for u, v in zip(a, b))
     a, b = _run_viterbi(emu, *lanes), _run_viterbi(emu, *lanes)
@@ -263,12 +246,11 @@ def test_sources_repeat_bitwise(emu):
 def test_sources_refuse_k_outside_the_range(emu):
     pi_t, A_t, obs_t, mask_t = _lanes(3, 2, 4, 2)
     out = torch.zeros(64)
-    for K in (1, 33):
+    for K in (1, 129):
         assert emu["semiring_filter"](K, *map(_ptr, (pi_t, A_t, obs_t, mask_t, out, out)),
                                       4, 2, None) == -1
         assert emu["viterbi_fwd"](K, *map(_ptr, (pi_t, A_t, obs_t, mask_t, out, out, out)),
                                   4, 2, None) == -1
         assert emu["viterbi_backtrack"](K, *map(_ptr, (out, out, out)), 4, 2, None) == -1
-    for K in (1, 17):
         assert emu["ffbs_fwd"](K, 0, *map(_ptr, (pi_t, A_t, obs_t, mask_t, None, None, out, out)),
                                4, 2, None) == -1

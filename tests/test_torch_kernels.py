@@ -230,11 +230,12 @@ def _both_ends(rng, mask):
 def _chase_plain(A_t, mask_t, alpha_t, u_t, gate_t=None, sk_t=None):
     """The ``BWD_SAMPLE`` kernel's design in plain torch: every candidate
     draw map_t[s] (the draw of step t given successor s, with the serial
-    walk's arithmetic) in one pass over all steps, packed four bits a
-    state into ceil(K / 8) int32 words a step (``cs._pack``; the last
-    step's map sends every state to z_{T-1}), then the pointer chase
-    z = 0, z_t = (map_t[z // 8] >> 4 (z % 8)) & 15 for t = T-1 .. 0.
-    Returns ``z [T, N]`` int32."""
+    walk's arithmetic) in one pass over all steps, packed B = 4 bits a
+    state into ceil(K / 8) int32 words a step up to K = 16, a byte into
+    ceil(K / 4) above (``cs._pack``; the last step's map sends every
+    state to z_{T-1}), then the pointer chase z = 0, z_t = (map_t[z // P]
+    >> B (z % P)) & (2^B - 1) for t = T-1 .. 0, P = 32 / B. Returns ``z
+    [T, N]`` int32."""
     T, K, N = alpha_t.shape
     cand = torch.empty((T, K, N), dtype=torch.int32)  # [t, s, n]
     if T > 1:
@@ -251,9 +252,11 @@ def _chase_plain(A_t, mask_t, alpha_t, u_t, gate_t=None, sk_t=None):
     words = torch.stack([cs._pack(cand[t]) for t in range(T)])  # [T, W, N]
     z = torch.zeros(N, dtype=torch.int32)
     out = torch.empty((T, N), dtype=torch.int32)
+    B = cs._map_bits(K)  # four bits a state up to K = 16, a byte above
+    P = 32 // B
     for t in range(T - 1, -1, -1):
-        w = words[t].gather(0, (z >> 3).long()[None])[0]
-        z = (w >> (4 * (z & 7))) & 15
+        w = words[t].gather(0, (z // P).long()[None])[0]
+        z = (w >> (B * (z % P))) & (2**B - 1)
         out[t] = z
     return out
 
@@ -287,7 +290,7 @@ class TestBwdSampleChoiceMap:
     equals a chase through the packed map of all candidate draws."""
 
     @pytest.mark.parametrize("masks", ["prefix", "both_ends"])
-    @pytest.mark.parametrize("K,gated", [(K, g) for K in (2, 3, 4, 5, 8, 12, 16)
+    @pytest.mark.parametrize("K,gated", [(K, g) for K in (2, 3, 4, 5, 8, 12, 16, 20, 33)
                                          for g in (False, True)])
     def test_chase_equals_serial_walk_and_jax_reference(self, rng, K, gated, masks):
         d = _batch(rng, 3, 64, K, gated=gated)
@@ -416,7 +419,8 @@ def cuda_device():
                                        (1, 1024, "both_ends"), (256, 1, "both_ends"),
                                        (7, 2049, "both_ends")])
 @pytest.mark.parametrize("K,gated", [(2, False), (3, True), (4, False), (4, True), (8, True),
-                                     (5, True), (12, False), (16, True)])
+                                     (5, True), (12, False), (16, True), (20, True), (33, False),
+                                     (64, True)])
 def test_cuda_kernels_match_plain(rng, cuda_device, K, gated, N, T, masks):
     """Bitwise: alpha, ll and every draw (T=2049 takes the maps' device
     scratch instead of shared memory, at K > 8 with two words a step)."""

@@ -4,8 +4,8 @@ package on the same numpy inputs.
 
 - the plain ``FWD`` + ``VG_BWD`` pair against the Pallas ``semiring_vg``
   in interpret mode and against the JAX ``forward_value_and_grad`` (the
-  vmapped scan ``_vg_core``), K in {2, 4, 8} (and 5, 12, 16 against the
-  scan), gated and not, ragged masks: loglik within 1e-5 relative, ``d_pi``/``d_obs`` within 1e-5
+  vmapped scan ``_vg_core``), K in {2, 4, 8} (and 5, 12, 16, 17, 24, 33,
+  64, 128 against the JAX entry), gated and not, ragged masks: loglik within 1e-5 relative, ``d_pi``/``d_obs`` within 1e-5
   absolute, ``d_A`` within 1e-4 relative (a sum over T terms taken in
   another order by each side);
 - the plain pair against torch autograd through the port's plain
@@ -41,6 +41,7 @@ DA_RTOL = 1e-4
 
 CASES = [(K, gated) for K in (2, 4, 8) for gated in (False, True)]
 WIDE_CASES = [(5, True), (12, False), (16, True)]  # groups of 8 and 16 threads on the card
+WIDEST_CASES = [(17, True), (24, False), (33, True), (64, False), (128, True)]
 
 
 def _log_norm(a):
@@ -94,6 +95,16 @@ class TestPlainPairVsJax:
     @pytest.mark.parametrize("K,gated", CASES + WIDE_CASES)
     def test_forward_value_and_grad_vs_vg_core(self, rng, K, gated):
         d = _batch(rng, 3, 64, K, gated)
+        out = forward_value_and_grad(**_t(d))
+        ref = jax.vmap(j_fvg)(*_j_args(d))
+        _assert_vg_close(out, ref)
+
+    @pytest.mark.parametrize("K,gated", WIDEST_CASES)
+    def test_forward_value_and_grad_vs_jax_k_above_16(self, rng, K, gated):
+        """K in 17..128 (on the card a warp a lane up to 32, a block a
+        lane above): two series, T = 32, against the JAX entry (its
+        fused kernel up to T K = 4096, the scan above)."""
+        d = _batch(rng, 2, 32, K, gated)
         out = forward_value_and_grad(**_t(d))
         ref = jax.vmap(j_fvg)(*_j_args(d))
         _assert_vg_close(out, ref)
@@ -246,7 +257,8 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("K,gated", [(2, False), (4, True), (8, False), (8, True)] + WIDE_CASES)
+@pytest.mark.parametrize("K,gated", [(2, False), (4, True), (8, False), (8, True)] + WIDE_CASES
+                         + WIDEST_CASES)
 def test_cuda_vg_bwd_matches_plain(rng, cuda_device, K, gated):
     d = {k: v.to(cuda_device) for k, v in _t(_batch(rng, 300, 130, K, gated)).items()}
     pi_t, A_t, obs_t, mask_t, gate_t, sk_t = cs.to_lanes(**d)
