@@ -4,7 +4,7 @@ its hand-written CUDA kernels against its plain PyTorch version there.
 
     python3 chip_smoke.py
 
-Four main paths, each driven with the kernel counts set to 0 just
+Five main paths, each driven with the kernel counts set to 0 just
 before it and read just after:
 
 - the batched Tayal Gibbs fit that ``bench.py`` runs by default (256
@@ -26,7 +26,16 @@ before it and read just after:
 - the zoo above K=32: the same model at K=64 (a block a lane, the
   lane's A in shared memory) on 256 series x T=500 — a short Gibbs fit,
   ``state_draws``, ``generated`` and one value-and-grad call, so every
-  semiring kernel in its widest layout.
+  semiring kernel in its widest layout;
+- the Tayal walk-forward back-test (``apps/tayal/wf.py::wf_trade``, the
+  reference's test-strategy.R protocol): 34 symbols x 11 days of
+  simulated ticks, 5-day train + 1-day trade windows = 204 tasks of
+  about 1,000 to 10,000 in-sample legs, through the native zig-zag
+  extractor, length-sorted Gibbs fits in 1024-leg buckets (``FWD`` and
+  ``BWD_SAMPLE`` once a sweep a group), the batched median-alpha decode
+  (``FWD`` twice a dispatch) and the host trading; then its ChEES arm
+  (stan gate, 16 of the tasks: ``FWD`` and ``VG_BWD`` once a
+  value-and-grad call).
 
 Phases, one JSON object per line:
 
@@ -123,9 +132,33 @@ Phases, one JSON object per line:
    ``VG_BWD`` once): every output bitwise equal to the plain versions
    on the card, the decode and value-and-grad of 16 series against the
    CPU within ``WIDE_*``; each of the seven kernels launched.
+   walk_forward — the fifth main path: ``wf_trade`` on the 204 tasks
+   (their ticks simulated on a host thread during the build, and timed
+   there; hard gate, one chain, 100 + 300 sweeps, 64 windows a group):
+   the native extractor took every series; ``FWD`` and ``BWD_SAMPLE``
+   launched once a sweep a group and ``FWD`` twice a decode dispatch,
+   and nothing else; every chain healthy, every logp and buy-and-hold
+   return finite, trades for every lag; the first decode dispatch and
+   the first at the largest bucket pair again through ``fwd_plain`` on
+   the same lanes (filtered probabilities bitwise, leg states
+   identical); ``phase_timings``, legs, fit groups
+   with their sweeps/s, decode dispatches and the mean OOS return a lag
+   against buy-and-hold.
+   walk_forward_chees — 16 of the tasks (every 13th) by ChEES (stan
+   gate, 2 chains, 50 + 50 transitions, at most 16 leapfrogs, 8 windows
+   a group, no fused trajectory): ``FWD`` and ``VG_BWD`` once a
+   value-and-grad call (``FWD`` also twice a decode dispatch), every
+   chain healthy, mean divergent share a task under ``WF_DIV_MAX``; its
+   decode checked against ``fwd_plain`` as above.
+   walk_forward_kernels — the first launch of ``FWD``, ``BWD_SAMPLE``
+   and ``VG_BWD`` at each shape and gate of each Gibbs and ChEES fit
+   group, its inputs kept as the path made them, bitwise equal to the
+   plain version on the same inputs and timed on them; the ``FWD`` +
+   ``BWD_SAMPLE`` pair as a share of a Gibbs group's sweep.
 9. the kernels line (every kernel; the semiring kernels with their K
-   range, their time at K=64 and their zoo_wide launches), then the last
-   line ``{"ok": true, "device": ...}``.
+   range, their time at K=64 and their zoo_wide launches; ``FWD``,
+   ``BWD_SAMPLE`` and ``VG_BWD`` with their walk_forward launches), then
+   the last line ``{"ok": true, "device": ...}``.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line. It imports nothing of JAX or of ``hhmm_tpu``.
@@ -138,10 +171,17 @@ import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
+from contextlib import ExitStack
+from unittest import mock
 
 import numpy as np
 import torch
 
+from hhmm_tpu_torch.apps.tayal import build_tasks, simulate_ticks, wf_trade
+from hhmm_tpu_torch.apps.tayal import wf as wf_module
+from hhmm_tpu_torch.apps.tayal.trading import equity_curve
+from hhmm_tpu_torch.apps.tayal.wf import D_DEC, G_DEC, median_states
 from hhmm_tpu_torch.batch import default_init
 from hhmm_tpu_torch.infer import (
     ChEESConfig,
@@ -161,6 +201,7 @@ from hhmm_tpu_torch.kernels.filtering import smooth
 from hhmm_tpu_torch.models import GaussianHMM, NIGPrior, TayalHHMM, TayalHHMMLite
 from hhmm_tpu_torch.models import base as zoo_base
 from hhmm_tpu_torch.models.base import broadcast_data
+from hhmm_tpu_torch.native import zigzag as native_zigzag
 from hhmm_tpu_torch.sim import hmm_sim, obsmodel_gaussian
 from hhmm_tpu_torch.sim.tayal import tayal_batch, tayal_phi
 
@@ -203,6 +244,21 @@ ZW_K, ZW_WARMUP, ZW_SAMPLES, ZW_DRAWS, ZW_CPU_SERIES = 64, 10, 10, 2, 16
 # at (9, 75), T off every ring's and chunk's length
 WIDE_KS = (17, 24, 32, 33, 48, 64, 96, 128)
 WIDE_SHAPES = ((64, 256), (9, 75))
+# fifth main path: the Tayal walk-forward back-test (the reference's
+# test-strategy.R protocol: 5-day train + 1-day trade windows), 34
+# symbols x 11 days of simulated ticks = 204 tasks; legs a day spread
+# evenly in log from 200 to 2000 over the symbols, so in-sample windows
+# run from about 1,000 to 10,000 legs
+WF_SYMBOLS, WF_DAYS, WF_TRAIN_DAYS, WF_TRADE_DAYS = 34, 11, 5, 1
+WF_LEGS_PER_DAY = (200, 2000)
+WF_TASKS = WF_SYMBOLS * (WF_DAYS - WF_TRAIN_DAYS - WF_TRADE_DAYS + 1)
+WF_WARMUP, WF_SAMPLES, WF_CHUNK = 100, 300, 64
+SEED_WF = 2009
+# its ChEES arm: every 13th task (16 windows across the length range),
+# stan gate, 2 chains, at most 16 leapfrogs, fitted 8 windows a group
+WF_CHEES_STRIDE, WF_CHEES_TASKS, WF_CHEES_CHUNK = 13, 16, 8
+WF_CHEES_WARMUP, WF_CHEES_SAMPLES = 50, 50
+WF_DIV_MAX = 0.2  # mean divergent share a task (tests/test_chees.py's wf_trade gate)
 
 # the FFBS checks (each bitwise against the plain versions): every K the
 # kernels take, gated and not, at the main path's shape with a ragged
@@ -1862,6 +1918,331 @@ def phase_zoo_wide(device):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# main path 5: the Tayal walk-forward back-test
+# ---------------------------------------------------------------------------
+
+
+class LaneRecorder:
+    """Wraps the lane wrappers of ``FWD``, ``BWD_SAMPLE`` and ``VG_BWD``
+    for a ``with`` block: keeps a copy of the inputs and outputs of the
+    first launch at each shape and gate the path gives a kernel (the
+    lanes, uniforms and gate keys the path made), for the check against
+    the plain versions and the timing."""
+
+    # kernel: (wrapper, plain version, position of the [T, K, N] input,
+    # position of the gate keys)
+    SPEC = {cs.FWD.name: ("fwd_lanes", cs.fwd_plain, 2, 4),
+            cs.BWD_SAMPLE.name: ("bwd_sample_lanes", cs.bwd_sample_plain, 2, 4),
+            cs.VG_BWD.name: ("vg_bwd_lanes", cs.vg_bwd_plain, 1, 5)}
+
+    def __init__(self):
+        self.calls, self.stack = {}, ExitStack()
+
+    def wrap(self, name, fn):
+        _, _, at, gate = self.SPEC[name]
+
+        def recorded(*args):
+            out = fn(*args)
+            T, K, N = args[at].shape
+            key = (name, int(N), int(T), int(K), len(args) > gate and args[gate] is not None)
+            if key not in self.calls:
+                self.calls[key] = (tuple(a.clone() if torch.is_tensor(a) else a for a in args),
+                                   tuple(o.clone() for o in as_tuple(out)))
+            return out
+
+        return recorded
+
+    def __enter__(self):
+        for name, (wrapper, _, _, _) in self.SPEC.items():
+            self.stack.enter_context(
+                mock.patch.object(cs, wrapper, self.wrap(name, getattr(cs, wrapper))))
+        return self
+
+    def __exit__(self, *exc):
+        self.stack.close()
+
+
+def as_tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+class FitRecorder:
+    """Wraps ``wf.py``'s ``fit_batched``: each fit group's shape, its
+    time on the host clock (synchronized) and its chains' health, and in
+    ``lanes`` the kernel launches each group made (:class:`LaneRecorder`)."""
+
+    def __init__(self, fit):
+        self.fit, self.groups, self.lanes = fit, [], []
+
+    def __call__(self, model, data, config, **kw):
+        sync()
+        t0 = time.perf_counter()
+        with LaneRecorder() as rec:
+            qs, stats = self.fit(model, data, config, **kw)
+        sync()
+        legs = data["mask"].sum(1)
+        self.groups.append({
+            "series": int(legs.shape[0]), "T": int(data["mask"].shape[1]),
+            "legs_min": int(legs.min()), "legs_max": int(legs.max()),
+            "seconds": time.perf_counter() - t0,
+            "healthy": bool(stats["chain_healthy"].all()),
+            "logp_finite": bool(torch.isfinite(stats["logp"]).all()),
+        })
+        self.lanes.append(rec.calls)
+        return qs, stats
+
+
+class KeptFiltered:
+    """Side effect of ``TayalHHMMLite.filtered`` (the decode's two ``FWD``
+    launches): counts the calls and keeps the inputs and outputs of the
+    first call and of the first at the largest bucket pair, for the
+    check against the plain versions."""
+
+    def __init__(self, fn):
+        self.fn, self.calls, self.first, self.largest = fn, 0, None, None
+
+    def __call__(self, model, theta, data, device=None):
+        out = self.fn(model, theta, data, device=device)
+        self.calls += 1
+        kept = (model, theta, dict(data), out)
+        if self.first is None:
+            self.first = kept
+        if self.largest is None or buckets(data) > buckets(self.largest[2]):
+            self.largest = kept
+        return out
+
+    def kept(self):
+        """The first call, and the largest if it is another."""
+        return [self.first] + ([self.largest] if self.largest is not self.first else [])
+
+
+def buckets(data):
+    return data["x"].shape[-1], data["x_oos"].shape[-1]
+
+
+class VGCounter:
+    """Side effect of ``make_vg``: every value-and-grad function it
+    returns counts its calls (``make_lp_bc``'s and the step-size
+    probe's)."""
+
+    def __init__(self, make_vg):
+        self.make_vg, self.calls = make_vg, 0
+
+    def __call__(self, model, data):
+        fn = self.make_vg(model, data)
+
+        def counted(q):
+            self.calls += 1
+            return fn(q)
+
+        return counted
+
+
+def wf_tasks():
+    """``(tasks, seconds)``: the walk-forward windows of ``WF_SYMBOLS`` x
+    ``WF_DAYS`` days of ``simulate_ticks`` (legs a day spread evenly in
+    log over ``WF_LEGS_PER_DAY`` by symbol, +-10 % a day), and the host
+    time it took to simulate them."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED_WF)
+    legs = np.geomspace(*WF_LEGS_PER_DAY, WF_SYMBOLS)
+    days = {
+        f"S{s:02d}": [
+            dict(zip(("price", "size", "t_seconds"),
+                     simulate_ticks(rng, n_legs=int(n * rng.uniform(0.9, 1.1)))[:3]))
+            for _ in range(WF_DAYS)
+        ]
+        for s, n in enumerate(legs)
+    }
+    tasks = build_tasks(days, train_days=WF_TRAIN_DAYS, trade_days=WF_TRADE_DAYS)
+    return tasks, time.perf_counter() - t0
+
+
+def wf_decode_vs_plain(kept, arm):
+    """A decode dispatch again through ``fwd_plain`` on the same lanes on
+    the card, then the same median and argmax: the filtered
+    probabilities bitwise and the leg states identical."""
+    model, theta, data, out = kept
+    gated = False
+    lead, flat, lanes = zoo_base.draw_lanes(theta, data, theta.device)
+    params, _ = model.unpack(flat)
+    errs = {}
+    for key, (xk, sk, mk) in (("alpha", ("x", "sign", "mask")),
+                              ("alpha_oos", ("x_oos", "sign_oos", "mask_oos"))):
+        seg = {"x": lanes[xk], "sign": lanes[sk]}
+        log_pi, log_A, log_obs, _ = model.build_vg(params, seg)
+        gk = model.gate_keys(seg)
+        gated = gk is not None
+        _, a_plain = cs.fwd_plain(*cs.to_lanes(log_pi, log_A, log_obs, lanes[mk],
+                                               *(gk if gated else ())))
+        probs = torch.softmax(a_plain.permute(2, 0, 1), dim=-1).reshape(out[key].shape)
+        errs[key] = float((probs - out[key]).abs().max())
+        if not torch.equal(median_states(probs), median_states(out[key])):
+            raise AssertionError(f"{arm}: {key} leg states differ from the plain version's")
+    if max(errs.values()) != 0.0:
+        raise AssertionError(f"{arm}: decode not bitwise equal to fwd_plain: {errs}")
+    return {"lanes": int(flat.shape[0]), "T": int(data["x"].shape[1]),
+            "T_oos": int(data["x_oos"].shape[1]), "gated": gated,
+            "max_abs_err": errs}
+
+
+def wf_run(tasks, config, gate_mode, chunk, device):
+    """``wf_trade`` with the recorders in place: ``(results,
+    phase_timings, wall seconds, fit recorder, filtered calls and kept
+    calls, value-and-grad calls, launches, native series)``."""
+    rec = FitRecorder(wf_module.fit_batched)
+    filt = KeptFiltered(TayalHHMMLite.filtered)
+    vg = VGCounter(TayalHHMMLite.make_vg)
+    phases = {}
+    native0 = native_zigzag.series_extracted
+    before = launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    with mock.patch.object(wf_module, "fit_batched", rec), \
+            mock.patch.object(TayalHHMMLite, "filtered", autospec=True, side_effect=filt), \
+            mock.patch.object(TayalHHMMLite, "make_vg", autospec=True, side_effect=vg):
+        res = wf_trade(tasks, config, gate_mode=gate_mode, chunk_size=chunk,
+                       phase_timings=phases, seed=SEED_WF, device=device)
+    sync()
+    wall = time.perf_counter() - t0
+    rose = rose_since(before)
+    return (res, phases, wall, rec, filt, vg.calls, rose,
+            native_zigzag.series_extracted - native0)
+
+
+def wf_returns(res, lags):
+    """Mean over tasks of the compounded OOS return a lag, and of
+    buy-and-hold, in percent."""
+    out = {str(lag): float(np.mean([100 * (equity_curve(r.trades[lag].ret)[-1] - 1)
+                                    if len(r.trades[lag]) else 0.0 for r in res]))
+           for lag in lags}
+    out["buy_and_hold"] = float(np.mean([100 * (equity_curve(r.bnh)[-1] - 1) for r in res]))
+    return out
+
+
+def phase_walk_forward(device, tasks, data_s):
+    """The fifth main path: ``apps/tayal/wf.py::wf_trade`` on the
+    ``WF_TASKS`` simulated windows of :func:`wf_tasks` at full width
+    (K=4, L=9): native zig-zag features, length-sorted 1024-bucket Gibbs
+    fits (hard gate, one chain, 100 + 300 sweeps, 64 windows a group),
+    the batched median-alpha decode and the host trading. Then its ChEES
+    arm (stan gate) on 16 of the tasks. Returns the fit groups for the
+    kernels' check at the shapes they ran."""
+    if len(tasks) != WF_TASKS:
+        raise AssertionError(f"walk_forward: {len(tasks)} tasks, expected {WF_TASKS}")
+    lags = (0, 1, 2, 3, 4, 5)
+    cfg = GibbsConfig(num_warmup=WF_WARMUP, num_samples=WF_SAMPLES, num_chains=1)
+    res, phases, wall, fits, filt, _, rose, native = wf_run(tasks, cfg, "hard", WF_CHUNK, device)
+    groups = fits.groups
+    if native != len(tasks):
+        raise AssertionError(f"walk_forward: the native extractor took {native} of {len(tasks)} "
+                             "series (the NumPy engine ran)")
+    sweeps = WF_WARMUP + WF_SAMPLES
+    n_groups = -(-len(tasks) // WF_CHUNK)
+    dispatches = phases["decode.dispatches"]
+    want = {cs.FWD.name: sweeps * n_groups + 2 * dispatches, cs.BWD_SAMPLE.name: sweeps * n_groups}
+    if len(groups) != n_groups or rose != want or filt.calls != dispatches:
+        raise AssertionError(f"walk_forward: launches {rose} over {len(groups)} fit groups and "
+                             f"{filt.calls} filtered calls, expected {want}")
+    if not all(g["healthy"] and g["logp_finite"] for g in groups):
+        raise AssertionError(f"walk_forward: an unhealthy chain or a non-finite logp: {groups}")
+    for r in res:
+        if not np.isfinite(r.bnh).all() or set(r.trades) != set(lags) or r.chains_pooled != 1:
+            raise AssertionError(f"walk_forward: task {r.symbol}/{r.window}: bnh finite "
+                                 f"{np.isfinite(r.bnh).all()}, lags {sorted(r.trades)}")
+        if len(r.leg_topstate) != r.n_ins_legs + r.n_oos_legs:
+            raise AssertionError(f"walk_forward: task {r.symbol}/{r.window} leg states")
+    plain = [wf_decode_vs_plain(k, "walk_forward") for k in filt.kept()]
+    filt.first = filt.largest = None
+    ins = np.array([r.n_ins_legs for r in res])
+    oos = np.array([r.n_oos_legs for r in res])
+    fit_s = sum(g["seconds"] for g in groups)
+    emit("walk_forward", tasks=len(tasks), symbols=WF_SYMBOLS, days=WF_DAYS,
+         train_days=WF_TRAIN_DAYS, trade_days=WF_TRADE_DAYS, gate_mode="hard",
+         warmup=WF_WARMUP, samples=WF_SAMPLES, chunk=WF_CHUNK, data_seconds=data_s,
+         seconds=wall, phase_timings=phases, native_series=native,
+         legs_in_sample=dict(min=int(ins.min()), median=float(np.median(ins)), max=int(ins.max())),
+         legs_oos=dict(min=int(oos.min()), median=float(np.median(oos)), max=int(oos.max())),
+         fit_groups=[dict(g, sweeps_per_s=sweeps / g["seconds"]) for g in groups],
+         fit_sweeps_per_s=sweeps * n_groups / fit_s,
+         decode_dispatches=dispatches, decode_lanes_a_dispatch=G_DEC * D_DEC,
+         decode_shapes=phases["decode.shapes_pending"], launches=rose,
+         decode_vs_plain=plain, swapped=int(sum(r.swapped for r in res)),
+         oos_leg_switches_mean=float(np.mean([r.oos_leg_switches for r in res])),
+         oos_return_pct_mean=wf_returns(res, lags))
+
+    # the ChEES arm (the Stan-parity model): one value-and-grad call a
+    # leapfrog, no fused trajectory, as the JAX fit_batched runs it
+    sub = tasks[::WF_CHEES_STRIDE][:WF_CHEES_TASKS]
+    ccfg = ChEESConfig(num_warmup=WF_CHEES_WARMUP, num_samples=WF_CHEES_SAMPLES,
+                       num_chains=CHAINS, max_leapfrogs=CAP)
+    res_c, phases_c, wall_c, fits_c, filt_c, vg_calls, rose_c, _ = wf_run(
+        sub, ccfg, "stan", WF_CHEES_CHUNK, device)
+    groups_c = fits_c.groups
+    want_c = {cs.FWD.name: vg_calls + 2 * phases_c["decode.dispatches"], cs.VG_BWD.name: vg_calls}
+    # (a dispatch holding a task whose basin selection kept fewer than
+    # D_DEC draws decodes through generated, also two FWD launches)
+    if rose_c != want_c:
+        raise AssertionError(f"walk_forward_chees: launches {rose_c}, expected {want_c}")
+    if not all(g["healthy"] and g["logp_finite"] for g in groups_c):
+        raise AssertionError(f"walk_forward_chees: an unhealthy chain: {groups_c}")
+    div = float(np.mean([r.diverged for r in res_c]))
+    if not div < WF_DIV_MAX or not all(np.isfinite(r.bnh).all() for r in res_c):
+        raise AssertionError(f"walk_forward_chees: divergent share {div:.3g} (limit {WF_DIV_MAX})")
+    plain_c = [wf_decode_vs_plain(k, "walk_forward_chees") for k in filt_c.kept()]
+    filt_c.first = filt_c.largest = None
+    emit("walk_forward_chees", tasks=len(sub), gate_mode="stan", chains=CHAINS, cap=CAP,
+         warmup=WF_CHEES_WARMUP, samples=WF_CHEES_SAMPLES, chunk=WF_CHEES_CHUNK,
+         seconds=wall_c, phase_timings=phases_c, fit_groups=groups_c,
+         value_and_grad_calls=vg_calls, decode_dispatches=phases_c["decode.dispatches"],
+         decode_dispatches_under_filled=phases_c["decode.dispatches"] - filt_c.calls,
+         value_and_grad_ms=sum(g["seconds"] for g in groups_c) / max(vg_calls, 1) * 1e3,
+         launches=rose_c, decode_vs_plain=plain_c, divergent_share=div,
+         divergent_share_max_task=float(max(r.diverged for r in res_c)),
+         chains_pooled_mean=float(np.mean([r.chains_pooled for r in res_c])),
+         oos_return_pct_mean=wf_returns(res_c, lags))
+    return fits, fits_c
+
+
+def phase_walk_forward_kernels(fits, fits_c):
+    """The kernels at the shapes and gates the walk-forward fits gave
+    them: the first launch of ``FWD``, ``BWD_SAMPLE`` and ``VG_BWD`` at
+    each shape of each Gibbs and ChEES fit group, its inputs as the path
+    made them, held bitwise against the plain version on the same
+    inputs (``BWD_SAMPLE`` on the same alpha and uniforms; past T=2048
+    its device-scratch path) and timed on them; a Gibbs group's kernel
+    pair as a share of its sweep."""
+    out = {}
+    for arm, rec in (("gibbs", fits), ("chees", fits_c)):
+        rows = []
+        for g, calls in zip(rec.groups, rec.lanes):
+            kernels = []
+            for (name, N, T, K, gated), (args, got) in calls.items():
+                wrapper, plain, _, _ = LaneRecorder.SPEC[name]
+                want = as_tuple(plain(*args))
+                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    errs = [float((a.float() - b.float()).abs().max()) for a, b in zip(got, want)]
+                    raise AssertionError(f"walk_forward_kernels: {name} N={N} T={T} K={K} "
+                                         f"gated={gated} in a {arm} fit group not bitwise "
+                                         f"equal to its plain version, max abs errs {errs}")
+                fn = getattr(cs, wrapper)
+                kernels.append(dict(kernel=name, N=N, T=T, K=K, gated=gated, bitwise_equal=True,
+                                    ms=time_ms(lambda: fn(*args), reps=10)))
+            row = dict(series=g["series"], T=g["T"], launches=kernels)
+            if arm == "gibbs":  # a sweep: one FWD and one BWD_SAMPLE at the group's lanes
+                pair = [k for k in kernels if k["N"] == g["series"] and k["T"] == g["T"]]
+                if sorted(k["kernel"] for k in pair) != sorted((cs.FWD.name, cs.BWD_SAMPLE.name)):
+                    raise AssertionError(f"walk_forward_kernels: a Gibbs group's launches {kernels}")
+                row["sweep_ms"] = g["seconds"] / (WF_WARMUP + WF_SAMPLES) * 1e3
+                row["kernel_share"] = sum(k["ms"] for k in pair) / row["sweep_ms"]
+            rows.append(row)
+        rec.lanes = []
+        out[arm] = rows
+    emit("walk_forward_kernels", **out)
+    return out
+
+
 def ptxas_usage(log: str) -> dict:
     """``{kernel<template args>: [registers, spill store bytes, spill load
     bytes, static shared bytes]}`` from an ``nvcc -Xptxas -v`` log (its
@@ -1971,6 +2352,11 @@ def main() -> int:
     emit("device", kind=name, count=torch.cuda.device_count(), nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda)
 
+    # the walk-forward ticks are simulated on a host thread while nvcc
+    # builds (the build waits on its compilers, so the two overlap)
+    sim_pool = ThreadPoolExecutor(max_workers=1)
+    sim = sim_pool.submit(wf_tasks)
+    sim_pool.shutdown(wait=False)
     t0 = time.perf_counter()
     report = build_and_load(ALL_KERNELS)
     per_source = {s: {"seconds": r["seconds"], "cached": r["cached"]} for s, r in report.items()}
@@ -2030,11 +2416,22 @@ def main() -> int:
     reset_all()
     phase_zoo_wide(device)
     zoo_wide = {k.name: k.launches for k in ALL_KERNELS}
+    # main path 5, the walk-forward back-test: features, batched fits,
+    # the median-alpha decode and the trades of 204 windows, then the
+    # ChEES arm on 16 of them
+    wf_task_list, wf_data_s = sim.result()
+    reset_all()
+    wf_fits = phase_walk_forward(device, wf_task_list, wf_data_s)
+    walk = {k.name: k.launches for k in ALL_KERNELS}
+    phase_walk_forward_kernels(*wf_fits)
+    del wf_fits
     missing = [n for n in (cs.FWD.name, cs.BWD_SAMPLE.name) if gibbs[n] == 0]
     missing += [n for n in (cs.FWD.name, cs.VG_BWD.name, ct.TRAJ.name) if chees[n] == 0]
     missing += [n for n in (cs.FWD.name, cs.VG_BWD.name) if unfused[n] == 0]
     missing += [k.name for k in (cs.FWD, cs.BWD_SAMPLE) + DECODE_KERNELS if zoo[k.name] == 0]
     missing += [f"{k.name} (zoo_wide)" for k in cs.KERNELS if zoo_wide[k.name] == 0]
+    missing += [f"{k.name} (walk_forward)" for k in (cs.FWD, cs.BWD_SAMPLE, cs.VG_BWD)
+                if walk[k.name] == 0]
     if missing:
         raise AssertionError(f"a main path never launched {missing}")
 
@@ -2101,6 +2498,8 @@ def main() -> int:
                             launches_zoo_wide=zoo_wide[k.name],
                             bitwise_equal_cases_above_16=sum(
                                 k.name in c["kernels"] for c in widek["cases"]))
+        if k in (cs.FWD, cs.BWD_SAMPLE, cs.VG_BWD):
+            rows[-1]["launches_walk_forward"] = walk[k.name]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

@@ -16,7 +16,12 @@ JAX package so each counterpart is easy to find:
 - ``infer``    batch-native blocked Gibbs, ChEES-HMC with its warmup
   adaptation, MCMC diagnostics and label-switching utilities
 - ``sim``      simulators on ``torch.Generator`` streams
-- ``batch``    per-series chain inits
+- ``batch``    ragged padding, the digest-keyed result cache, per-series
+  chain inits and ``fit_batched`` (chunks of series by Gibbs or ChEES)
+- ``native``   the C++ zig-zag feature extractor, built with g++ at
+  first use (ctypes)
+- ``apps``     the Tayal (2009) application: features, trading,
+  analytics and the walk-forward back-test (``apps/tayal/wf.py``)
 - ``convert``  carries the JAX package's draws and parameters across
 
 Entry points take ``device=None``, meaning CUDA, and raise on a host

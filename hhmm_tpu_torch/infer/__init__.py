@@ -8,7 +8,7 @@ from hhmm_tpu_torch.infer.chees import (
     sample_chees,
     sample_chees_batched,
 )
-from hhmm_tpu_torch.infer.diagnostics import ess, ess_many, split_rhat
+from hhmm_tpu_torch.infer.diagnostics import ess, ess_many, split_rhat, split_rhat_many, summary
 from hhmm_tpu_torch.infer.gibbs import (
     GibbsConfig,
     emission_counts,
@@ -34,6 +34,8 @@ __all__ = [
     "ess",
     "ess_many",
     "split_rhat",
+    "split_rhat_many",
+    "summary",
     "apply_relabel",
     "confusion_matrix",
     "greedy_relabel",

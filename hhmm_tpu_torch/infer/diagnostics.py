@@ -1,6 +1,7 @@
-"""MCMC diagnostics: split-R-hat and effective sample size (a copy of
-the numpy-only estimators in ``hhmm_tpu/infer/diagnostics.py``, so the
-port needs nothing from the JAX package).
+"""MCMC diagnostics: split-R-hat, effective sample size and posterior
+summaries (a copy of the numpy-only estimators in
+``hhmm_tpu/infer/diagnostics.py``, so the port needs nothing from the JAX
+package).
 
 Stan's estimators (BDA3 / Stan reference): split-chain R-hat; bulk ESS
 via FFT autocovariance with Geyer's initial monotone positive sequence.
@@ -9,9 +10,11 @@ Host-side numpy: diagnostics are not on the hot path.
 
 from __future__ import annotations
 
+from typing import Dict, Optional
+
 import numpy as np
 
-__all__ = ["split_rhat", "ess", "ess_many"]
+__all__ = ["split_rhat", "split_rhat_many", "ess", "ess_many", "summary"]
 
 
 def _split_chains(x: np.ndarray) -> np.ndarray:
@@ -50,6 +53,25 @@ def _split_chains_batched(x: np.ndarray) -> np.ndarray:
     n0 = x.shape[-1]
     half = n0 // 2
     return np.concatenate([x[:, :, :half], x[:, :, n0 - half :]], axis=1)
+
+
+def split_rhat_many(x: np.ndarray) -> np.ndarray:
+    """Vectorized :func:`split_rhat` over a leading batch axis:
+    ``x`` [N, chains, draws] → [N], identical to the scalar per row
+    (including the robustness contract: non-finite rows → ``inf``,
+    zero-variance rows → 1.0)."""
+    xs = _split_chains_batched(np.asarray(x, dtype=np.float64))
+    bad = ~np.isfinite(xs).all(axis=(1, 2))  # [N]
+    xs = np.where(bad[:, None, None], 0.0, xs)
+    n = xs.shape[-1]
+    chain_means = xs.mean(axis=-1)  # [N, m]  (m = 2*chains >= 2)
+    chain_vars = xs.var(axis=-1, ddof=1)
+    W = chain_vars.mean(axis=-1)  # [N]
+    B = n * chain_means.var(axis=-1, ddof=1)
+    var_plus = (n - 1) / n * W + B / n
+    safe_W = np.where(W > 0, W, 1.0)
+    out = np.where(W <= 0, 1.0, np.sqrt(var_plus / safe_W))
+    return np.where(bad, np.inf, out)
 
 
 def _autocovariance_fft(x: np.ndarray) -> np.ndarray:
@@ -155,3 +177,87 @@ def ess_many(x: np.ndarray, chunk: int = 512) -> np.ndarray:
         vals = np.minimum(m * n / tau, m * n * np.log10(m * n))
         out[s : s + chunk] = np.where(var_plus <= 0, float(m * n), vals)
     return np.where(bad_rows, 0.0, out)
+
+
+def summary(
+    samples: Dict[str, np.ndarray],
+    probs=(0.025, 0.25, 0.5, 0.75, 0.975),
+    health: Optional[np.ndarray] = None,
+    diverging: Optional[np.ndarray] = None,
+) -> Dict[str, Dict[str, np.ndarray]]:
+    """Per-parameter posterior summary table.
+
+    ``samples[name]`` is [chains, draws, ...]; returns mean/sd/quantiles/
+    n_eff/Rhat per scalar component — the equivalent of the reference's
+    ``summary(stan.fit)`` block in every R script (`hmm/main.R:59-62`).
+
+    ``health``: optional [chains] bool mask (the samplers'
+    ``stats["chain_healthy"]`` — see `robust/guards.py`). Quarantined
+    chains are excluded from every statistic, and each parameter's entry
+    reports ``chains_used`` / ``chains_quarantined``. If *every* chain
+    is quarantined nothing is dropped (``chains_used = 0`` flags that the
+    numbers are computed from quarantined chains and are not trustworthy).
+
+    ``diverging``: optional [chains, draws] bool — the samplers'
+    ``stats["diverging"]`` (Stan's ΔH > 1000 rule, computed at
+    `infer/nuts.py`; ChEES's analog; all-False for Gibbs). Every entry
+    then reports ``divergences`` / ``divergence_rate`` alongside R̂/ESS
+    — Stan's own summary pairs them for the same reason: a clean R̂
+    over divergent transitions is not convergence, it is the sampler
+    failing to explore the region that would have broken R̂. Counted
+    over the same chains as the statistics (quarantined chains' draws
+    are excluded from both).
+    """
+    keep = None
+    n_bad = 0
+    if health is not None:
+        health = np.asarray(health, dtype=bool).reshape(-1)
+        n_bad = int((~health).sum())
+        if health.any() and n_bad:
+            keep = health
+    n_div = div_rate = None
+    if diverging is not None:
+        div = np.asarray(diverging).astype(bool)
+        if div.ndim != 2:
+            raise ValueError(f"diverging must be [chains, draws], got {div.shape}")
+        if health is not None and div.shape[0] != health.shape[0]:
+            raise ValueError(
+                f"health mask has {health.shape[0]} chains, "
+                f"diverging has {div.shape[0]}"
+            )
+        if keep is not None:
+            div = div[keep]
+        n_div = int(div.sum())
+        div_rate = float(div.mean()) if div.size else 0.0
+    out = {}
+    for name, arr in samples.items():
+        arr = np.asarray(arr)
+        if health is not None and arr.shape[0] != health.shape[0]:
+            raise ValueError(
+                f"health mask has {health.shape[0]} chains, "
+                f"samples[{name!r}] has {arr.shape[0]}"
+            )
+        if keep is not None:
+            arr = arr[keep]
+        c, n = arr.shape[:2]
+        flatdim = int(np.prod(arr.shape[2:], dtype=np.int64)) if arr.ndim > 2 else 1
+        flat = arr.reshape(c, n, flatdim)
+        stats = {
+            "mean": flat.mean(axis=(0, 1)),
+            "sd": flat.std(axis=(0, 1), ddof=1),
+            "n_eff": ess_many(np.moveaxis(flat, -1, 0)),
+            "rhat": split_rhat_many(np.moveaxis(flat, -1, 0)),
+        }
+        for p in probs:
+            stats[f"q{int(p * 100)}" if p not in (0.025, 0.975) else f"q{p * 100:g}"] = (
+                np.quantile(flat, p, axis=(0, 1))
+            )
+        stats["shape"] = arr.shape[2:]
+        if health is not None:
+            stats["chains_used"] = c if keep is not None or n_bad == 0 else 0
+            stats["chains_quarantined"] = n_bad
+        if n_div is not None:
+            stats["divergences"] = n_div
+            stats["divergence_rate"] = div_rate
+        out[name] = stats
+    return out

@@ -250,6 +250,31 @@ class TayalHHMMLite(TayalHHMM):
         la, _ = forward_alpha(log_pi, log_A, log_obs, mask, *(gk if gk is not None else ()))
         return la
 
+    def _filtered(self, params: Params, lanes: Dict[str, torch.Tensor]):
+        """Softmax-normalized filtered probabilities of both segments, one
+        ``FWD`` launch each."""
+        log_alpha = self._seg_alpha(params, lanes["x"], lanes["sign"], lanes.get("mask"))
+        log_alpha_o = self._seg_alpha(
+            params, lanes["x_oos"], lanes["sign_oos"], lanes.get("mask_oos")
+        )
+        return {
+            "alpha": torch.softmax(log_alpha, dim=-1),
+            "alpha_oos": torch.softmax(log_alpha_o, dim=-1),
+        }
+
+    def filtered(
+        self,
+        theta_draws: torch.Tensor,
+        data: Dict[str, torch.Tensor],
+        device: DeviceLike = None,
+    ) -> Dict[str, torch.Tensor]:
+        """``alpha`` and ``alpha_oos`` of :meth:`generated` without the OOS
+        Viterbi path: what the walk-forward median-alpha decode reads."""
+        lead, flat, lanes = draw_lanes(theta_draws, data, device)
+        params, _ = self.unpack(flat)
+        out = self._filtered(params, lanes)
+        return {k: v.reshape(lead + v.shape[1:]) for k, v in out.items()}
+
     def generated(
         self,
         theta_draws: torch.Tensor,
@@ -263,15 +288,7 @@ class TayalHHMMLite(TayalHHMM):
         ``[B, T]`` with ``theta_draws [B, ..., n_free]``."""
         lead, flat, lanes = draw_lanes(theta_draws, data, device)
         params, _ = self.unpack(flat)
-        log_alpha = self._seg_alpha(params, lanes["x"], lanes["sign"], lanes.get("mask"))
-        log_alpha_o = self._seg_alpha(
-            params, lanes["x_oos"], lanes["sign_oos"], lanes.get("mask_oos")
-        )
+        out = self._filtered(params, lanes)
         log_pi_o, log_A_o, log_obs_o = self._gated(params, lanes["x_oos"], lanes["sign_oos"])
-        zstar_o, _ = viterbi_dispatch(log_pi_o, log_A_o, log_obs_o, lanes.get("mask_oos"))
-        out = {
-            "alpha": torch.softmax(log_alpha, dim=-1),
-            "alpha_oos": torch.softmax(log_alpha_o, dim=-1),
-            "zstar_oos": zstar_o,
-        }
+        out["zstar_oos"], _ = viterbi_dispatch(log_pi_o, log_A_o, log_obs_o, lanes.get("mask_oos"))
         return {k: v.reshape(lead + v.shape[1:]) for k, v in out.items()}

@@ -19,7 +19,8 @@ import pytest
 import torch
 
 import hhmm_tpu_torch
-from hhmm_tpu_torch.batch import default_init
+from hhmm_tpu_torch.apps.tayal import decode_states, wf_trade
+from hhmm_tpu_torch.batch import default_init, fit_batched
 from hhmm_tpu_torch.convert import constrained_from_jax, params_from_jax
 from hhmm_tpu_torch.infer import (
     ChEESConfig,
@@ -78,6 +79,15 @@ def test_port_file_list_is_complete():
         "hhmm_tpu_torch/models/gaussian_hmm.py",
         "hhmm_tpu_torch/core/dists.py",
         "hhmm_tpu_torch/infer/relabel.py",
+        "hhmm_tpu_torch/batch/fit.py",
+        "hhmm_tpu_torch/batch/pad.py",
+        "hhmm_tpu_torch/batch/cache.py",
+        "hhmm_tpu_torch/native/__init__.py",
+        "hhmm_tpu_torch/native/zigzag.py",
+        "hhmm_tpu_torch/apps/tayal/wf.py",
+        "hhmm_tpu_torch/apps/tayal/pipeline.py",
+        "hhmm_tpu_torch/apps/tayal/features.py",
+        "hhmm_tpu_torch/apps/tayal/analytics.py",
     ):
         assert must in names
 
@@ -127,6 +137,18 @@ ENTRY_POINTS = {
     ),
     "state_draws": lambda: GaussianHMM(3).state_draws(
         torch.Generator(), torch.zeros(2, GaussianHMM(3).n_free), {"x": torch.zeros(6)}
+    ),
+    "fit_batched": lambda: fit_batched(
+        TayalHHMM(gate_mode="hard"), dict(zip(("x", "sign"), _tiny())), GibbsConfig(1, 1)
+    ),
+    "wf_trade": lambda: wf_trade([]),
+    "decode_states": lambda: decode_states(
+        TayalHHMMLite(), np.zeros((2, 35)),
+        {"x": _tiny()[0][0], "sign": _tiny()[1][0], "x_oos": _tiny()[0][0], "sign_oos": _tiny()[1][0]},
+    ),
+    "filtered": lambda: TayalHHMMLite().filtered(
+        torch.zeros(2, 35),
+        {"x": _tiny()[0][0], "sign": _tiny()[1][0], "x_oos": _tiny()[0][0], "sign_oos": _tiny()[1][0]},
     ),
     "constrained_from_jax": lambda: constrained_from_jax(
         TayalHHMM(), {"p_11": np.float32(0.5), "A_row": np.full((2, 2), 0.5),
@@ -292,3 +314,18 @@ def test_import_builds_and_loads_nothing():
     assert all(k._fn is None for k in cs.KERNELS) or torch.cuda.is_available()
     if not torch.cuda.is_available():
         assert not BUILD_DIR.exists() or not any(BUILD_DIR.glob("*.so"))
+
+
+def test_import_builds_no_native_library():
+    """Importing the port, its apps included, neither builds nor loads
+    the native extractor (a fresh interpreter: other tests in this
+    process may have built it)."""
+    import subprocess
+    import sys
+
+    code = (
+        "import hhmm_tpu_torch.apps.tayal, hhmm_tpu_torch.batch\n"
+        "import hhmm_tpu_torch.native as n\n"
+        "assert n._handle is None and not n._tried\n"
+    )
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO, timeout=120)
