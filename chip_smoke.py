@@ -4,7 +4,7 @@ its hand-written CUDA kernels against its plain PyTorch version there.
 
     python3 chip_smoke.py
 
-Five main paths, each driven with the kernel counts set to 0 just
+Eight main paths, each driven with the kernel counts set to 0 just
 before it and read just after:
 
 - the batched Tayal Gibbs fit that ``bench.py`` runs by default (256
@@ -35,7 +35,18 @@ before it and read just after:
   ``BWD_SAMPLE`` once a sweep a group), the batched median-alpha decode
   (``FWD`` twice a dispatch) and the host trading; then its ChEES arm
   (stan gate, 16 of the tasks: ``FWD`` and ``VG_BWD`` once a
-  value-and-grad call).
+  value-and-grad call);
+- NUTS, the JAX package's default sampler: ``fit_batched`` with a
+  ``SamplerConfig`` on the ChEES path's batch and model (256 series x
+  T=1024, stan gate, one chain, Stan's ``max_treedepth`` 10, 50 + 50
+  transitions: 256 lanes in lockstep, ``FWD`` and ``VG_BWD`` once a
+  value-and-grad call);
+- the ``hmm/main.R`` Gaussian gate under NUTS through ``make_logp``
+  (T=500, K=2, 2 chains, 300 + 300: ``FILTER`` forward and ``BETA``
+  backward once a log-density call);
+- the walk-forward back-test by NUTS (``wf_trade`` with a
+  ``SamplerConfig`` on the 4 shortest of the ChEES arm's windows, 50 +
+  50 transitions) and ``run_window`` on the first of them.
 
 Phases, one JSON object per line:
 
@@ -155,10 +166,31 @@ Phases, one JSON object per line:
    group, its inputs kept as the path made them, bitwise equal to the
    plain version on the same inputs and timed on them; the ``FWD`` +
    ``BWD_SAMPLE`` pair as a share of a Gibbs group's sweep.
-9. the kernels line (every kernel; the semiring kernels with their K
-   range, their time at K=64 and their zoo_wide launches; ``FWD``,
-   ``BWD_SAMPLE`` and ``VG_BWD`` with their walk_forward launches), then
-   the last line ``{"ok": true, "device": ...}``.
+   nuts — the sixth main path (see above): every chain healthy, ``FWD``
+   and ``VG_BWD`` launched once a value-and-grad call and nothing else,
+   posterior-mean emission rows within ``PHI_MAE_MAX`` of the
+   simulator's, divergent share under ``NUTS_DIV_MAX``; the first launch
+   of each kernel bitwise against its plain version and timed; the
+   lockstep cost (leapfrogs the batch ran a transition against the mean
+   leaves a lane needed), depth histogram, step sizes, ms a
+   value-and-grad call, host syncs a transition, worst-parameter ESS
+   and the gap to the ChEES posterior means.
+   gaussian_nuts — the seventh: ``tests/test_models.py``'s bounds (mu
+   0.08, sigma 0.05, A 0.10 absolute, divergent share under 0.05,
+   Viterbi accuracy of ``generated`` above 0.9), ``FILTER`` and ``BETA``
+   launched once a log-density call, their first launches bitwise
+   against the plain versions and timed.
+   walk_forward_nuts — the eighth: launches as for the ChEES arm, every
+   chain healthy, trades for every lag, the lockstep cost a fit group;
+   then ``run_window`` (``FWD`` and ``VG_BWD`` once a value-and-grad
+   call, ``FWD`` twice for its decode).
+9. the timeline line (host seconds a group of phases), the kernels line
+   (every kernel; the semiring kernels with their K range, their time at
+   K=64 and their zoo_wide launches; ``FWD``, ``BWD_SAMPLE`` and
+   ``VG_BWD`` with their walk_forward launches; ``FWD`` and ``VG_BWD``
+   with their NUTS launches and time, ``FILTER`` and ``BETA`` with the
+   Gaussian NUTS gate's), then the last line ``{"ok": true, "device":
+   ...}``.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line. It imports nothing of JAX or of ``hhmm_tpu``.
@@ -178,18 +210,21 @@ from unittest import mock
 import numpy as np
 import torch
 
-from hhmm_tpu_torch.apps.tayal import build_tasks, simulate_ticks, wf_trade
+from hhmm_tpu_torch.apps.tayal import build_tasks, run_window, simulate_ticks, wf_trade
 from hhmm_tpu_torch.apps.tayal import wf as wf_module
 from hhmm_tpu_torch.apps.tayal.trading import equity_curve
 from hhmm_tpu_torch.apps.tayal.wf import D_DEC, G_DEC, median_states
-from hhmm_tpu_torch.batch import default_init
+from hhmm_tpu_torch.batch import default_init, fit_batched
 from hhmm_tpu_torch.infer import (
     ChEESConfig,
     GibbsConfig,
+    SamplerConfig,
     ess_many,
+    init_chains,
     make_lp_bc,
     sample_chees_batched,
     sample_gibbs,
+    sample_nuts,
 )
 from hhmm_tpu_torch.core.lmath import MASK_NEG
 from hhmm_tpu_torch.kernels import cuda_semiring as cs
@@ -259,6 +294,32 @@ SEED_WF = 2009
 WF_CHEES_STRIDE, WF_CHEES_TASKS, WF_CHEES_CHUNK = 13, 16, 8
 WF_CHEES_WARMUP, WF_CHEES_SAMPLES = 50, 50
 WF_DIV_MAX = 0.2  # mean divergent share a task (tests/test_chees.py's wf_trade gate)
+# sixth main path: NUTS, the JAX package's default sampler, through
+# fit_batched on the ChEES phase's batch and model (256 series x T=1024,
+# stan gate, one chain, one flat batch of 256 lanes) at Stan's
+# max_treedepth; 50 + 50 transitions, not the reference's 250 + 250 (at
+# 100 + 100 the phase alone took 188 s on the card: 34,668
+# value-and-grad calls, 173 lockstep leapfrogs a transition)
+NUTS_WARMUP, NUTS_SAMPLES, NUTS_TREEDEPTH = 50, 50, 10
+NUTS_DIV_MAX = 0.05  # divergent share of the sampling transitions
+# seventh: the hmm/main.R gate under NUTS through make_logp
+# (tests/test_models.py::test_gaussian_hmm_recovery: T=500, K=2, its A,
+# p1, means and sigma, 300 + 300 transitions, 2 chains, its bounds)
+GN_T, GN_A, GN_P1 = 500, [[0.8, 0.2], [0.35, 0.65]], [0.9, 0.1]
+GN_MU, GN_SIGMA = [1.0, 2.0], [0.3, 0.3]
+GN_WARMUP, GN_SAMPLES, GN_CHAINS = 300, 300, 2
+GN_MU_ATOL, GN_SIGMA_ATOL, GN_A_ATOL, GN_DIV_MAX = 0.08, 0.05, 0.10, 0.05
+SEED_GN = 42
+# eighth: the walk-forward back-test by NUTS (stan gate, one chain),
+# 50 + 50 transitions, not the reference's 250 + 250, on every 8th of the
+# ChEES arm's 16 windows ordered by in-sample ticks: the shortest (about
+# 900 legs) and one of about 3,100 (one fit group of 2); then run_window
+# on the shortest. On all 16 windows at 50 + 50 the arm alone took 732 s on the
+# card (114,387 value-and-grad calls: the group of windows of 3,100 to
+# 8,500 legs ran up to 1023 lockstep leapfrogs a transition); at 10 + 10,
+# 115 s, with the step sizes unadapted (one dual-averaging update after
+# the mass window: 72 % of the transitions divergent)
+WF_NUTS_STRIDE, WF_NUTS_WARMUP, WF_NUTS_SAMPLES = 8, 50, 50
 
 # the FFBS checks (each bitwise against the plain versions): every K the
 # kernels take, gated and not, at the main path's shape with a ragged
@@ -272,7 +333,11 @@ FFBS_SHAPES = ((N_SERIES, T_FIT, False), (250, 1000, True), (1, T_FIT, True), (N
 # lane, two map words a step above 8), at fewer lanes; K above 16 in
 # phase_kernels_wide
 EXTRA_KS = tuple(k for k in range(2, 17) if k not in FFBS_KS)
-EXTRA_FFBS_SHAPES = ((64, T_FIT, True), (3, 2100, True))
+# the other K's checks (FFBS, value-and-grad, decode) run at T=500: off
+# every ring's and chunk's length, and half the plain versions' host
+# loop of the main paths' T=1024, which set the script's time
+EXTRA_T = 500
+EXTRA_FFBS_SHAPES = ((64, EXTRA_T, True), (3, 2100, True))
 EXTRA_VG_LANES = 64
 EXTRA_DECODE_LANES = 256
 FFBS_TIMING_LANES = (1, 256, 512, 2048, 8192)  # FWD / BWD_SAMPLE timed at T=1024, K=4
@@ -333,8 +398,14 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
 
+T_START = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line; ``at_s`` is the host clock's seconds since the
+    script started (what the timeline line sums by phase group)."""
+    print(json.dumps({"phase": phase, **fields, "at_s": time.perf_counter() - T_START}),
+          flush=True)
 
 
 def sync() -> None:
@@ -696,15 +767,16 @@ def phase_decode(device, qs):
 
 def phase_kernels_vg(device):
     """``FWD`` + ``VG_BWD`` bitwise equal to ``fwd_plain`` +
-    ``vg_bwd_plain`` at N=512, T=1024, K in {3, 4, 8}, and at N=64 at
-    every other K in 2..16, gated and not, ragged mask."""
+    ``vg_bwd_plain`` at N=512, T=1024, K in {3, 4, 8}, and at N=64,
+    T=``EXTRA_T`` at every other K in 2..16, gated and not, ragged
+    mask."""
     errs = {"ll_rel": 0.0, "d_pi": 0.0, "d_obs": 0.0, "d_A_rel": 0.0, "d_A": 0.0}
-    grid = [(N_LANES, K, g) for K, g in [(4, False), (4, True), (8, False), (8, True), (3, False)]]
-    grid += [(EXTRA_VG_LANES, K, g) for K in range(2, 17)
-             for g in (False, True) if (K, g) not in {(4, False), (4, True), (8, False),
-                                                      (8, True), (3, False)}]
-    for i, (N, K, gated) in enumerate(grid):
-        lanes, _ = make_case(3000 + i, N, T_FIT, K, gated, device)
+    main = [(4, False), (4, True), (8, False), (8, True), (3, False)]
+    grid = [(N_LANES, T_FIT, K, g) for K, g in main]
+    grid += [(EXTRA_VG_LANES, EXTRA_T, K, g) for K in range(2, 17)
+             for g in (False, True) if (K, g) not in main]
+    for i, (N, T, K, gated) in enumerate(grid):
+        lanes, _ = make_case(3000 + i, N, T, K, gated, device)
         pi_t, A_t, obs_t, mask_t, gate_t, sk_t = lanes
         ll_k, a_k = cs.fwd_lanes(*lanes)
         got = cs.vg_bwd_lanes(A_t, obs_t, mask_t, a_k, ll_k, gate_t, sk_t)
@@ -723,7 +795,7 @@ def phase_kernels_vg(device):
             raise AssertionError(f"value-and-grad K={K} gated={gated} N={N}: not bitwise "
                                  f"equal to the plain versions, {e}")
         errs = {k: max(errs[k], v) for k, v in e.items()}
-        emit("vg_vs_plain", N=N, T=T_FIT, K=K, gated=gated, bitwise_equal=True, **e)
+        emit("vg_vs_plain", N=N, T=T, K=K, gated=gated, bitwise_equal=True, **e)
 
     # timing on the main path's own lanes: the stan-gate Tayal terms of
     # the ChEES fit's inits (K=4, gated, dense)
@@ -1064,7 +1136,7 @@ def phase_chees(device, gibbs_phi):
         phi_mae_mean=float(mae.mean()), phi_mae_max=float(mae.max()),
         phi_gap_vs_gibbs_mean=float(gap.mean()),
     )
-    return qs, stats
+    return qs, stats, phi_mean
 
 
 def phase_chees_seeds(device, stats):
@@ -1195,17 +1267,17 @@ def decode_bytes_ops(kernel, lanes):
 
 def phase_kernels_decode(device):
     """``FILTER``, ``BETA``, ``VITERBI`` and ``BACKTRACK`` against their
-    plain versions at N=8192, T=1024, K in {3, 4, 8}, and at N=256 at
-    every other K in 2..32: bitwise equal (log-values, -inf at the same
+    plain versions at N=8192, T=1024, K in {3, 4, 8}, and at N=256,
+    T=``EXTRA_T`` at every other K in 2..32: bitwise equal (log-values, -inf at the same
     places, no NaN; maps, paths and scores identical), and ``FILTER``
     bitwise equal to ``FWD`` on finite inputs; then each timed at the
     main shape (K=4, dense mask)."""
     cases = []
-    grid = [(N_DEC, K) for K in (3, 4, 8)] + [(EXTRA_DECODE_LANES, K) for K in range(2, 33)
-                                              if K not in (3, 4, 8)]
-    for i, (N, K) in enumerate(grid):
+    grid = [(N_DEC, T_FIT, K) for K in (3, 4, 8)]
+    grid += [(EXTRA_DECODE_LANES, EXTRA_T, K) for K in range(2, 33) if K not in (3, 4, 8)]
+    for i, (N, T, K) in enumerate(grid):
         for finite in (True, False):
-            lanes = make_decode_case(5000 + 2 * i + finite, N, T_FIT, K, device, finite)
+            lanes = make_decode_case(5000 + 2 * i + finite, N, T, K, device, finite)
             pi_t, A_t, obs_t, mask_t = lanes
             ll_k, a_k = cs.filter_lanes(*lanes)
             b_k = cs.beta_lanes(A_t, obs_t, mask_t)
@@ -1215,7 +1287,10 @@ def phase_kernels_decode(device):
             b_p = cs.beta_plain(A_t, obs_t, mask_t)
             sc_p, dl_p, bk_p = cs.viterbi_plain(*lanes)
             path_p = cs.backtrack_plain(bk_p, dl_p)
-            path_kp = cs.backtrack_plain(bk_k, dl_k)  # the backtrack alone, same maps
+            # the backtrack alone, on the kernel's maps (the same path when
+            # the maps are equal, which the viterbi check below holds)
+            same_maps = torch.equal(bk_k, bk_p) and torch.equal(dl_k, dl_p)
+            path_kp = path_p if same_maps else cs.backtrack_plain(bk_k, dl_k)
             sync()
             got = {"filter": (a_k, ll_k), "beta": (b_k,), "viterbi": (sc_k, dl_k, bk_k),
                    "backtrack": (path_k,)}
@@ -1238,7 +1313,7 @@ def phase_kernels_decode(device):
                     raise AssertionError(f"FILTER K={K}: alpha differs from FWD on finite inputs")
                 row["filter_equals_fwd"] = True
             cases.append(row)
-            emit("decode_kernels_vs_plain", T=T_FIT, bitwise_equal=True, **row)
+            emit("decode_kernels_vs_plain", T=T, bitwise_equal=True, **row)
             del lanes, pi_t, A_t, obs_t, mask_t, a_k, a_p, b_k, b_p, got, want
 
     # timing at the main shape: N=8192 lanes, T=1024, K=4, dense mask
@@ -1924,8 +1999,8 @@ def phase_zoo_wide(device):
 
 
 class LaneRecorder:
-    """Wraps the lane wrappers of ``FWD``, ``BWD_SAMPLE`` and ``VG_BWD``
-    for a ``with`` block: keeps a copy of the inputs and outputs of the
+    """Wraps the lane wrappers of ``FWD``, ``BWD_SAMPLE``, ``VG_BWD``,
+    ``FILTER`` and ``BETA`` for a ``with`` block: keeps a copy of the inputs and outputs of the
     first launch at each shape and gate the path gives a kernel (the
     lanes, uniforms and gate keys the path made), for the check against
     the plain versions and the timing."""
@@ -1934,7 +2009,9 @@ class LaneRecorder:
     # position of the gate keys)
     SPEC = {cs.FWD.name: ("fwd_lanes", cs.fwd_plain, 2, 4),
             cs.BWD_SAMPLE.name: ("bwd_sample_lanes", cs.bwd_sample_plain, 2, 4),
-            cs.VG_BWD.name: ("vg_bwd_lanes", cs.vg_bwd_plain, 1, 5)}
+            cs.VG_BWD.name: ("vg_bwd_lanes", cs.vg_bwd_plain, 1, 5),
+            cs.FILTER.name: ("filter_lanes", cs.filter_plain, 2, 4),
+            cs.BETA.name: ("beta_lanes", cs.beta_plain, 1, 3)}
 
     def __init__(self):
         self.calls, self.stack = {}, ExitStack()
@@ -1988,33 +2065,52 @@ class FitRecorder:
             "seconds": time.perf_counter() - t0,
             "healthy": bool(stats["chain_healthy"].all()),
             "logp_finite": bool(torch.isfinite(stats["logp"]).all()),
+            **(lockstep(stats) if "lockstep_leapfrogs" in stats else {}),
         })
         self.lanes.append(rec.calls)
         return qs, stats
 
 
-class KeptFiltered:
-    """Side effect of ``TayalHHMMLite.filtered`` (the decode's two ``FWD``
-    launches): counts the calls and keeps the inputs and outputs of the
-    first call and of the first at the largest bucket pair, for the
-    check against the plain versions."""
+class KeptDecode:
+    """Side effect of ``TayalHHMMLite.filtered`` (a full decode dispatch)
+    and ``TayalHHMMLite.generated`` (an under-filled one), each the
+    decode's two ``FWD`` launches: counts each path's calls and keeps,
+    for each path, the inputs and outputs of its first call and of its
+    first at the largest bucket pair, for the check against the plain
+    versions."""
 
-    def __init__(self, fn):
-        self.fn, self.calls, self.first, self.largest = fn, 0, None, None
+    PATHS = ("filtered", "generated")
 
-    def __call__(self, model, theta, data, device=None):
-        out = self.fn(model, theta, data, device=device)
-        self.calls += 1
-        kept = (model, theta, dict(data), out)
-        if self.first is None:
-            self.first = kept
-        if self.largest is None or buckets(data) > buckets(self.largest[2]):
-            self.largest = kept
-        return out
+    def __init__(self):
+        self.calls = dict.fromkeys(self.PATHS, 0)
+        self.first, self.largest = {}, {}
+
+    def wrap(self, path):
+        fn = getattr(TayalHHMMLite, path)
+
+        def recorded(model, theta, data, device=None):
+            out = fn(model, theta, data, device=device)
+            self.calls[path] += 1
+            kept = (path, model, theta, dict(data), out)
+            self.first.setdefault(path, kept)
+            if path not in self.largest or buckets(data) > buckets(self.largest[path][3]):
+                self.largest[path] = kept
+            return out
+
+        return recorded
 
     def kept(self):
-        """The first call, and the largest if it is another."""
-        return [self.first] + ([self.largest] if self.largest is not self.first else [])
+        """Each path's first call, and its largest if it is another."""
+        out = []
+        for path in self.PATHS:
+            if path in self.first:
+                out.append(self.first[path])
+                if self.largest[path] is not self.first[path]:
+                    out.append(self.largest[path])
+        return out
+
+    def clear(self):
+        self.first, self.largest = {}, {}
 
 
 def buckets(data):
@@ -2060,10 +2156,11 @@ def wf_tasks():
 
 
 def wf_decode_vs_plain(kept, arm):
-    """A decode dispatch again through ``fwd_plain`` on the same lanes on
-    the card, then the same median and argmax: the filtered
-    probabilities bitwise and the leg states identical."""
-    model, theta, data, out = kept
+    """A decode dispatch (through ``filtered`` or ``generated``) again
+    through ``fwd_plain`` on the same lanes on the card, then the same
+    median and argmax: the filtered probabilities bitwise and the leg
+    states identical."""
+    path, model, theta, data, out = kept
     gated = False
     lead, flat, lanes = zoo_base.draw_lanes(theta, data, theta.device)
     params, _ = model.unpack(flat)
@@ -2082,17 +2179,17 @@ def wf_decode_vs_plain(kept, arm):
             raise AssertionError(f"{arm}: {key} leg states differ from the plain version's")
     if max(errs.values()) != 0.0:
         raise AssertionError(f"{arm}: decode not bitwise equal to fwd_plain: {errs}")
-    return {"lanes": int(flat.shape[0]), "T": int(data["x"].shape[1]),
+    return {"path": path, "lanes": int(flat.shape[0]), "T": int(data["x"].shape[1]),
             "T_oos": int(data["x_oos"].shape[1]), "gated": gated,
             "max_abs_err": errs}
 
 
 def wf_run(tasks, config, gate_mode, chunk, device):
     """``wf_trade`` with the recorders in place: ``(results,
-    phase_timings, wall seconds, fit recorder, filtered calls and kept
-    calls, value-and-grad calls, launches, native series)``."""
+    phase_timings, wall seconds, fit recorder, decode recorder,
+    value-and-grad calls, launches, native series)``."""
     rec = FitRecorder(wf_module.fit_batched)
-    filt = KeptFiltered(TayalHHMMLite.filtered)
+    dec = KeptDecode()
     vg = VGCounter(TayalHHMMLite.make_vg)
     phases = {}
     native0 = native_zigzag.series_extracted
@@ -2100,14 +2197,17 @@ def wf_run(tasks, config, gate_mode, chunk, device):
     sync()
     t0 = time.perf_counter()
     with mock.patch.object(wf_module, "fit_batched", rec), \
-            mock.patch.object(TayalHHMMLite, "filtered", autospec=True, side_effect=filt), \
+            mock.patch.object(TayalHHMMLite, "filtered", autospec=True,
+                              side_effect=dec.wrap("filtered")), \
+            mock.patch.object(TayalHHMMLite, "generated", autospec=True,
+                              side_effect=dec.wrap("generated")), \
             mock.patch.object(TayalHHMMLite, "make_vg", autospec=True, side_effect=vg):
         res = wf_trade(tasks, config, gate_mode=gate_mode, chunk_size=chunk,
                        phase_timings=phases, seed=SEED_WF, device=device)
     sync()
     wall = time.perf_counter() - t0
     rose = rose_since(before)
-    return (res, phases, wall, rec, filt, vg.calls, rose,
+    return (res, phases, wall, rec, dec, vg.calls, rose,
             native_zigzag.series_extracted - native0)
 
 
@@ -2142,9 +2242,10 @@ def phase_walk_forward(device, tasks, data_s):
     n_groups = -(-len(tasks) // WF_CHUNK)
     dispatches = phases["decode.dispatches"]
     want = {cs.FWD.name: sweeps * n_groups + 2 * dispatches, cs.BWD_SAMPLE.name: sweeps * n_groups}
-    if len(groups) != n_groups or rose != want or filt.calls != dispatches:
+    if len(groups) != n_groups or rose != want or filt.calls != {"filtered": dispatches,
+                                                                 "generated": 0}:
         raise AssertionError(f"walk_forward: launches {rose} over {len(groups)} fit groups and "
-                             f"{filt.calls} filtered calls, expected {want}")
+                             f"decode calls {filt.calls}, expected {want}")
     if not all(g["healthy"] and g["logp_finite"] for g in groups):
         raise AssertionError(f"walk_forward: an unhealthy chain or a non-finite logp: {groups}")
     for r in res:
@@ -2154,7 +2255,7 @@ def phase_walk_forward(device, tasks, data_s):
         if len(r.leg_topstate) != r.n_ins_legs + r.n_oos_legs:
             raise AssertionError(f"walk_forward: task {r.symbol}/{r.window} leg states")
     plain = [wf_decode_vs_plain(k, "walk_forward") for k in filt.kept()]
-    filt.first = filt.largest = None
+    filt.clear()
     ins = np.array([r.n_ins_legs for r in res])
     oos = np.array([r.n_oos_legs for r in res])
     fit_s = sum(g["seconds"] for g in groups)
@@ -2166,7 +2267,8 @@ def phase_walk_forward(device, tasks, data_s):
          legs_oos=dict(min=int(oos.min()), median=float(np.median(oos)), max=int(oos.max())),
          fit_groups=[dict(g, sweeps_per_s=sweeps / g["seconds"]) for g in groups],
          fit_sweeps_per_s=sweeps * n_groups / fit_s,
-         decode_dispatches=dispatches, decode_lanes_a_dispatch=G_DEC * D_DEC,
+         decode_dispatches=dispatches, decode_calls=filt.calls,
+         decode_lanes_a_dispatch=G_DEC * D_DEC,
          decode_shapes=phases["decode.shapes_pending"], launches=rose,
          decode_vs_plain=plain, swapped=int(sum(r.swapped for r in res)),
          oos_leg_switches_mean=float(np.mean([r.oos_leg_switches for r in res])),
@@ -2191,18 +2293,36 @@ def phase_walk_forward(device, tasks, data_s):
     if not div < WF_DIV_MAX or not all(np.isfinite(r.bnh).all() for r in res_c):
         raise AssertionError(f"walk_forward_chees: divergent share {div:.3g} (limit {WF_DIV_MAX})")
     plain_c = [wf_decode_vs_plain(k, "walk_forward_chees") for k in filt_c.kept()]
-    filt_c.first = filt_c.largest = None
+    filt_c.clear()
     emit("walk_forward_chees", tasks=len(sub), gate_mode="stan", chains=CHAINS, cap=CAP,
          warmup=WF_CHEES_WARMUP, samples=WF_CHEES_SAMPLES, chunk=WF_CHEES_CHUNK,
          seconds=wall_c, phase_timings=phases_c, fit_groups=groups_c,
          value_and_grad_calls=vg_calls, decode_dispatches=phases_c["decode.dispatches"],
-         decode_dispatches_under_filled=phases_c["decode.dispatches"] - filt_c.calls,
+         decode_dispatches_under_filled=filt_c.calls["generated"],
          value_and_grad_ms=sum(g["seconds"] for g in groups_c) / max(vg_calls, 1) * 1e3,
          launches=rose_c, decode_vs_plain=plain_c, divergent_share=div,
          divergent_share_max_task=float(max(r.diverged for r in res_c)),
          chains_pooled_mean=float(np.mean([r.chains_pooled for r in res_c])),
          oos_return_pct_mean=wf_returns(res_c, lags))
     return fits, fits_c
+
+
+def kept_vs_plain(calls, phase):
+    """The first launch of each kernel at each shape a path made
+    (:attr:`LaneRecorder.calls`), bitwise against its plain version on
+    the same inputs, then timed on them."""
+    rows = []
+    for (name, N, T, K, gated), (args, got) in calls.items():
+        wrapper, plain, _, _ = LaneRecorder.SPEC[name]
+        want = as_tuple(plain(*args))
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            errs = [float((a.float() - b.float()).abs().max()) for a, b in zip(got, want)]
+            raise AssertionError(f"{phase}: {name} N={N} T={T} K={K} gated={gated} not bitwise "
+                                 f"equal to its plain version, max abs errs {errs}")
+        fn = getattr(cs, wrapper)
+        rows.append(dict(kernel=name, N=N, T=T, K=K, gated=gated, bitwise_equal=True,
+                         ms=time_ms(lambda: fn(*args), reps=10)))
+    return rows
 
 
 def phase_walk_forward_kernels(fits, fits_c):
@@ -2217,18 +2337,7 @@ def phase_walk_forward_kernels(fits, fits_c):
     for arm, rec in (("gibbs", fits), ("chees", fits_c)):
         rows = []
         for g, calls in zip(rec.groups, rec.lanes):
-            kernels = []
-            for (name, N, T, K, gated), (args, got) in calls.items():
-                wrapper, plain, _, _ = LaneRecorder.SPEC[name]
-                want = as_tuple(plain(*args))
-                if not all(torch.equal(a, b) for a, b in zip(got, want)):
-                    errs = [float((a.float() - b.float()).abs().max()) for a, b in zip(got, want)]
-                    raise AssertionError(f"walk_forward_kernels: {name} N={N} T={T} K={K} "
-                                         f"gated={gated} in a {arm} fit group not bitwise "
-                                         f"equal to its plain version, max abs errs {errs}")
-                fn = getattr(cs, wrapper)
-                kernels.append(dict(kernel=name, N=N, T=T, K=K, gated=gated, bitwise_equal=True,
-                                    ms=time_ms(lambda: fn(*args), reps=10)))
+            kernels = kept_vs_plain(calls, f"walk_forward_kernels ({arm} fit group)")
             row = dict(series=g["series"], T=g["T"], launches=kernels)
             if arm == "gibbs":  # a sweep: one FWD and one BWD_SAMPLE at the group's lanes
                 pair = [k for k in kernels if k["N"] == g["series"] and k["T"] == g["T"]]
@@ -2241,6 +2350,238 @@ def phase_walk_forward_kernels(fits, fits_c):
         out[arm] = rows
     emit("walk_forward_kernels", **out)
     return out
+
+
+# ---------------------------------------------------------------------------
+# main paths 6-8: NUTS
+# ---------------------------------------------------------------------------
+
+
+def lockstep(stats) -> dict:
+    """The lockstep cost of NUTS over a batch: per transition (warmup,
+    then sampling) the leapfrogs the batch ran (every lane, finished
+    ones included) against the mean leaves a lane needed; their ratio
+    over the run is the lockstep efficiency."""
+    leaves = torch.cat([stats["warmup_num_leaves"], stats["num_leaves"]], dim=-1).float()
+    mean_leaves = leaves.reshape(-1, leaves.shape[-1]).mean(0)
+    lock = stats["lockstep_leapfrogs"][0].float()
+    syncs = stats["host_syncs"][0].float()
+    return {"lockstep_leapfrogs": int(lock.sum()), "mean_lane_leaves": float(mean_leaves.sum()),
+            "lockstep_efficiency": float(mean_leaves.sum() / lock.sum()),
+            "lockstep_per_transition_mean": float(lock.mean()),
+            "lockstep_per_transition_max": int(lock.max()),
+            "host_syncs_per_transition": float(syncs.mean())}
+
+
+def phase_nuts(device, chees_phi):
+    """The sixth main path: ``fit_batched`` with a ``SamplerConfig`` on
+    the ChEES phase's batch and model (stan gate, 256 series x T=1024,
+    one chain: 256 lanes in lockstep), ``max_treedepth`` 10. Every chain
+    healthy, ``FWD`` and ``VG_BWD`` launched once a value-and-grad call
+    and nothing else, the emission rows near the simulator's, divergent
+    share under ``NUTS_DIV_MAX``; the first launch of each kernel
+    bitwise against its plain version; the lockstep cost, the depths,
+    step sizes, ms a value-and-grad call and host syncs a transition."""
+    x, sign = tayal_batch(N_SERIES, T_FIT, seed=SEED_DATA, device=device)
+    data = {"x": x, "sign": sign}
+    model = TayalHHMM()
+    init = default_init(model, data, N_SERIES, 1, seed=SEED_INIT, device=device)
+    cfg = SamplerConfig(num_warmup=NUTS_WARMUP, num_samples=NUTS_SAMPLES, num_chains=1,
+                        max_treedepth=NUTS_TREEDEPTH)
+    vg = VGCounter(TayalHHMM.make_vg)
+    before = launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    with mock.patch.object(TayalHHMM, "make_vg", autospec=True, side_effect=vg), \
+            LaneRecorder() as rec:
+        qs, stats = fit_batched(model, data, cfg, init=init, chunk_size=N_SERIES,
+                                seed=SEED_SAMPLER, device=device)
+    sync()
+    wall = time.perf_counter() - t0
+    rose = rose_since(before)
+    if rose != {cs.FWD.name: vg.calls, cs.VG_BWD.name: vg.calls}:
+        raise AssertionError(f"nuts: launches {rose} for {vg.calls} value-and-grad calls")
+    if not bool(stats["chain_healthy"].all()) or not bool(torch.isfinite(stats["logp"]).all()):
+        raise AssertionError("nuts: an unhealthy chain or a non-finite logp")
+    if tuple(qs.shape) != (N_SERIES, 1, NUTS_SAMPLES, model.n_free):
+        raise AssertionError(f"nuts: qs shape {tuple(qs.shape)}")
+    worst, swap_share, phi_mean, mae = fold_and_score(model, qs)
+    if not mae.mean() <= PHI_MAE_MAX:
+        raise AssertionError(f"nuts: posterior-mean phi MAE {mae.mean():.3g} > {PHI_MAE_MAX}")
+    div_share = float(stats["diverging"].float().mean())
+    if not div_share < NUTS_DIV_MAX:
+        raise AssertionError(f"nuts: divergent share {div_share:.3g} (limit {NUTS_DIV_MAX})")
+    gap = np.minimum(
+        np.abs(phi_mean - chees_phi).mean(axis=(1, 2)),
+        np.abs(phi_mean[:, MIRROR] - chees_phi).mean(axis=(1, 2)),
+    )
+    kernels = kept_vs_plain(rec.calls, "nuts")
+    # one value-and-grad call over the 256 lanes at the last draws, on the
+    # host clock around synchronized calls (what a leaf waits for)
+    fn = model.make_vg(data)
+    q_last = qs[:, :, -1].contiguous()
+    fn(q_last)
+    sync()
+    t1 = time.perf_counter()
+    for _ in range(20):
+        fn(q_last)
+    sync()
+    vg_ms = (time.perf_counter() - t1) / 20 * 1e3
+    transitions = NUTS_WARMUP + NUTS_SAMPLES
+    eps = stats["step_size"].reshape(-1)
+    depth = stats["depth"].reshape(-1)
+    emit("nuts", series=N_SERIES, T=T_FIT, chains=1, warmup=NUTS_WARMUP, samples=NUTS_SAMPLES,
+         max_treedepth=NUTS_TREEDEPTH, seconds=wall, transitions_per_s=transitions / wall,
+         transition_ms=wall / transitions * 1e3, value_and_grad_calls=vg.calls,
+         value_and_grad_ms=vg_ms, value_and_grad_share=vg.calls * vg_ms / 1e3 / wall,
+         **lockstep(stats),
+         depth_histogram_sampling=torch.bincount(depth, minlength=NUTS_TREEDEPTH + 1).tolist(),
+         leaves_mean_sampling=float(stats["num_leaves"].float().mean()),
+         step_size=dict(min=float(eps.min()), median=float(eps.median()), max=float(eps.max())),
+         accept_mean_sampling=float(stats["accept_prob"].mean()),
+         divergent_share=div_share, divergent_warmup=int(stats["warmup_diverging"].sum()),
+         launches=rose, kernels_vs_plain=kernels, logp_mean=float(stats["logp"].mean()),
+         ess_worst_param_min=float(worst.min()), ess_worst_param_mean=float(worst.mean()),
+         mirror_fold_share=swap_share,
+         phi_mae_mean=float(mae.mean()), phi_mae_max=float(mae.max()),
+         phi_gap_vs_chees_mean=float(gap.mean()))
+    return rose, {k["kernel"]: k["ms"] for k in kernels}
+
+
+def phase_gaussian_nuts(device):
+    """The seventh main path: the ``hmm/main.R`` gate of
+    ``tests/test_models.py::test_gaussian_hmm_recovery`` on the port's
+    simulator, ``sample_nuts(model.make_logp(data))`` (the target through
+    ``forward_loglik``: ``FILTER`` forward and ``BETA`` backward once a
+    log-density call, and nothing else), 300 + 300 transitions on 2
+    chains: posterior means within the test's bounds, divergent share
+    under ``GN_DIV_MAX``, Viterbi accuracy of ``generated`` above
+    ``G_ACC_MIN``; the first launch of each kernel bitwise against its
+    plain version."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED_GN)
+    z_true, x = hmm_sim(gen, GN_T, GN_A, GN_P1, obsmodel_gaussian(GN_MU, GN_SIGMA))
+    data = {"x": x}
+    model = GaussianHMM(K=2)
+    init = init_chains(model, data, GN_CHAINS, seed=SEED_INIT, device=device)
+    cfg = SamplerConfig(num_warmup=GN_WARMUP, num_samples=GN_SAMPLES, num_chains=GN_CHAINS)
+    logp = Counted(model.make_logp(data))
+    before = launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    with LaneRecorder() as rec:
+        qs, stats = sample_nuts(logp, init, cfg, seed=SEED_SAMPLER, device=device)
+    sync()
+    wall = time.perf_counter() - t0
+    rose = rose_since(before)
+    if rose != {cs.FILTER.name: logp.calls, cs.BETA.name: logp.calls}:
+        raise AssertionError(f"gaussian_nuts: launches {rose} for {logp.calls} logp calls")
+    if not bool(stats["chain_healthy"].all()):
+        raise AssertionError("gaussian_nuts: a chain was quarantined")
+    post = model.constrained_draws(qs)
+    est = {k: post[k].mean((0, 1)).cpu().numpy() for k in ("mu_k", "sigma_k", "A_ij")}
+    errs = {"mu_k": float(np.abs(est["mu_k"] - GN_MU).max()),
+            "sigma_k": float(np.abs(est["sigma_k"] - GN_SIGMA).max()),
+            "A_ij": float(np.abs(est["A_ij"] - np.asarray(GN_A)).max())}
+    div_share = float(stats["diverging"].float().mean())
+    if (errs["mu_k"] > GN_MU_ATOL or errs["sigma_k"] > GN_SIGMA_ATOL or errs["A_ij"] > GN_A_ATOL
+            or not div_share < GN_DIV_MAX):
+        raise AssertionError(f"gaussian_nuts: posterior-mean errors {errs}, divergent share "
+                             f"{div_share:.3g}")
+    draws = qs.reshape(-1, model.n_free)[::50]
+    before = launch_counts()
+    out = model.generated(draws, data, device=device)
+    rose_gen = rose_since(before)
+    check_decode_once("gaussian_nuts", rose_gen)
+    acc = float((out["zstar"] == z_true[None]).float().mean())
+    if not acc > G_ACC_MIN:
+        raise AssertionError(f"gaussian_nuts: Viterbi accuracy {acc:.4g}")
+    kernels = kept_vs_plain(rec.calls, "gaussian_nuts")
+    transitions = GN_WARMUP + GN_SAMPLES
+    emit("gaussian_nuts", T=GN_T, K=2, chains=GN_CHAINS, warmup=GN_WARMUP, samples=GN_SAMPLES,
+         seconds=wall, transitions_per_s=transitions / wall, logp_calls=logp.calls,
+         logp_call_ms=wall / logp.calls * 1e3, **lockstep({k: v[None] for k, v in stats.items()}),
+         step_size=stats["step_size"].tolist(), divergent_share=div_share,
+         posterior_means={k: v.tolist() for k, v in est.items()}, max_abs_err=errs,
+         viterbi_accuracy=acc, generated_draws=int(draws.shape[0]), launches=rose,
+         generated_launches=rose_gen, kernels_vs_plain=kernels)
+    path = {n: rose.get(n, 0) + rose_gen.get(n, 0) for n in set(rose) | set(rose_gen)}
+    return path, {k["kernel"]: k["ms"] for k in kernels}
+
+
+def phase_walk_forward_nuts(device, tasks):
+    """The eighth main path: ``wf_trade`` with a ``SamplerConfig`` on
+    every ``WF_NUTS_STRIDE``-th of the ChEES arm's windows ordered by
+    in-sample ticks (the shortest and one of about 3,100 legs: one fit
+    group of 2 windows; stan gate, one chain, 50 + 50 transitions): ``FWD`` and
+    ``VG_BWD`` once a value-and-grad call and ``FWD`` twice a decode
+    dispatch, every chain healthy, trades for every lag, the lockstep
+    cost a fit group. Then ``run_window`` on the first of the windows.
+    The first launch of each kernel at each shape of the fit group and
+    of ``run_window`` (its fit and its decode), and of each decode path
+    of ``wf_trade`` (every dispatch under-filled at 50 draws, so through
+    ``generated``), held bitwise against the plain versions."""
+    lags = (0, 1, 2, 3, 4, 5)
+    chees_arm = sorted(tasks[::WF_CHEES_STRIDE][:WF_CHEES_TASKS], key=lambda t: t.ins_end_tick)
+    sub = chees_arm[::WF_NUTS_STRIDE]
+    cfg = SamplerConfig(num_warmup=WF_NUTS_WARMUP, num_samples=WF_NUTS_SAMPLES, num_chains=1)
+    res, phases, wall, fits, dec, vg_calls, rose, _ = wf_run(sub, cfg, "stan", WF_CHEES_CHUNK,
+                                                             device)
+    want = {cs.FWD.name: vg_calls + 2 * phases["decode.dispatches"], cs.VG_BWD.name: vg_calls}
+    if rose != want:
+        raise AssertionError(f"walk_forward_nuts: launches {rose}, expected {want}")
+    groups = fits.groups
+    if not all(g["healthy"] and g["logp_finite"] for g in groups):
+        raise AssertionError(f"walk_forward_nuts: an unhealthy chain: {groups}")
+    for r in res:
+        if not np.isfinite(r.bnh).all() or set(r.trades) != set(lags):
+            raise AssertionError(f"walk_forward_nuts: task {r.symbol}/{r.window}: no trades")
+    fit_kernels = [kept_vs_plain(calls, "walk_forward_nuts (fit group)") for calls in fits.lanes]
+    fits.lanes = []
+    plain = [wf_decode_vs_plain(k, "walk_forward_nuts") for k in dec.kept()]
+    if not plain:
+        raise AssertionError("walk_forward_nuts: no decode call was kept")
+    dec.clear()
+
+    task = sub[0]
+    vg = VGCounter(TayalHHMMLite.make_vg)
+    before = launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    with mock.patch.object(TayalHHMMLite, "make_vg", autospec=True, side_effect=vg), \
+            LaneRecorder() as rec:
+        win = run_window(task.price, task.size, task.t_seconds, task.ins_end_tick, config=cfg,
+                         seed=SEED_WF, device=device)
+    sync()
+    win_s = time.perf_counter() - t0
+    rose_w = rose_since(before)
+    # the fit's value-and-grad calls, then the decode's two filtered passes
+    if rose_w != {cs.FWD.name: vg.calls + 2, cs.VG_BWD.name: vg.calls}:
+        raise AssertionError(f"run_window: launches {rose_w} for {vg.calls} value-and-grad calls")
+    if not win.stats["chain_healthy"].all() or set(win.trades) != set(lags) \
+            or not np.isfinite(win.bnh).all():
+        raise AssertionError("run_window: an unhealthy chain or no trades")
+    # the fit's pair at T = the window's legs, and the decode's FWD at the
+    # in-sample and out-of-sample lengths
+    win_kernels = kept_vs_plain(rec.calls, "run_window")
+    emit("walk_forward_nuts", tasks=len(sub), gate_mode="stan", chains=1,
+         warmup=WF_NUTS_WARMUP, samples=WF_NUTS_SAMPLES, chunk=WF_CHEES_CHUNK, seconds=wall,
+         phase_timings=phases, fit_groups=groups, value_and_grad_calls=vg_calls,
+         value_and_grad_ms=sum(g["seconds"] for g in groups) / max(vg_calls, 1) * 1e3,
+         decode_dispatches=phases["decode.dispatches"], decode_calls=dec.calls,
+         launches=rose, fit_kernels_vs_plain=fit_kernels, decode_vs_plain=plain,
+         divergent_share=float(np.mean([r.diverged for r in res])),
+         divergent_share_max_task=float(max(r.diverged for r in res)),
+         oos_return_pct_mean=wf_returns(res, lags),
+         run_window=dict(symbol=task.symbol, window=task.window, seconds=win_s,
+                         legs_in_sample=win.n_ins_legs, legs=len(win.zig),
+                         value_and_grad_calls=vg.calls, launches=rose_w,
+                         kernels_vs_plain=win_kernels,
+                         divergent_share=float(win.stats["diverging"].mean()),
+                         step_size=win.stats["step_size"].tolist(),
+                         **lockstep({k: torch.as_tensor(v)[None]
+                                     for k, v in win.stats.items()})))
+    return {n: rose.get(n, 0) + rose_w.get(n, 0) for n in set(rose) | set(rose_w)}
 
 
 def ptxas_usage(log: str) -> dict:
@@ -2358,6 +2699,7 @@ def main() -> int:
     sim = sim_pool.submit(wf_tasks)
     sim_pool.shutdown(wait=False)
     t0 = time.perf_counter()
+    clock = [("build", t0)]  # (phase group, start) on the host clock, for the timeline line
     report = build_and_load(ALL_KERNELS)
     per_source = {s: {"seconds": r["seconds"], "cached": r["cached"]} for s, r in report.items()}
     emit("build", seconds=time.perf_counter() - t0, per_source=per_source)
@@ -2377,31 +2719,38 @@ def main() -> int:
 
     emit("kernel_resources", K=list(TABLE_KS), **kernel_resources(usage))
 
+    clock.append(("kernels_ffbs_vg_traj", time.perf_counter()))
     kern = phase_kernels(device)
     vgk = phase_kernels_vg(device)
     trk = phase_kernels_traj(device)
 
     # main path 1, the Gibbs fit and its decode: counts from zero, read
     # after the decode
+    clock.append(("gibbs", time.perf_counter()))
     reset_all()
     qs, gibbs_phi = phase_fit(device, kern["timing"]["fwd_ms"] + kern["timing"]["bwd_ms"])
     phase_decode(device, qs)
     gibbs = {k.name: k.launches for k in ALL_KERNELS}
     # main path 2, the fused ChEES fit
+    clock.append(("chees", time.perf_counter()))
     reset_all()
-    chees_qs, chees_stats = phase_chees(device, gibbs_phi)
+    chees_qs, chees_stats, chees_phi = phase_chees(device, gibbs_phi)
     chees = {k.name: k.launches for k in ALL_KERNELS}
     phase_chees_repeat(device, chees_qs, chees_stats)
     phase_chees_seeds(device, chees_stats)
     # its unfused form
+    clock.append(("chees_unfused", time.perf_counter()))
     reset_all()
     phase_chees_unfused(device)
     unfused = {k.name: k.launches for k in ALL_KERNELS}
+    clock.append(("kernels_decode", time.perf_counter()))
     deck = phase_kernels_decode(device)
+    clock.append(("kernels_wide", time.perf_counter()))
     widek = phase_kernels_wide(device)
     # main path 3, the zoo's generated quantities: the hard-gate Tayal
     # decode of the Gibbs draws, the same decode of the ChEES draws, and
     # the Gaussian HMM's fit, decode and state draws
+    clock.append(("zoo", time.perf_counter()))
     reset_all()
     dec = phase_decode_smooth(device, qs)
     phase_agreement(device, dec, chees_qs)
@@ -2413,18 +2762,38 @@ def main() -> int:
     del dec
     # main path 4, the zoo above K=32: the K=64 Gaussian HMM's fit, state
     # draws, decode and value-and-grad, every semiring kernel a block a lane
+    clock.append(("zoo_wide", time.perf_counter()))
     reset_all()
     phase_zoo_wide(device)
     zoo_wide = {k.name: k.launches for k in ALL_KERNELS}
     # main path 5, the walk-forward back-test: features, batched fits,
     # the median-alpha decode and the trades of 204 windows, then the
     # ChEES arm on 16 of them
+    clock.append(("walk_forward", time.perf_counter()))
     wf_task_list, wf_data_s = sim.result()
     reset_all()
     wf_fits = phase_walk_forward(device, wf_task_list, wf_data_s)
     walk = {k.name: k.launches for k in ALL_KERNELS}
+    clock.append(("walk_forward_kernels", time.perf_counter()))
     phase_walk_forward_kernels(*wf_fits)
     del wf_fits
+    # main path 6, NUTS through fit_batched on the ChEES phase's batch
+    clock.append(("nuts", time.perf_counter()))
+    # (each NUTS phase returns its path's launches, read before its
+    # kernels are checked and timed on the kept inputs)
+    reset_all()
+    nuts, nuts_ms = phase_nuts(device, chees_phi)
+    # main path 7, the Gaussian NUTS gate through make_logp
+    clock.append(("gaussian_nuts", time.perf_counter()))
+    reset_all()
+    gnuts, gn_ms = phase_gaussian_nuts(device)
+    # main path 8, the walk-forward back-test by NUTS, and run_window
+    clock.append(("walk_forward_nuts", time.perf_counter()))
+    reset_all()
+    wf_nuts = phase_walk_forward_nuts(device, wf_task_list)
+    clock.append(("end", time.perf_counter()))
+    emit("timeline", seconds={a: b - ta for (a, ta), (_, b) in zip(clock, clock[1:])},
+         total_seconds=clock[-1][1] - clock[0][1])
     missing = [n for n in (cs.FWD.name, cs.BWD_SAMPLE.name) if gibbs[n] == 0]
     missing += [n for n in (cs.FWD.name, cs.VG_BWD.name, ct.TRAJ.name) if chees[n] == 0]
     missing += [n for n in (cs.FWD.name, cs.VG_BWD.name) if unfused[n] == 0]
@@ -2432,6 +2801,11 @@ def main() -> int:
     missing += [f"{k.name} (zoo_wide)" for k in cs.KERNELS if zoo_wide[k.name] == 0]
     missing += [f"{k.name} (walk_forward)" for k in (cs.FWD, cs.BWD_SAMPLE, cs.VG_BWD)
                 if walk[k.name] == 0]
+    missing += [f"{n} (nuts)" for n in (cs.FWD.name, cs.VG_BWD.name) if not nuts.get(n)]
+    missing += [f"{n} (gaussian_nuts)" for n in (cs.FILTER.name, cs.BETA.name)
+                if not gnuts.get(n)]
+    missing += [f"{n} (walk_forward_nuts)" for n in (cs.FWD.name, cs.VG_BWD.name)
+                if not wf_nuts.get(n)]
     if missing:
         raise AssertionError(f"a main path never launched {missing}")
 
@@ -2500,6 +2874,13 @@ def main() -> int:
                                 k.name in c["kernels"] for c in widek["cases"]))
         if k in (cs.FWD, cs.BWD_SAMPLE, cs.VG_BWD):
             rows[-1]["launches_walk_forward"] = walk[k.name]
+        if k in (cs.FWD, cs.VG_BWD):  # the NUTS paths
+            rows[-1].update(launches_nuts=nuts[k.name], ms_nuts=nuts_ms[k.name],
+                            shape_nuts=dict(N=N_SERIES, T=T_FIT, K=K_TAYAL, gated=True),
+                            launches_walk_forward_nuts=wf_nuts[k.name])
+        if k in (cs.FILTER, cs.BETA):
+            rows[-1].update(launches_gaussian_nuts=gnuts[k.name], ms_gaussian_nuts=gn_ms[k.name],
+                            shape_gaussian_nuts=dict(N=GN_CHAINS, T=GN_T, K=2))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

@@ -3,7 +3,7 @@ zig-zag feature extraction, top-state mapping/labeling, trading rules,
 analytics, and the batched walk-forward harness on the card.
 
 Not ported yet: ``online_flip_detector`` (it needs the serving plane's
-``RegimeDetector``, ``ROADMAP.md`` A10) and ``run_window`` (NUTS, A5).
+``RegimeDetector``, ``ROADMAP.md`` A10).
 """
 
 from hhmm_tpu_torch.apps.tayal.features import (
@@ -28,6 +28,7 @@ from hhmm_tpu_torch.apps.tayal.pipeline import (
     classify_hard,
     decode_states,
     label_and_trade,
+    run_window,
 )
 from hhmm_tpu_torch.apps.tayal.simulate import simulate_ticks
 from hhmm_tpu_torch.apps.tayal.wf import WFTask, WFResult, build_tasks, wf_trade
@@ -53,6 +54,7 @@ __all__ = [
     "classify_hard",
     "decode_states",
     "label_and_trade",
+    "run_window",
     "simulate_ticks",
     "WFTask",
     "WFResult",

@@ -1,11 +1,10 @@
-"""Single-window Tayal pipeline pieces (counterpart of
-``hhmm_tpu/apps/tayal/pipeline.py``): posterior draws → hard bottom
-states by median filtered probability (on the card) → top-state mapping
-→ ex-post bear/bull labeling → trading.
-
-``run_window``, which fits one window with NUTS, waits for the port's
-NUTS sampler (``ROADMAP.md`` A5); the walk-forward harness
-(``apps/tayal/wf.py``) fits with Gibbs or ChEES through ``fit_batched``.
+"""Single-window Tayal pipeline (counterpart of
+``hhmm_tpu/apps/tayal/pipeline.py``): features → a NUTS fit
+(:func:`run_window`) → posterior draws → hard bottom states by median
+filtered probability (on the card) → top-state mapping → ex-post
+bear/bull labeling → trading. The walk-forward harness
+(``apps/tayal/wf.py``) fits many windows at once through
+``fit_batched`` and shares the labeling and trading chain.
 """
 
 from __future__ import annotations
@@ -16,7 +15,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from hhmm_tpu_torch._device import DeviceLike
+from hhmm_tpu_torch._device import DeviceLike, resolve_device
 from hhmm_tpu_torch.apps.tayal.analytics import (
     TopRuns,
     map_to_topstate,
@@ -24,8 +23,17 @@ from hhmm_tpu_torch.apps.tayal.analytics import (
     topstate_runs,
     topstate_summary,
 )
-from hhmm_tpu_torch.apps.tayal.features import ZigZag, expand_to_ticks, expand_to_ticks_xts
+from hhmm_tpu_torch.apps.tayal.features import (
+    ZigZag,
+    expand_to_ticks,
+    expand_to_ticks_xts,
+    extract_features,
+    to_model_inputs,
+)
 from hhmm_tpu_torch.apps.tayal.trading import Trades, buyandhold, topstate_trading
+from hhmm_tpu_torch.batch.fit import derive_seed
+from hhmm_tpu_torch.infer import SamplerConfig, init_chains, sample
+from hhmm_tpu_torch.models import TayalHHMMLite
 
 __all__ = [
     "TayalWindowResult",
@@ -33,6 +41,7 @@ __all__ = [
     "decode_states",
     "label_and_trade",
     "LabeledWindow",
+    "run_window",
 ]
 
 
@@ -140,3 +149,62 @@ class TayalWindowResult:
     trades: Dict[int, Trades]  # per lag
     bnh: np.ndarray  # buy-and-hold per-tick returns over the OOS span
     swapped: bool
+
+
+def run_window(
+    price: np.ndarray,
+    size: np.ndarray,
+    t_seconds: np.ndarray,
+    ins_end_tick: int,
+    alpha: float = 0.25,
+    config=SamplerConfig(num_warmup=250, num_samples=250, num_chains=1),
+    seed: int = 0,
+    gate_mode: str = "stan",
+    lags: Sequence[int] = (0, 1, 2, 3, 4, 5),
+    device: DeviceLike = None,
+) -> TayalWindowResult:
+    """Fit on the legs ending at or before ``ins_end_tick``, filter the
+    rest out of sample, trade the out-of-sample span
+    (`tayal2009/main.R:62-235`).
+
+    The fit runs :func:`~hhmm_tpu_torch.infer.sample` (NUTS for a
+    ``SamplerConfig``, ChEES for a ``ChEESConfig``) with
+    ``model.make_vg`` as the hot loop (the ``FWD`` + ``VG_BWD`` pair on
+    the card; it takes precedence over ``make_logp``, whose
+    time-varying stan-gate ``log_A`` would run the plain scans), chains
+    started by :func:`~hhmm_tpu_torch.infer.init_chains`. The JAX
+    signature's ``key`` is ``seed`` here (the inits take
+    ``derive_seed(seed, 1)``, as the JAX ``fold_in(key, 1)``);
+    ``device=None`` is the CUDA card."""
+    device = resolve_device(device)
+    zig = extract_features(price, size, t_seconds, alpha=alpha)
+    x, sign = to_model_inputs(zig.feature)
+    ins = zig.end <= ins_end_tick
+    n_ins = int(ins.sum())
+    if n_ins < 10 or n_ins == len(zig):
+        raise ValueError(f"degenerate in-sample split: {n_ins}/{len(zig)} legs")
+
+    model = TayalHHMMLite(gate_mode=gate_mode)
+    data = {
+        k: torch.as_tensor(v, device=device)
+        for k, v in (("x", x[:n_ins]), ("sign", sign[:n_ins]),
+                     ("x_oos", x[n_ins:]), ("sign_oos", sign[n_ins:]))
+    }
+    init = init_chains(model, data, config.num_chains, seed=derive_seed(seed, 1), device=device)
+    qs, stats = sample(model.make_logp(data), init, config, seed=seed, device=device,
+                       vg_fn=model.make_vg(data))
+    leg_state = decode_states(model, qs.cpu().numpy(), data, device=device)
+    lw = label_and_trade(price, zig, leg_state, ins_end_tick, lags, t_seconds=t_seconds)
+    return TayalWindowResult(
+        zig=zig,
+        n_ins_legs=n_ins,
+        samples=qs.cpu().numpy(),
+        stats={k: v.cpu().numpy() for k, v in stats.items()},
+        leg_state=leg_state,
+        leg_topstate=lw.leg_topstate,
+        runs=lw.runs,
+        summary=lw.summary,
+        trades=lw.trades,
+        bnh=lw.bnh,
+        swapped=lw.swapped,
+    )

@@ -34,7 +34,7 @@ from hhmm_tpu_torch.apps.tayal.features import extract_features, to_model_inputs
 from hhmm_tpu_torch.apps.tayal.pipeline import label_and_trade
 from hhmm_tpu_torch.apps.tayal.trading import Trades
 from hhmm_tpu_torch.batch import ResultCache, derive_seed, digest_key, fit_batched, pad_datasets
-from hhmm_tpu_torch.infer import GibbsConfig
+from hhmm_tpu_torch.infer import SamplerConfig
 from hhmm_tpu_torch.models import TayalHHMMLite
 from hhmm_tpu_torch.native import zigzag as _nz
 
@@ -151,7 +151,7 @@ def median_states(probs: torch.Tensor) -> torch.Tensor:
 
 def wf_trade(
     tasks: Sequence[WFTask],
-    config=GibbsConfig(num_warmup=250, num_samples=250, num_chains=1),
+    config=SamplerConfig(num_warmup=250, num_samples=250, num_chains=1),
     alpha: float = 0.25,
     gate_mode: str = "stan",
     lags: Sequence[int] = (0, 1, 2, 3, 4, 5),
@@ -167,8 +167,9 @@ def wf_trade(
     """Run all tasks as batched fits + per-task host post-processing
     (`wf-trade.R:30-179`, minus the socket cluster).
 
-    ``config`` is a :class:`~hhmm_tpu_torch.infer.GibbsConfig` (the
-    default, as NUTS is not ported: ``ROADMAP.md`` A5) or a
+    ``config`` is a :class:`~hhmm_tpu_torch.infer.SamplerConfig` (NUTS,
+    the default, as in the JAX harness), a
+    :class:`~hhmm_tpu_torch.infer.GibbsConfig` or a
     :class:`~hhmm_tpu_torch.infer.ChEESConfig` (shared adaptation,
     ``num_chains >= 2``); ``fit_batched`` dispatches on the type.
 

@@ -2,14 +2,17 @@
 (counterpart of ``hhmm_tpu/batch/fit.py::fit_batched``).
 
 The JAX package vmaps a per-series sampler over a chunk of series
-inside one jitted program. Here a chunk is one batch of lanes: the
-Gibbs sampler (``infer/gibbs.py``) and the shared-adaptation ChEES
-sampler (``infer/chees.py``) are batch-native, so a chunk of ``n``
-series × ``C`` chains runs as ``n·C`` lanes of each kernel launch.
+inside one jitted program. Here a chunk is one batch of lanes: NUTS
+(``infer/run.py``, every chain adapted on its own, the trees in
+lockstep), the Gibbs sampler (``infer/gibbs.py``) and the
+shared-adaptation ChEES sampler (``infer/chees.py``) are batch-native,
+so a chunk of ``n`` series × ``C`` chains runs as ``n·C`` lanes of each
+kernel launch.
 
 - **Chunks.** Series are fitted ``chunk_size`` at a time. A ragged final
   chunk is padded by repeating its last series with weight 0 in the
-  pooled ChEES adaptation, and the padding never shows in the result.
+  pooled ChEES adaptation (NUTS pools nothing), and the padding never
+  shows in the result.
 - **Cache.** With ``cache_dir``, each chunk (and the chain inits) is
   stored in the digest-keyed :class:`~hhmm_tpu_torch.batch.cache.
   ResultCache`; a rerun reads finished chunks back, the reference's
@@ -43,6 +46,7 @@ from hhmm_tpu_torch.batch.cache import ResultCache, digest_key
 from hhmm_tpu_torch.batch.init import default_init
 from hhmm_tpu_torch.infer.chees import ChEESConfig, make_lp_bc, sample_chees_batched
 from hhmm_tpu_torch.infer.gibbs import GibbsConfig, sample_gibbs
+from hhmm_tpu_torch.infer.run import SamplerConfig, sample_nuts_batched
 
 __all__ = ["derive_seed", "fit_batched"]
 
@@ -72,7 +76,7 @@ def _host(v) -> np.ndarray:
 def fit_batched(
     model,
     data: Dict[str, Any],
-    config,
+    config=SamplerConfig(),
     init: Optional[Any] = None,
     chunk_size: int = 64,
     cache_dir: Optional[str] = None,
@@ -84,22 +88,25 @@ def fit_batched(
     ``data``: arrays with a leading series axis ``[B, ...]`` (numpy or
     torch; build ragged series with :func:`hhmm_tpu_torch.batch.
     pad_datasets`). ``config`` selects the sampler: a
-    :class:`~hhmm_tpu_torch.infer.GibbsConfig` runs blocked conjugate
-    Gibbs (the model implements ``gibbs_update``); a
-    :class:`~hhmm_tpu_torch.infer.ChEESConfig` runs ChEES-HMC with its
-    step size and trajectory length shared over the chunk
-    (``make_lp_bc`` over the chunk, the first series' ``make_vg`` for
-    the step-size probe, and no fused trajectory, as the JAX
-    ``fit_batched`` runs it). NUTS is not ported (``ROADMAP.md`` A5).
+    :class:`~hhmm_tpu_torch.infer.SamplerConfig` (the default) runs NUTS
+    with every chain adapted on its own (``sample_nuts_batched`` on the
+    chunk's ``model.make_vg``: one value-and-grad call over the chunk's
+    lanes a leapfrog); a :class:`~hhmm_tpu_torch.infer.GibbsConfig`
+    runs blocked conjugate Gibbs (the model implements
+    ``gibbs_update``); a :class:`~hhmm_tpu_torch.infer.ChEESConfig` runs
+    ChEES-HMC with its step size and trajectory length shared over the
+    chunk (``make_lp_bc`` over the chunk, the first series' ``make_vg``
+    for the step-size probe, and no fused trajectory, as the JAX
+    ``fit_batched`` runs it).
     ``init``: ``[B, C, n_free]`` chain inits, else
     :func:`~hhmm_tpu_torch.batch.default_init` seeded from ``seed``.
 
     Returns ``(samples [B, C, S, n_free], stats)`` on ``device``, every
     stats entry with a leading series axis."""
-    if not isinstance(config, (GibbsConfig, ChEESConfig)):
+    if not isinstance(config, (SamplerConfig, GibbsConfig, ChEESConfig)):
         raise TypeError(
-            f"fit_batched runs GibbsConfig or ChEESConfig, got {type(config).__name__}: "
-            "the NUTS sampler is not ported yet (ROADMAP.md A5)"
+            "fit_batched runs SamplerConfig, GibbsConfig or ChEESConfig, got "
+            f"{type(config).__name__}"
         )
     device = resolve_device(device)
     data = {k: torch.as_tensor(v, device=device) for k, v in data.items() if v is not None}
@@ -109,7 +116,8 @@ def fit_batched(
     B = sizes.pop()
     C = config.num_chains
     chees = isinstance(config, ChEESConfig)
-    stage = f"{'chees-vg' if chees else 'gibbs'}-torch-v1-{device.type}"
+    nuts = isinstance(config, SamplerConfig)
+    stage = f"{'chees-vg' if chees else 'nuts-vg' if nuts else 'gibbs'}-torch-v1-{device.type}"
     cache = ResultCache(cache_dir)
     host_data = {k: _host(v) for k, v in data.items()} if cache_dir else None
     if init is None:
@@ -171,6 +179,10 @@ def fit_batched(
                     device=device,
                     series_weight=chunk_w,
                     probe_vg=model.make_vg({k: v[0] for k, v in chunk_data.items()}),
+                )
+            elif nuts:
+                qs, stats = sample_nuts_batched(
+                    model.make_vg(chunk_data), chunk_init, config, seed=cseed, device=device
                 )
             else:
                 qs, stats = sample_gibbs(

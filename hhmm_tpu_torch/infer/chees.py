@@ -49,6 +49,7 @@ from hhmm_tpu_torch.infer.run import (
     _Welford,
     _welford_update,
     _welford_variance,
+    vg_from_logp,
     warmup_schedule,
 )
 from hhmm_tpu_torch.robust.guards import finite_mask, guard_update
@@ -349,16 +350,7 @@ def sample_chees(
             "expectations); use sample_nuts for single-chain runs"
         )
 
-    if vg_fn is not None:
-        single = vg_fn
-    else:
-
-        def single(q):
-            with torch.enable_grad():
-                th = q.detach().requires_grad_(True)
-                lp = logp_fn(th)
-                (g,) = torch.autograd.grad(lp.sum(), th)
-            return lp.detach(), g
+    single = vg_fn if vg_fn is not None else vg_from_logp(logp_fn)
 
     def lp_bc(q):  # [1, C, dim]
         lps, gs = single(q[0])

@@ -13,6 +13,11 @@ Gated transitions: ``c[t, j] = (gate_key[t] == state_key[j])`` gates
 stays homogeneous and the Tayal stan gate runs the kernels. Inputs must
 be finite (models use ``safe_log`` / ``MASK_NEG``).
 
+A time-varying ``log_A [N, T-1, K, K]`` (an input-driven transition
+matrix, the IOHMM's) takes the JAX module's ``_vg_core`` path on any
+device: the guarded scans of ``kernels/filtering.py`` and the
+Baum-Welch sums as torch ops, gated or not, with ``d_A`` per slice.
+
 The JAX module's ``custom_vmap`` folds any nesting of series and chains
 into one flat batch; here the caller hands the flat batch over directly
 (``models/base.py::make_vg`` flattens its leading axes). Its TPU
@@ -33,8 +38,25 @@ from typing import Optional, Tuple
 import torch
 
 from hhmm_tpu_torch.kernels.cuda_semiring import semiring_vg
+from hhmm_tpu_torch.kernels.filtering import backward_pass, forward_filter
+from hhmm_tpu_torch.kernels.grad import baum_welch
 
 __all__ = ["forward_value_and_grad", "ForwardLoglik"]
+
+
+def _vg_time_varying(log_pi, log_A, log_obs, mask, gate_key, state_key):
+    """The JAX ``_vg_core`` on the scans, for ``log_A [N, T-1, K, K]``."""
+    cA = None
+    if gate_key is not None:
+        sk = state_key if state_key.ndim == 2 else state_key[None]
+        cA = (gate_key[:, :, None] == sk[:, None, :])[:, 1:, None, :]  # [N, T-1, 1, K]
+    A_eff = log_A if cA is None else torch.where(cA, log_A, torch.zeros_like(log_A))
+    log_alpha, ll = forward_filter(log_pi, A_eff, log_obs, mask)
+    log_beta = backward_pass(A_eff, log_obs, mask)
+    d_pi, xi, gamma = baum_welch(log_alpha, log_beta, A_eff, log_obs, mask, ll)
+    if cA is not None:
+        xi = xi * cA  # chain rule: dA_eff/dA = c
+    return ll, d_pi, xi, gamma
 
 
 def forward_value_and_grad(
@@ -45,9 +67,15 @@ def forward_value_and_grad(
     gate_key: Optional[torch.Tensor] = None,  # [N, T]
     state_key: Optional[torch.Tensor] = None,  # [N, K] or [K]
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``(loglik [N], d_pi [N, K], d_A [N, K, K], d_obs [N, T, K])``.
-    ``mask`` is required (ones for dense series); gradients are taken
-    with respect to ``log_pi``, ``log_A`` and ``log_obs`` only."""
+    """``(loglik [N], d_pi [N, K], d_A [N, K, K], d_obs [N, T, K])``
+    (``d_A [N, T-1, K, K]`` for a time-varying ``log_A``). ``mask`` is
+    required (ones for dense series); gradients are taken with respect
+    to ``log_pi``, ``log_A`` and ``log_obs`` only."""
+    if (gate_key is None) != (state_key is None):
+        raise ValueError("gate_key and state_key must be given together")
+    if log_A.ndim == 4:
+        return _vg_time_varying(log_pi, log_A, log_obs, mask.to(log_obs.dtype), gate_key,
+                                state_key)
     return semiring_vg(log_pi, log_A, log_obs, mask, gate_key, state_key)
 
 
@@ -66,5 +94,6 @@ class ForwardLoglik(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         d_pi, d_A, d_obs = ctx.saved_tensors
-        return g[:, None] * d_pi, g[:, None, None] * d_A, g[:, None, None] * d_obs, None, None, None
+        g_A = g.reshape((-1,) + (1,) * (d_A.ndim - 1))
+        return g[:, None] * d_pi, g_A * d_A, g[:, None, None] * d_obs, None, None, None
 

@@ -28,6 +28,8 @@ import torch
 from hhmm_tpu_torch._device import DeviceLike, resolve_device
 from hhmm_tpu_torch.core.bijectors import Bijector
 from hhmm_tpu_torch.kernels.dispatch import ffbs_dispatch, smooth_dispatch, viterbi_dispatch
+from hhmm_tpu_torch.kernels.filtering import time_varying
+from hhmm_tpu_torch.kernels.grad import forward_loglik
 from hhmm_tpu_torch.kernels.vg import ForwardLoglik
 
 __all__ = ["BaseHMMModel", "broadcast_data", "per_lane", "draw_lanes"]
@@ -113,6 +115,28 @@ class BaseHMMModel:
         as in the reference models that declare none."""
         return next(iter(params.values())).new_zeros(())
 
+    def loglik(self, params: Params, data: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Marginal log-likelihood ``[...]`` of :meth:`build`'s terms
+        through :func:`~hhmm_tpu_torch.kernels.grad.forward_loglik`
+        (its backward is the Baum-Welch gradient: ``FILTER`` then
+        ``BETA`` on the card for a homogeneous ``log_A``, the scans for a
+        time-varying one)."""
+        return forward_loglik(*self.build(params, data))
+
+    def make_logp(self, data: Dict[str, torch.Tensor]) -> Callable[[torch.Tensor], torch.Tensor]:
+        """The NUTS target on the unconstrained space (Stan's ``lp__``):
+        ``theta [..., n_free] -> loglik + log_prior + log|J| [...]``,
+        differentiable by autograd. ``data`` arrays carry a prefix of
+        ``theta``'s leading axes (:func:`broadcast_data`)."""
+
+        def logp(theta: torch.Tensor) -> torch.Tensor:
+            lead = tuple(theta.shape[:-1])
+            lanes = {k: broadcast_data(v, lead) for k, v in data.items() if v is not None}
+            params, ldj = self.unpack(theta)
+            return self.loglik(params, lanes) + self.log_prior(params) + ldj
+
+        return logp
+
     def make_vg(
         self, data: Dict[str, torch.Tensor]
     ) -> Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]:
@@ -122,9 +146,10 @@ class BaseHMMModel:
         The leading axes of ``theta`` are flattened into one batch of
         lanes and the forward recursion runs as ONE call of
         :class:`~hhmm_tpu_torch.kernels.vg.ForwardLoglik` (the ``FWD`` +
-        ``VG_BWD`` kernel pair on the card). The chain rule back to
+        ``VG_BWD`` kernel pair on the card; a time-varying ``[..., T-1,
+        K, K]`` ``log_A`` runs the plain scans). The chain rule back to
         ``theta`` (bijectors, builders, prior) is ordinary autograd; the
-        recursion's own gradient is the pair's closed Baum-Welch form.
+        recursion's own gradient is the closed Baum-Welch form.
         ``data`` arrays carry a prefix of ``theta``'s leading axes
         (:func:`broadcast_data`)."""
 
@@ -143,9 +168,10 @@ class BaseHMMModel:
                 gate = () if gk is None else (
                     gk[0].reshape(n, T), broadcast_data(gk[1], lead).reshape(n, K)
                 )
+                a_event = (T - 1, K, K) if time_varying(log_A, log_obs) else (K, K)
                 ll = ForwardLoglik.apply(
                     log_pi.reshape(n, K),
-                    log_A.reshape(n, K, K),
+                    log_A.reshape((n,) + a_event),
                     log_obs.reshape(n, T, K),
                     mask.reshape(n, T),
                     *gate,

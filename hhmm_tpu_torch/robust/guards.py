@@ -51,13 +51,15 @@ def all_finite(*trees: Tree, batch_ndim: int = 1) -> torch.Tensor:
 
 def guard_where(ok: torch.Tensor, new: Tree, old: Tree) -> Tree:
     """Per-leaf ``torch.where(ok, new, old)`` with ``ok`` (the leading
-    lane axes) broadcast over each leaf's trailing axes."""
+    lane axes) broadcast over each leaf's trailing axes; a NamedTuple
+    comes back as its own type."""
     if isinstance(new, torch.Tensor):
         cond = ok.reshape(ok.shape + (1,) * (new.ndim - ok.ndim))
         return torch.where(cond, new, old)
     if isinstance(new, dict):
         return {k: guard_where(ok, new[k], old[k]) for k in new}
-    return type(new)(guard_where(ok, n, o) for n, o in zip(new, old))
+    leaves = [guard_where(ok, n, o) for n, o in zip(new, old)]
+    return type(new)(*leaves) if hasattr(new, "_fields") else type(new)(leaves)
 
 
 def guard_update(

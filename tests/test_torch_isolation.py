@@ -19,16 +19,21 @@ import pytest
 import torch
 
 import hhmm_tpu_torch
-from hhmm_tpu_torch.apps.tayal import decode_states, wf_trade
+from hhmm_tpu_torch.apps.tayal import decode_states, run_window, simulate_ticks, wf_trade
 from hhmm_tpu_torch.batch import default_init, fit_batched
 from hhmm_tpu_torch.convert import constrained_from_jax, params_from_jax
 from hhmm_tpu_torch.infer import (
     ChEESConfig,
     GibbsConfig,
+    SamplerConfig,
+    init_chains,
     make_lp_bc,
+    sample,
     sample_chees,
     sample_chees_batched,
     sample_gibbs,
+    sample_nuts,
+    sample_nuts_batched,
 )
 from hhmm_tpu_torch.kernels import cuda_semiring as cs
 from hhmm_tpu_torch.kernels import cuda_traj as ct
@@ -76,6 +81,8 @@ def test_port_file_list_is_complete():
         "hhmm_tpu_torch/infer/chees.py",
         "hhmm_tpu_torch/infer/run.py",
         "hhmm_tpu_torch/infer/nuts.py",
+        "hhmm_tpu_torch/infer/api.py",
+        "hhmm_tpu_torch/kernels/grad.py",
         "hhmm_tpu_torch/models/gaussian_hmm.py",
         "hhmm_tpu_torch/core/dists.py",
         "hhmm_tpu_torch/infer/relabel.py",
@@ -142,6 +149,22 @@ ENTRY_POINTS = {
         TayalHHMM(gate_mode="hard"), dict(zip(("x", "sign"), _tiny())), GibbsConfig(1, 1)
     ),
     "wf_trade": lambda: wf_trade([]),
+    "sample_nuts": lambda: sample_nuts(
+        lambda q: -(q * q).sum(-1), torch.zeros(2, 3), SamplerConfig(2, 2, num_chains=2)
+    ),
+    "sample_nuts_batched": lambda: sample_nuts_batched(
+        lambda q: (-(q * q).sum(-1), -q), torch.zeros(1, 1, 3), SamplerConfig(2, 2)
+    ),
+    "sample": lambda: sample(lambda q: -(q * q).sum(-1), torch.zeros(3), SamplerConfig(2, 2)),
+    "init_chains": lambda: init_chains(
+        TayalHHMM(), {"x": _tiny()[0][0], "sign": _tiny()[1][0]}, 2
+    ),
+    "fit_batched_nuts": lambda: fit_batched(
+        TayalHHMM(), dict(zip(("x", "sign"), _tiny())), SamplerConfig(1, 1)
+    ),
+    "run_window": lambda: run_window(
+        *simulate_ticks(np.random.default_rng(0), n_legs=60)[:3], ins_end_tick=100
+    ),
     "decode_states": lambda: decode_states(
         TayalHHMMLite(), np.zeros((2, 35)),
         {"x": _tiny()[0][0], "sign": _tiny()[1][0], "x_oos": _tiny()[0][0], "sign_oos": _tiny()[1][0]},

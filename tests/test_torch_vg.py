@@ -229,9 +229,12 @@ class TestWrapperChecks:
             forward_value_and_grad(d["log_pi"], d["log_A"], d["log_obs"], d["mask"], d["gate_key"])
 
     def test_time_varying_A_raises(self, rng):
+        """A time-varying ``log_A`` runs the scans (``test_torch_nuts_models.py``
+        holds it against the JAX entry); one with the wrong number of
+        slices raises."""
         d = _t(_batch(rng, 2, 16, 4))
-        with pytest.raises(ValueError, match="homogeneous"):
-            forward_value_and_grad(d["log_pi"], d["log_A"][:, None].expand(2, 15, 4, 4),
+        with pytest.raises(ValueError, match="T-1=15 slices"):
+            forward_value_and_grad(d["log_pi"], d["log_A"][:, None].expand(2, 14, 4, 4),
                                    d["log_obs"], d["mask"])
 
     @pytest.mark.parametrize("bad", ["ll", "alpha", "gate_alone"])
