@@ -4,7 +4,7 @@ its hand-written CUDA kernels against its plain PyTorch version there.
 
     python3 chip_smoke.py
 
-Eight main paths, each driven with the kernel counts set to 0 just
+Twelve main paths, each driven with the kernel counts set to 0 just
 before it and read just after:
 
 - the batched Tayal Gibbs fit that ``bench.py`` runs by default (256
@@ -42,11 +42,23 @@ before it and read just after:
   transitions: 256 lanes in lockstep, ``FWD`` and ``VG_BWD`` once a
   value-and-grad call);
 - the ``hmm/main.R`` Gaussian gate under NUTS through ``make_logp``
-  (T=500, K=2, 2 chains, 300 + 300: ``FILTER`` forward and ``BETA``
+  (T=500, K=2, 2 chains, 150 + 150: ``FILTER`` forward and ``BETA``
   backward once a log-density call);
 - the walk-forward back-test by NUTS (``wf_trade`` with a
-  ``SamplerConfig`` on the 4 shortest of the ChEES arm's windows, 50 +
-  50 transitions) and ``run_window`` on the first of them.
+  ``SamplerConfig`` on every 8th of the ChEES arm's windows by length,
+  50 + 50 transitions) and ``run_window`` on the first of them;
+- the multinomial HMMs of ``hmm/main-multinom.R`` (K=3, L=5) and
+  ``hmm/main-multinom-semisup.R`` (K=4, L=9, both gates), 256 series x
+  T=1024 each: ``fit_batched`` Gibbs 100 + 300 in chunks of 64,
+  ``generated``, and 32 ``state_draws`` a series on the gated kernels
+  and on the Gumbel-max route;
+- ``fit_batched``'s healing ladder on the Tayal batch: a dispatch-level
+  fault healed, a sticky one degraded, a crash resumed from the cache,
+  and a NUTS fit under an in-scan fault escalated to the ladder's end;
+- per-series ChEES adaptation (``ChEESConfig(shared_adaptation=False)``)
+  through ``fit_batched`` at the ChEES cell, 50 + 50;
+- the replication diagnostics (``apps/tayal/replication.py``) on the
+  ChEES draws, their FFBS paths by the Gumbel-max scan.
 
 Phases, one JSON object per line:
 
@@ -184,13 +196,35 @@ Phases, one JSON object per line:
    chain healthy, trades for every lag, the lockstep cost a fit group;
    then ``run_window`` (``FWD`` and ``VG_BWD`` once a value-and-grad
    call, ``FWD`` twice for its decode).
+   multinom — the ninth main path: per model, ``FWD`` and
+   ``BWD_SAMPLE`` once a sweep a chunk, each decode kernel once a
+   homogeneous ``generated`` (the stan gate's time-varying decode runs
+   the scans and launches nothing), every chain healthy, Viterbi
+   accuracy and emission error after ``greedy_relabel`` (gated for the
+   multinomial and hard-gate models); ``state_draws`` of the stan fit
+   on the gated kernels (``FWD`` and ``BWD_SAMPLE`` once) and on the
+   Gumbel route (no kernel), their pooled per-step state frequencies
+   within ``MN_FREQ_Z_MAX`` sigma; the first launch of each kernel at
+   each shape bitwise against its plain version.
+   heal — the tenth: the clean, healed, sticky, crashed and resumed
+   Gibbs runs and the escalated NUTS ladder (see ``phase_heal``); the
+   first launch of each kernel at each shape of the heal re-dispatches
+   bitwise against its plain version.
+   chees_per_series — the eleventh: ``FWD`` and ``VG_BWD`` once a
+   value-and-grad call, every chain healthy, the emission rows within
+   ``CPS_PHI_MAE_MAX``; the spread of the per-series step sizes and
+   trajectory lengths, the lockstep efficiency, the gap to the shared
+   arm's posterior means; first launches bitwise.
+   replication — the twelfth: the four functions on the card, no kernel
+   launched, the relabel statistics against the CPU's on the same noise.
 9. the timeline line (host seconds a group of phases), the kernels line
    (every kernel; the semiring kernels with their K range, their time at
    K=64 and their zoo_wide launches; ``FWD``, ``BWD_SAMPLE`` and
    ``VG_BWD`` with their walk_forward launches; ``FWD`` and ``VG_BWD``
    with their NUTS launches and time, ``FILTER`` and ``BETA`` with the
-   Gaussian NUTS gate's), then the last line ``{"ok": true, "device":
-   ...}``.
+   Gaussian NUTS gate's; each kernel with its launches on the multinom,
+   heal and chees_per_series paths and their first launches' shapes and
+   times), then the last line ``{"ok": true, "device": ...}``.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line. It imports nothing of JAX or of ``hhmm_tpu``.
@@ -198,10 +232,13 @@ result line. It imports nothing of JAX or of ``hhmm_tpu``.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import ExitStack
@@ -210,16 +247,18 @@ from unittest import mock
 import numpy as np
 import torch
 
-from hhmm_tpu_torch.apps.tayal import build_tasks, run_window, simulate_ticks, wf_trade
+from hhmm_tpu_torch.apps.tayal import build_tasks, replication, run_window, simulate_ticks, wf_trade
 from hhmm_tpu_torch.apps.tayal import wf as wf_module
 from hhmm_tpu_torch.apps.tayal.trading import equity_curve
 from hhmm_tpu_torch.apps.tayal.wf import D_DEC, G_DEC, median_states
 from hhmm_tpu_torch.batch import default_init, fit_batched
+from hhmm_tpu_torch.batch import fit as fit_module
 from hhmm_tpu_torch.infer import (
     ChEESConfig,
     GibbsConfig,
     SamplerConfig,
     ess_many,
+    greedy_relabel,
     init_chains,
     make_lp_bc,
     sample_chees_batched,
@@ -232,12 +271,21 @@ from hhmm_tpu_torch.kernels import cuda_traj as ct
 from hhmm_tpu_torch.kernels import dispatch as td
 from hhmm_tpu_torch.kernels import forward_value_and_grad
 from hhmm_tpu_torch.kernels.cuda_build import build_and_load
+from hhmm_tpu_torch.kernels.ffbs import gumbel
 from hhmm_tpu_torch.kernels.filtering import smooth
-from hhmm_tpu_torch.models import GaussianHMM, NIGPrior, TayalHHMM, TayalHHMMLite
+from hhmm_tpu_torch.models import (
+    GaussianHMM,
+    MultinomialHMM,
+    NIGPrior,
+    SemisupMultinomialHMM,
+    TayalHHMM,
+    TayalHHMMLite,
+)
 from hhmm_tpu_torch.models import base as zoo_base
 from hhmm_tpu_torch.models.base import broadcast_data
 from hhmm_tpu_torch.native import zigzag as native_zigzag
-from hhmm_tpu_torch.sim import hmm_sim, obsmodel_gaussian
+from hhmm_tpu_torch.robust import FaultPlan, RetryPolicy, SimulatedCrash, faults
+from hhmm_tpu_torch.sim import hmm_sim, obsmodel_categorical, obsmodel_gaussian
 from hhmm_tpu_torch.sim.tayal import tayal_batch, tayal_phi
 
 # main path: bench.py's default Gibbs workload
@@ -304,10 +352,13 @@ NUTS_WARMUP, NUTS_SAMPLES, NUTS_TREEDEPTH = 50, 50, 10
 NUTS_DIV_MAX = 0.05  # divergent share of the sampling transitions
 # seventh: the hmm/main.R gate under NUTS through make_logp
 # (tests/test_models.py::test_gaussian_hmm_recovery: T=500, K=2, its A,
-# p1, means and sigma, 300 + 300 transitions, 2 chains, its bounds)
+# p1, means and sigma, 2 chains, its bounds), 150 + 150 transitions, not
+# the test's 300 + 300: at 300 + 300 the phase took 63-95 s on an NVIDIA
+# H100 80GB HBM3 at 700 W, its errors 0.021, 0.015 and 0.032 against the
+# bounds 0.08, 0.05 and 0.10
 GN_T, GN_A, GN_P1 = 500, [[0.8, 0.2], [0.35, 0.65]], [0.9, 0.1]
 GN_MU, GN_SIGMA = [1.0, 2.0], [0.3, 0.3]
-GN_WARMUP, GN_SAMPLES, GN_CHAINS = 300, 300, 2
+GN_WARMUP, GN_SAMPLES, GN_CHAINS = 150, 150, 2
 GN_MU_ATOL, GN_SIGMA_ATOL, GN_A_ATOL, GN_DIV_MAX = 0.08, 0.05, 0.10, 0.05
 SEED_GN = 42
 # eighth: the walk-forward back-test by NUTS (stan gate, one chain),
@@ -320,6 +371,40 @@ SEED_GN = 42
 # 115 s, with the step sizes unadapted (one dual-averaging update after
 # the mass window: 72 % of the transitions divergent)
 WF_NUTS_STRIDE, WF_NUTS_WARMUP, WF_NUTS_SAMPLES = 8, 50, 50
+# ninth: the multinomial HMMs of hmm/main-multinom.R:7-27 (K=3, L=5) and
+# hmm/main-multinom-semisup.R:7-41 (K=4, L=9, groups (0, 1, 1, 0), the
+# sparse Tayal-shaped A), as examples/hmm_main.py builds them, 256
+# series x T=1024 each, fit_batched Gibbs 100 + 300 in chunks of 64
+MN_CONFIGS = (
+    ("multinom", 3, 5, [[0.7, 0.2, 0.1], [0.1, 0.8, 0.1], [0.15, 0.15, 0.7]],
+     [1 / 3, 1 / 3, 1 / 3], 0.8, None),
+    ("semisup", 4, 9, [[0.0, 0.4, 0.6, 0.0], [1.0, 0.0, 0.0, 0.0], [0.3, 0.0, 0.0, 0.7],
+                       [0.0, 0.0, 1.0, 0.0]], [0.5, 0.0, 0.5, 0.0], 1.5, (0, 1, 1, 0)),
+)
+MN_CHUNK, MN_DRAWS, MN_STATE_DRAWS, SEED_MN = 64, 8, 32, 2017
+# the fit's Viterbi accuracy after greedy_relabel, mean over series, at
+# most MN_ACC_GAP below the true parameters' own Viterbi accuracy on the
+# same series (about two thirds and four fifths for the K=3 and the
+# hard-gate K=4 model; the stan gate's own is near 0, its degenerate
+# emission-only mode, so it is reported, not gated), and the
+# posterior-mean emission rows' error
+MN_ACC_GAP, MN_PHI_MAE_MAX = 0.15, 0.12
+MN_FREQ_Z_MAX = 6.0  # |z| of the two state-draw routes' pooled frequencies
+# tenth: the healing ladder of fit_batched on the Tayal batch (hard gate,
+# Gibbs 100 + 300, chunks of 64): the faulted series sits in the second
+# chunk; the NUTS heal runs 8 series of T=256, 20 + 20, max_treedepth 5
+# (4 at the ladder's third rung; at 6 its four dispatches took about half
+# of the phase)
+HEAL_SERIES, HEAL_CHUNK = 70, 64
+HEAL_NUTS_SERIES, HEAL_NUTS_T, HEAL_NUTS_TREEDEPTH = 8, 256, 5
+# eleventh: per-series ChEES adaptation at the ChEES cell (stan gate, 2
+# chains, cap 16), 256 series in one chunk, 50 + 50 transitions
+CPS_WARMUP, CPS_SAMPLES = 50, 50
+CPS_PHI_MAE_MAX = 0.08  # the emission rows after 50 + 50 (PHI_MAE_MAX holds 150 + 150)
+# twelfth: the replication diagnostics on the ChEES draws of series 0,
+# every leg 5 ticks (tayal_batch has no ticks); the card's relabel
+# stats against the CPU's on the first REP_CPU_DRAWS draws, same noise
+REP_LEG_TICKS, REP_CPU_DRAWS = 5, 16
 
 # the FFBS checks (each bitwise against the plain versions): every K the
 # kernels take, gated and not, at the main path's shape with a ragged
@@ -2000,28 +2085,37 @@ def phase_zoo_wide(device):
 
 class LaneRecorder:
     """Wraps the lane wrappers of ``FWD``, ``BWD_SAMPLE``, ``VG_BWD``,
-    ``FILTER`` and ``BETA`` for a ``with`` block: keeps a copy of the inputs and outputs of the
+    ``FILTER`` and ``BETA`` (with ``decode=True`` also ``VITERBI`` and
+    ``BACKTRACK``) for a ``with`` block: keeps a copy of the inputs and outputs of the
     first launch at each shape and gate the path gives a kernel (the
     lanes, uniforms and gate keys the path made), for the check against
     the plain versions and the timing."""
 
     # kernel: (wrapper, plain version, position of the [T, K, N] input,
-    # position of the gate keys)
+    # position of the gate keys); BACKTRACK's (T, K, N) come from its
+    # maps and dlast
     SPEC = {cs.FWD.name: ("fwd_lanes", cs.fwd_plain, 2, 4),
             cs.BWD_SAMPLE.name: ("bwd_sample_lanes", cs.bwd_sample_plain, 2, 4),
             cs.VG_BWD.name: ("vg_bwd_lanes", cs.vg_bwd_plain, 1, 5),
             cs.FILTER.name: ("filter_lanes", cs.filter_plain, 2, 4),
-            cs.BETA.name: ("beta_lanes", cs.beta_plain, 1, 3)}
+            cs.BETA.name: ("beta_lanes", cs.beta_plain, 1, 3),
+            cs.VITERBI.name: ("viterbi_lanes", cs.viterbi_plain, 2, 4),
+            cs.BACKTRACK.name: ("backtrack_lanes", cs.backtrack_plain, None, 2)}
+    DECODE = (cs.VITERBI.name, cs.BACKTRACK.name)
 
-    def __init__(self):
+    def __init__(self, decode: bool = False):
         self.calls, self.stack = {}, ExitStack()
+        self.names = [n for n in self.SPEC if decode or n not in self.DECODE]
 
     def wrap(self, name, fn):
         _, _, at, gate = self.SPEC[name]
 
         def recorded(*args):
             out = fn(*args)
-            T, K, N = args[at].shape
+            if at is None:  # BACKTRACK(back [T, (W,) N], dlast [K, N])
+                T, (K, N) = args[0].shape[0], args[1].shape
+            else:
+                T, K, N = args[at].shape
             key = (name, int(N), int(T), int(K), len(args) > gate and args[gate] is not None)
             if key not in self.calls:
                 self.calls[key] = (tuple(a.clone() if torch.is_tensor(a) else a for a in args),
@@ -2031,9 +2125,12 @@ class LaneRecorder:
         return recorded
 
     def __enter__(self):
-        for name, (wrapper, _, _, _) in self.SPEC.items():
-            self.stack.enter_context(
-                mock.patch.object(cs, wrapper, self.wrap(name, getattr(cs, wrapper))))
+        for name in self.names:
+            wrapper = self.SPEC[name][0]
+            # dispatch.py holds its own names for FILTER's and BETA's wrappers
+            for module in (cs, td) if hasattr(td, wrapper) else (cs,):
+                self.stack.enter_context(mock.patch.object(
+                    module, wrapper, self.wrap(name, getattr(module, wrapper))))
         return self
 
     def __exit__(self, *exc):
@@ -2453,7 +2550,7 @@ def phase_gaussian_nuts(device):
     ``tests/test_models.py::test_gaussian_hmm_recovery`` on the port's
     simulator, ``sample_nuts(model.make_logp(data))`` (the target through
     ``forward_loglik``: ``FILTER`` forward and ``BETA`` backward once a
-    log-density call, and nothing else), 300 + 300 transitions on 2
+    log-density call, and nothing else), 150 + 150 transitions on 2
     chains: posterior means within the test's bounds, divergent share
     under ``GN_DIV_MAX``, Viterbi accuracy of ``generated`` above
     ``G_ACC_MIN``; the first launch of each kernel bitwise against its
@@ -2582,6 +2679,484 @@ def phase_walk_forward_nuts(device, tasks):
                          **lockstep({k: torch.as_tensor(v)[None]
                                      for k, v in win.stats.items()})))
     return {n: rose.get(n, 0) + rose_w.get(n, 0) for n in set(rose) | set(rose_w)}
+
+
+# ---------------------------------------------------------------------------
+# main paths 9-12: the multinomial HMMs, fit_batched's healing ladder,
+# per-series ChEES adaptation and the replication diagnostics
+# ---------------------------------------------------------------------------
+
+
+class GumbelRoute(SemisupMultinomialHMM):
+    """The stan-gate model without its gate keys: ``state_draws`` takes
+    ``build``'s time-varying ``log_A`` through the Gumbel-max FFBS, the
+    JAX package's route, instead of the gated kernels."""
+
+    def gate_keys(self, data):
+        return None
+
+
+def mn_batch(cfg, device):
+    """``(z, data, phi, A)``: ``N_SERIES`` series of ``T_FIT`` steps of one
+    ``MN_CONFIGS`` configuration, simulated on the card (the semisup
+    labels ``g`` are the groups of the true states, as
+    ``examples/hmm_main.py`` makes them)."""
+    _, K, L, A, p1, conc, groups = cfg
+    phi = np.random.default_rng(SEED_MN + K).dirichlet(np.ones(L) * conc, size=K)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED_MN + K)
+    z, x = hmm_sim(gen, T_FIT, A, p1, obsmodel_categorical(phi), batch=(N_SERIES,),
+                   validate=False)
+    data = {"x": x}
+    if groups is not None:
+        data["g"] = torch.as_tensor(groups, device=device)[z]
+    return z, data, phi, np.asarray(A)
+
+
+def p1_of(model, name):
+    """The simulator's initial distribution of the configuration."""
+    return next(c[4] for c in MN_CONFIGS if c[1] == model.K and c[2] == model.L)
+
+
+def mn_fit(name, model, data, z, phi, A, device):
+    """One multinomial model through ``fit_batched`` (Gibbs, chunks of
+    ``MN_CHUNK``) and ``generated`` (cold, then warm): launches, health,
+    and per series after ``greedy_relabel`` of the Viterbi path against
+    the simulated states, the accuracy and the emission and transition
+    errors of the posterior means."""
+    K = model.K
+    cfg = GibbsConfig(num_warmup=WARMUP, num_samples=SAMPLES, num_chains=1)
+    sweeps, n_chunks = WARMUP + SAMPLES, -(-N_SERIES // MN_CHUNK)
+    before = launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    qs, stats = fit_batched(model, data, cfg, chunk_size=MN_CHUNK, seed=SEED_MN, device=device)
+    sync()
+    wall = time.perf_counter() - t0
+    rose = rose_since(before)
+    want = {cs.FWD.name: sweeps * n_chunks, cs.BWD_SAMPLE.name: sweeps * n_chunks}
+    if rose != want:
+        raise AssertionError(f"multinom {name}: launches {rose}, expected {want}")
+    if not bool(stats["chain_healthy"].all()) or not bool(torch.isfinite(stats["logp"]).all()):
+        raise AssertionError(f"multinom {name}: an unhealthy chain or a non-finite logp")
+    draws = thin(qs[:, 0], MN_DRAWS)
+    before = launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    out = model.generated(draws, data, device=device)
+    sync()
+    cold = time.perf_counter() - t0
+    rose_gen = rose_since(before)
+    homogeneous = getattr(model, "gate_mode", "hard") == "hard"
+    if homogeneous:
+        check_decode_once(f"multinom {name}", rose_gen)
+    elif rose_gen:  # the stan gate's time-varying log_A runs the scans
+        raise AssertionError(f"multinom {name}: the time-varying decode launched {rose_gen}")
+    check_probabilities(f"multinom {name}", out, "alpha")
+    check_probabilities(f"multinom {name}", out, "gamma")
+    t0 = time.perf_counter()
+    out2 = model.generated(draws, data, device=device)
+    sync()
+    warm = time.perf_counter() - t0
+    if not torch.equal(out["zstar"], out2["zstar"]):
+        raise AssertionError(f"multinom {name}: a repeated generated call gave other paths")
+    z_hat = torch.mode(out["zstar"], dim=1).values.cpu().numpy()
+    z_true = z.cpu().numpy()
+    post = model.constrained_draws(qs)
+    phi_hat = post["phi_k"].mean((1, 2)).cpu().numpy()
+    A_hat = post["A_ij"].mean((1, 2)).cpu().numpy()
+    acc, phi_err, A_err = [], [], []
+    for b in range(N_SERIES):
+        perm = greedy_relabel(z_true[b], z_hat[b], K)
+        inv = np.argsort(perm)
+        acc.append(float((perm[z_hat[b]] == z_true[b]).mean()))
+        phi_err.append(float(np.abs(phi_hat[b][inv] - phi).mean()))
+        A_err.append(float(np.abs(A_hat[b][np.ix_(inv, inv)] - A).mean()))
+    acc, phi_err, A_err = map(np.asarray, (acc, phi_err, A_err))
+    # the true parameters' own Viterbi accuracy on the same series
+    true = {"p_1k": torch.as_tensor(np.asarray(p1_of(model, name)), dtype=torch.float32),
+            "A_ij": torch.as_tensor(A, dtype=torch.float32),
+            "phi_k": torch.as_tensor(phi, dtype=torch.float32)}
+    true = {k: v.clamp_min(1e-6) / v.clamp_min(1e-6).sum(-1, keepdim=True) for k, v in true.items()}
+    theta = model.pack({k: v.to(device) for k, v in true.items()})
+    z_or = model.generated(theta.expand(N_SERIES, 1, -1), data, device=device)["zstar"][:, 0]
+    oracle = float((z_or == z).float().mean())
+    emit("multinom", model=name, K=K, L=model.L, gate_mode=getattr(model, "gate_mode", None),
+        series=N_SERIES, T=T_FIT, warmup=WARMUP, samples=SAMPLES, chunk=MN_CHUNK,
+        seconds=wall, sweeps_per_s=sweeps * n_chunks / wall, sweep_ms=wall / (sweeps * n_chunks) * 1e3,
+        launches=rose, generated_launches=rose_gen, generated_lanes=N_SERIES * MN_DRAWS,
+        generated_first_s=cold, generated_warm_s=warm,
+        viterbi_accuracy_mean=float(acc.mean()), viterbi_accuracy_min=float(acc.min()),
+        viterbi_accuracy_true_params=oracle,
+        phi_mae_mean=float(phi_err.mean()), phi_mae_max=float(phi_err.max()),
+        A_mae_mean=float(A_err.mean()), A_mae_max=float(A_err.max()),
+        logp_mean=float(stats["logp"].mean()))
+    if not phi_err.mean() <= MN_PHI_MAE_MAX or (
+            homogeneous and not acc.mean() >= oracle - MN_ACC_GAP):
+        raise AssertionError(f"multinom {name}: Viterbi accuracy {acc.mean():.3f} (true "
+                             f"parameters {oracle:.3f}, gap at most {MN_ACC_GAP}), phi MAE "
+                             f"{phi_err.mean():.3f} (max {MN_PHI_MAE_MAX})")
+    return qs
+
+
+def state_freq_z(z1, z2, K):
+    """The two routes' per-step state frequencies pooled over series,
+    ``F_r[t, k] = mean_b mean_d 1[z_r = k]``, against each other: the
+    largest ``|F_1 - F_2| / sd`` over (t, k), ``sd`` the binomial
+    standard deviation of the difference of two independent draws of
+    ``D`` paths a series from the same posterior (estimated from the
+    pooled frequencies); and the largest gap where ``sd`` is 0."""
+    D = z1.shape[1]
+    f1 = torch.stack([(z1 == k).float().mean(1) for k in range(K)], -1)  # [B, T, K]
+    f2 = torch.stack([(z2 == k).float().mean(1) for k in range(K)], -1)
+    p = 0.5 * (f1 + f2)
+    sd = torch.sqrt((2.0 * p * (1.0 - p) / D).sum(0)) / f1.shape[0]
+    gap = (f1.mean(0) - f2.mean(0)).abs()
+    pos = sd > 0
+    return float((gap[pos] / sd[pos]).max()), float(gap[~pos].max()) if bool((~pos).any()) else 0.0
+
+
+def phase_multinom(device):
+    """The ninth main path: ``MultinomialHMM(K=3, L=5)`` and
+    ``SemisupMultinomialHMM(K=4, L=9)`` under both gates (see
+    ``MN_CONFIGS``), each fitted and decoded (:func:`mn_fit`); then 32
+    ``state_draws`` a series of the stan-gate fit twice, on the gated
+    kernels and on the Gumbel route, whose pooled per-step state
+    frequencies must agree within ``MN_FREQ_Z_MAX`` sigma. The first
+    launch of each kernel at each shape, bitwise against its plain
+    version."""
+    with LaneRecorder(decode=True) as rec:
+        mn = MN_CONFIGS[0]
+        z, data, phi, A = mn_batch(mn, device)
+        mn_fit("multinom", MultinomialHMM(mn[1], mn[2]), data, z, phi, A, device)
+        ss = MN_CONFIGS[1]
+        z, data, phi, A = mn_batch(ss, device)
+        mn_fit("semisup_hard", SemisupMultinomialHMM(ss[1], ss[2], ss[6], gate_mode="hard"),
+               data, z, phi, A, device)
+        stan = SemisupMultinomialHMM(ss[1], ss[2], ss[6])
+        qs = mn_fit("semisup_stan", stan, data, z, phi, A, device)
+        draws = thin(qs[:, 0], MN_STATE_DRAWS)
+        timing = {}
+        paths = {}
+        for route, model in (("gated_kernels", stan), ("gumbel", GumbelRoute(ss[1], ss[2], ss[6]))):
+            gen = torch.Generator(device=device)
+            gen.manual_seed(SEED_MN + len(route))
+            before = launch_counts()
+            sync()
+            t0 = time.perf_counter()
+            paths[route] = model.state_draws(gen, draws, data, device=device)
+            sync()
+            timing[route] = time.perf_counter() - t0
+            rose = rose_since(before)
+            want = ({cs.FWD.name: 1, cs.BWD_SAMPLE.name: 1} if route == "gated_kernels" else {})
+            if rose != want:
+                raise AssertionError(f"multinom state_draws {route}: launches {rose}, expected {want}")
+    launches = {k.name: k.launches for k in ALL_KERNELS if k.launches}
+    zmax, flat_gap = state_freq_z(paths["gated_kernels"], paths["gumbel"], ss[1])
+    if not (zmax < MN_FREQ_Z_MAX and flat_gap == 0.0):
+        raise AssertionError(f"multinom state_draws: the routes' frequencies differ by {zmax:.2f} "
+                             f"sigma (bound {MN_FREQ_Z_MAX}), {flat_gap} where sd is 0")
+    consistent = (torch.as_tensor(ss[6], device=device)[paths["gumbel"]] == data["g"][:, None]).float()
+    kernels = kept_vs_plain(rec.calls, "multinom")
+    emit("multinom_state_draws", series=N_SERIES, draws=MN_STATE_DRAWS, T=T_FIT,
+         lanes=N_SERIES * MN_STATE_DRAWS, seconds=timing, freq_z_max=zmax,
+         freq_z_bound=MN_FREQ_Z_MAX, gumbel_group_consistency=float(consistent.mean()),
+         launches=launches, kernels_vs_plain=kernels)
+    return launches, kernels
+
+
+class StderrLines:
+    """``fit_batched``'s log lines (stderr) for a ``with`` block: copied
+    to the real stderr and kept in ``lines``."""
+
+    def __init__(self):
+        self.lines, self.buf = [], io.StringIO()
+
+    def __enter__(self):
+        self.ctx = contextlib.redirect_stderr(self.buf)
+        self.ctx.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.ctx.__exit__(*exc)
+        text = self.buf.getvalue()
+        sys.stderr.write(text)
+        self.lines = [ln for ln in text.splitlines() if ln.startswith("# fit_batched")]
+
+
+def ladder_lines(lines):
+    return [ln for ln in lines if "healing attempt" in ln or "still quarantined" in ln]
+
+
+def phase_heal(device):
+    """The tenth main path: ``fit_batched``'s healing ladder on the Tayal
+    batch (hard gate, Gibbs 100 + 300, chunks of 64): a clean run; a
+    dispatch-level fault on one series of the second chunk, healed, every
+    other series bitwise the clean run's; the same fault sticky under
+    ``RetryPolicy(max_heal_attempts=2)``, returned with its mask down
+    after both log lines; a crash after one chunk and a rerun from the
+    cache, bitwise the clean run; and a small NUTS fit under an in-scan
+    fault that fires on every dispatch, so the ladder escalates to its
+    end. Launches: ``FWD`` and ``BWD_SAMPLE`` once a sweep a dispatch,
+    ``FWD`` and ``VG_BWD`` once a value-and-grad call; the first launch
+    of each kernel at each shape of the heal re-dispatches bitwise
+    against its plain version."""
+    x, sign = tayal_batch(N_SERIES, T_FIT, seed=SEED_DATA, device=device)
+    data = {"x": x, "sign": sign}
+    model = TayalHHMM(gate_mode="hard")
+    cfg = GibbsConfig(num_warmup=WARMUP, num_samples=SAMPLES, num_chains=1)
+    heal_calls = {}
+    real_heal = fit_module._heal
+
+    def recorded_heal(*args, **kw):  # the re-dispatches' launches
+        with LaneRecorder() as r:
+            out = real_heal(*args, **kw)
+        for key, val in r.calls.items():
+            heal_calls.setdefault(key, val)
+        return out
+
+    def fit(plan=None, **kw):
+        sync()
+        t0 = time.perf_counter()
+        with StderrLines() as log, (faults.inject(plan) if plan is not None
+                                    else contextlib.nullcontext()):
+            qs, st = fit_batched(model, data, cfg, chunk_size=HEAL_CHUNK, seed=SEED_SAMPLER,
+                                 device=device, **kw)
+        sync()
+        return qs, st, log.lines, time.perf_counter() - t0
+
+    s = HEAL_SERIES
+    n_chunks = -(-N_SERIES // HEAL_CHUNK)
+    label = f"chunk {s // HEAL_CHUNK + 1}/{n_chunks}"
+    others = torch.arange(N_SERIES, device=device) != s
+    before = launch_counts()
+    report = {}
+    with mock.patch.object(fit_module, "_heal", side_effect=recorded_heal):
+        clean, st0, _, report["clean_s"] = fit()
+        if not bool(st0["chain_healthy"].all()):
+            raise AssertionError("heal: the clean run has a quarantined chain")
+        plan = FaultPlan(kind="unhealthy_result", series=s, chain=0, step=3)
+        qs, st, lines, report["healed_s"] = fit(plan)
+        if not bool(st["chain_healthy"].all()):
+            raise AssertionError("heal: the faulted series was not healed")
+        if not torch.equal(qs[others], clean[others]):
+            raise AssertionError("heal: a healthy series' draws moved")
+        if not bool(torch.isfinite(qs[s]).all()) or torch.equal(qs[s], clean[s]):
+            raise AssertionError("heal: the healed series is not a fresh finite dispatch")
+        report["healed_lines"] = ladder_lines(lines)
+        if report["healed_lines"] != [f"# fit_batched {label}: healing attempt 1/3 for 1 "
+                                      "quarantined series"]:
+            raise AssertionError(f"heal: log lines {report['healed_lines']}")
+        sticky = FaultPlan(kind="unhealthy_result", series=s, chain=0, step=3, sticky=True)
+        qs, st, lines, report["sticky_s"] = fit(sticky, retry=RetryPolicy(max_heal_attempts=2))
+        healthy = st["chain_healthy"][:, 0]
+        if bool(healthy[s]) or not bool(healthy[others].all()):
+            raise AssertionError("heal: the sticky fault did not come back with its mask down")
+        if not torch.equal(qs[others], clean[others]) or int(st["quarantine_step"][s, 0]) != 3:
+            raise AssertionError("heal: the sticky run moved a healthy series or the step")
+        report["sticky_lines"] = ladder_lines(lines)
+        if not (any("healing attempt 2/2" in ln for ln in lines)
+                and any("still quarantined after 2 healing attempts" in ln for ln in lines)):
+            raise AssertionError(f"heal: sticky log lines {report['sticky_lines']}")
+        with tempfile.TemporaryDirectory() as d:
+            try:
+                fit(FaultPlan(crash_after_chunks=1), cache_dir=d)
+                raise AssertionError("heal: no simulated crash")
+            except SimulatedCrash:
+                pass
+            qs, st, lines, report["resumed_s"] = fit(cache_dir=d)
+        if not torch.equal(qs, clean) or not any(f"chunk 1/{n_chunks}: cache hit" in ln
+                                                 for ln in lines):
+            raise AssertionError("heal: the resumed run is not the clean run from the cache")
+        # clean, healed (+1), sticky (+2), crashed after one, resumed
+        gibbs_dispatches = n_chunks + (n_chunks + 1) + (n_chunks + 2) + 1 + (n_chunks - 1)
+        # NUTS: an in-scan fault on every dispatch, the escalated configs
+        nuts_model = TayalHHMM()
+        nuts_data = {"x": x[:HEAL_NUTS_SERIES, :HEAL_NUTS_T].contiguous(),
+                     "sign": sign[:HEAL_NUTS_SERIES, :HEAL_NUTS_T].contiguous()}
+        ncfg = SamplerConfig(num_warmup=20, num_samples=20, num_chains=1,
+                             max_treedepth=HEAL_NUTS_TREEDEPTH)
+        ladder = []
+        real_escalate = fit_module.escalate
+
+        def spy(config, attempt, policy):
+            out = real_escalate(config, attempt, policy)
+            ladder.append({"attempt": attempt, "max_treedepth": out.max_treedepth,
+                           "init_step_size": out.init_step_size,
+                           "target_accept": out.target_accept})
+            return out
+
+        vg = VGCounter(TayalHHMM.make_vg)
+        sync()
+        t0 = time.perf_counter()
+        with mock.patch.object(TayalHHMM, "make_vg", autospec=True, side_effect=vg), \
+                mock.patch.object(fit_module, "escalate", side_effect=spy), StderrLines() as log, \
+                faults.inject(FaultPlan(kind="nan_grad", step=3, chain=0, series=1)):
+            _, nst = fit_batched(nuts_model, nuts_data, ncfg, chunk_size=HEAL_NUTS_SERIES,
+                                 seed=SEED_SAMPLER, device=device)
+        sync()
+        report["nuts_s"] = time.perf_counter() - t0
+    rose = rose_since(before)
+    sweeps = (WARMUP + SAMPLES) * gibbs_dispatches
+    want = {cs.FWD.name: sweeps + vg.calls, cs.BWD_SAMPLE.name: sweeps, cs.VG_BWD.name: vg.calls}
+    if rose != want:
+        raise AssertionError(f"heal: launches {rose}, expected {want}")
+    nh = nst["chain_healthy"][:, 0]
+    if bool(nh[1]) or not bool(nh[torch.arange(HEAL_NUTS_SERIES, device=device) != 1].all()):
+        raise AssertionError(f"heal: NUTS health {nh.tolist()}, expected series 1 alone down")
+    # the ladder of RetryPolicy(): step size halved from the second rung,
+    # max_treedepth cut by 2, to a floor of 4, at the third
+    expect = [(1, HEAL_NUTS_TREEDEPTH, 0.1), (2, HEAL_NUTS_TREEDEPTH, 0.05),
+              (3, max(4, HEAL_NUTS_TREEDEPTH - 2), 0.025)]
+    if [(r["attempt"], r["max_treedepth"], round(r["init_step_size"], 6)) for r in ladder] != expect:
+        raise AssertionError(f"heal: NUTS ladder {ladder}")
+    kernels = kept_vs_plain(heal_calls, "heal")
+    emit("heal", series=N_SERIES, T=T_FIT, chunk=HEAL_CHUNK, faulted_series=s,
+         gibbs_dispatches=gibbs_dispatches, **report,
+         nuts=dict(series=HEAL_NUTS_SERIES, T=HEAL_NUTS_T, warmup=20, samples=20,
+                   value_and_grad_calls=vg.calls, ladder=ladder,
+                   lines=ladder_lines(log.lines)),
+         launches=rose, heal_dispatch_kernels_vs_plain=kernels)
+    return rose, kernels
+
+
+def phase_chees_per_series(device, chees_phi):
+    """The eleventh main path: ``fit_batched`` with
+    ``ChEESConfig(shared_adaptation=False)`` at the ChEES cell (stan gate,
+    2 chains, cap 16), 256 series in one chunk (512 lanes), 50 + 50: each
+    series adapts its own step size and trajectory length, one
+    value-and-grad call over the lanes a leapfrog (``FWD`` and ``VG_BWD``
+    once each), a transition as long as its longest series. The spread of
+    the step sizes and trajectory lengths, the lockstep efficiency, and
+    the emission rows against the simulator's and the shared arm's fit."""
+    x, sign = tayal_batch(N_SERIES, T_FIT, seed=SEED_DATA, device=device)
+    data = {"x": x, "sign": sign}
+    model = TayalHHMM()
+    init = default_init(model, data, N_SERIES, CHAINS, seed=SEED_INIT, device=device)
+    cfg = ChEESConfig(num_warmup=CPS_WARMUP, num_samples=CPS_SAMPLES, num_chains=CHAINS,
+                      max_leapfrogs=CAP, shared_adaptation=False)
+    vg = VGCounter(TayalHHMM.make_vg)
+    before = launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    with mock.patch.object(TayalHHMM, "make_vg", autospec=True, side_effect=vg), \
+            LaneRecorder() as rec:
+        qs, stats = fit_batched(model, data, cfg, init=init, chunk_size=N_SERIES,
+                                seed=SEED_SAMPLER, device=device)
+    sync()
+    wall = time.perf_counter() - t0
+    rose = rose_since(before)
+    if rose != {cs.FWD.name: vg.calls, cs.VG_BWD.name: vg.calls}:
+        raise AssertionError(f"chees_per_series: launches {rose} for {vg.calls} calls")
+    if not bool(stats["chain_healthy"].all()) or not bool(torch.isfinite(stats["logp"]).all()):
+        raise AssertionError("chees_per_series: an unhealthy chain or a non-finite logp")
+    worst, swap_share, phi_mean, mae = fold_and_score(model, qs)
+    if not mae.mean() <= CPS_PHI_MAE_MAX:
+        raise AssertionError(f"chees_per_series: phi MAE {mae.mean():.3g} > {CPS_PHI_MAE_MAX}")
+    gap = np.minimum(np.abs(phi_mean - chees_phi).mean(axis=(1, 2)),
+                     np.abs(phi_mean[:, MIRROR] - chees_phi).mean(axis=(1, 2)))
+    eps, tau = stats["step_size"][:, 0], stats["traj_length"][:, 0]
+    lock = stats["lockstep_leapfrogs"][0].float()
+    transitions = CPS_WARMUP + CPS_SAMPLES
+    kernels = kept_vs_plain(rec.calls, "chees_per_series")
+
+    def spread(v):
+        q = torch.quantile(v.float(), torch.tensor([0.0, 0.1, 0.5, 0.9, 1.0], device=v.device))
+        return dict(zip(("min", "p10", "median", "p90", "max"), q.tolist()))
+
+    emit("chees_per_series", series=N_SERIES, T=T_FIT, chains=CHAINS, warmup=CPS_WARMUP,
+         samples=CPS_SAMPLES, cap=CAP, seconds=wall, transitions_per_s=transitions / wall,
+         transition_ms=wall / transitions * 1e3, value_and_grad_calls=vg.calls,
+         step_size=spread(eps), traj_length=spread(tau),
+         lockstep_efficiency=float(stats["lockstep_efficiency"][0]),
+         lockstep_leapfrogs=int(lock.sum()), lockstep_per_transition_mean=float(lock.mean()),
+         divergent_share=float(stats["diverging"].float().mean()),
+         accept_mean_sampling=float(stats["accept_prob"].mean()),
+         ess_worst_param_min=float(worst.min()), ess_worst_param_mean=float(worst.mean()),
+         mirror_fold_share=swap_share, phi_mae_mean=float(mae.mean()),
+         phi_mae_max=float(mae.max()), phi_gap_vs_shared_chees_mean=float(gap.mean()),
+         launches=rose, kernels_vs_plain=kernels)
+    return rose, kernels
+
+
+def rep_ticks(x, sign):
+    """Leg spans and a tick price path for one series of ``tayal_batch``
+    (which has no ticks): every leg ``REP_LEG_TICKS`` ticks, the price
+    moving linearly across a leg by ``0.01 * (1 + x)`` in the leg's
+    direction."""
+    x, sign = x.cpu().numpy(), sign.cpu().numpy()
+    T = len(x)
+    leg_start = np.arange(T) * REP_LEG_TICKS
+    leg_end = leg_start + REP_LEG_TICKS
+    moves = np.where(sign == 0, 1.0, -1.0) * 0.01 * (1.0 + x)
+    levels = 100.0 + np.concatenate([[0.0], np.cumsum(moves)])
+    price = np.interp(np.arange(T * REP_LEG_TICKS + 1), np.append(leg_start, leg_end[-1]), levels)
+    return leg_start, leg_end, price.astype(np.float32)
+
+
+def phase_replication(device, chees_qs):
+    """The twelfth main path: the replication protocol's diagnostics on
+    the stan-gate ChEES draws of series 0 (2 chains x 150), on the card:
+    ``chain_marginal_ll`` + ``ml_weighted_pool``,
+    ``degenerate_mode_probe`` on the last draw and
+    ``per_draw_relabel_stats`` on every draw, their FFBS paths by the
+    Gumbel-max scan on the time-varying ``log_A`` (no kernel launches);
+    then the relabel statistics of the first ``REP_CPU_DRAWS`` draws on
+    the card against the same call on the CPU with the same noise."""
+    x, sign = tayal_batch(N_SERIES, T_FIT, seed=SEED_DATA, device=device)
+    data = {"x": x[0], "sign": sign[0]}
+    model = TayalHHMM()
+    leg_start, leg_end, price = rep_ticks(x[0], sign[0])
+    draws = chees_qs[0].reshape(-1, model.n_free)
+    C = chees_qs.shape[1]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED_SAMPLER)
+    before = launch_counts()
+    secs = {}
+    sync()
+    t0 = time.perf_counter()
+    mll = replication.chain_marginal_ll(model, chees_qs[0].cpu().numpy(), data, device=device)
+    sync()
+    secs["chain_marginal_ll"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    probe = replication.degenerate_mode_probe(model, draws[-1], data, gen, device=device)
+    sync()
+    secs["degenerate_mode_probe"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rel = replication.per_draw_relabel_stats(model, draws, data, leg_start, leg_end, price,
+                                             generator=gen, device=device)
+    sync()
+    secs["per_draw_relabel_stats"] = time.perf_counter() - t0
+    pooled = replication.ml_weighted_pool(
+        {k: rel[k].reshape(C, -1).mean(1) for k in ("phi_45", "phi_25")}, mll)
+    rose = rose_since(before)
+    if rose:
+        raise AssertionError(f"replication: launched {rose}; the Gumbel route runs no kernel")
+    for k in ("phi_45", "phi_25", "ll"):
+        if not np.isfinite(rel[k]).all():
+            raise AssertionError(f"replication: non-finite {k}")
+    # the card against the CPU on the same draws and noise
+    n = REP_CPU_DRAWS
+    noise = gumbel(gen, (n, T_FIT, model.K))
+    card = replication.per_draw_relabel_stats(model, draws[:n], data, leg_start, leg_end, price,
+                                              noise=noise, device=device)
+    cpu = replication.per_draw_relabel_stats(
+        model, draws[:n].cpu(), {k: v.cpu() for k, v in data.items()}, leg_start, leg_end, price,
+        noise=noise.cpu(), device="cpu")
+    same = card["swapped"] == cpu["swapped"]
+    ll_err = float(np.abs(card["ll"] - cpu["ll"]).max() / np.abs(cpu["ll"]).max())
+    # phi comes from each device's own unpack (exp, log-sigmoid): equal
+    # within f32 rounding, not bitwise
+    if same.mean() < (n - 1) / n or ll_err > 1e-5 or not np.allclose(
+            card["phi_45"][same], cpu["phi_45"][same], rtol=1e-5, atol=1e-7):
+        raise AssertionError(f"replication: card vs CPU swapped agree {same.mean()}, "
+                             f"ll rel err {ll_err:.3g}")
+    emit("replication", series=0, draws=int(draws.shape[0]), T=T_FIT, seconds=secs,
+         chain_marginal_ll=mll.tolist(), pool=pooled, degenerate_mode_probe=probe,
+         phi_45_mean=float(rel["phi_45"].mean()), phi_25_mean=float(rel["phi_25"].mean()),
+         swapped_share=float(rel["swapped"].mean()),
+         cpu_check=dict(draws=n, swapped_agree=float(same.mean()), ll_rel_err=ll_err),
+         launches=rose)
 
 
 def ptxas_usage(log: str) -> dict:
@@ -2791,6 +3366,24 @@ def main() -> int:
     clock.append(("walk_forward_nuts", time.perf_counter()))
     reset_all()
     wf_nuts = phase_walk_forward_nuts(device, wf_task_list)
+    # main path 9, the multinomial HMMs: fits, decodes and both state-draw
+    # routes (each phase of this slice returns its path's launches, read
+    # before its kernels are checked and timed on the kept inputs)
+    clock.append(("multinom", time.perf_counter()))
+    reset_all()
+    mn, mn_kept = phase_multinom(device)
+    # main path 10, fit_batched's healing ladder
+    clock.append(("heal", time.perf_counter()))
+    reset_all()
+    heal, heal_kept = phase_heal(device)
+    # main path 11, per-series ChEES adaptation through fit_batched
+    clock.append(("chees_per_series", time.perf_counter()))
+    reset_all()
+    cps, cps_kept = phase_chees_per_series(device, chees_phi)
+    # main path 12, the replication diagnostics (no kernel)
+    clock.append(("replication", time.perf_counter()))
+    reset_all()
+    phase_replication(device, chees_qs)
     clock.append(("end", time.perf_counter()))
     emit("timeline", seconds={a: b - ta for (a, ta), (_, b) in zip(clock, clock[1:])},
          total_seconds=clock[-1][1] - clock[0][1])
@@ -2806,8 +3399,16 @@ def main() -> int:
                 if not gnuts.get(n)]
     missing += [f"{n} (walk_forward_nuts)" for n in (cs.FWD.name, cs.VG_BWD.name)
                 if not wf_nuts.get(n)]
+    missing += [f"{k.name} (multinom)" for k in (cs.FWD, cs.BWD_SAMPLE) + DECODE_KERNELS
+                if not mn.get(k.name)]
+    missing += [f"{k.name} (heal)" for k in (cs.FWD, cs.BWD_SAMPLE, cs.VG_BWD)
+                if not heal.get(k.name)]
+    missing += [f"{n} (chees_per_series)" for n in (cs.FWD.name, cs.VG_BWD.name)
+                if not cps.get(n)]
     if missing:
         raise AssertionError(f"a main path never launched {missing}")
+    # the first launch of each kernel at each shape of this slice's paths
+    kept = {"multinom": mn_kept, "heal": heal_kept, "chees_per_series": cps_kept}
 
     t = kern["timing"]
     vt, tt, dt = vgk["timing"], trk["timing"], deck["timing"]
@@ -2881,6 +3482,12 @@ def main() -> int:
         if k in (cs.FILTER, cs.BETA):
             rows[-1].update(launches_gaussian_nuts=gnuts[k.name], ms_gaussian_nuts=gn_ms[k.name],
                             shape_gaussian_nuts=dict(N=GN_CHAINS, T=GN_T, K=2))
+        for path, counts in (("multinom", mn), ("heal", heal), ("chees_per_series", cps)):
+            if counts.get(k.name):
+                rows[-1][f"launches_{path}"] = counts[k.name]
+                rows[-1][f"kept_{path}"] = [
+                    {f: r[f] for f in ("N", "T", "K", "gated", "ms", "bitwise_equal")}
+                    for r in kept[path] if r["kernel"] == k.name]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

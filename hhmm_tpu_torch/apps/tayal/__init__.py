@@ -1,6 +1,7 @@
 """Tayal (2009) application (counterpart of ``hhmm_tpu/apps/tayal``):
 zig-zag feature extraction, top-state mapping/labeling, trading rules,
-analytics, and the batched walk-forward harness on the card.
+analytics, the batched walk-forward harness on the card, and the
+emission-replication protocol's diagnostics.
 
 Not ported yet: ``online_flip_detector`` (it needs the serving plane's
 ``RegimeDetector``, ``ROADMAP.md`` A10).
@@ -30,6 +31,12 @@ from hhmm_tpu_torch.apps.tayal.pipeline import (
     label_and_trade,
     run_window,
 )
+from hhmm_tpu_torch.apps.tayal.replication import (
+    chain_marginal_ll,
+    degenerate_mode_probe,
+    ml_weighted_pool,
+    per_draw_relabel_stats,
+)
 from hhmm_tpu_torch.apps.tayal.simulate import simulate_ticks
 from hhmm_tpu_torch.apps.tayal.wf import WFTask, WFResult, build_tasks, wf_trade
 
@@ -55,6 +62,10 @@ __all__ = [
     "decode_states",
     "label_and_trade",
     "run_window",
+    "chain_marginal_ll",
+    "degenerate_mode_probe",
+    "ml_weighted_pool",
+    "per_draw_relabel_stats",
     "simulate_ticks",
     "WFTask",
     "WFResult",

@@ -11,8 +11,12 @@ kernel launch.
 
 - **Chunks.** Series are fitted ``chunk_size`` at a time. A ragged final
   chunk is padded by repeating its last series with weight 0 in the
-  pooled ChEES adaptation (NUTS pools nothing), and the padding never
+  ChEES adaptation (NUTS and Gibbs pool nothing), and the padding never
   shows in the result.
+- **ChEES.** ``ChEESConfig(shared_adaptation=True)`` (the default) pools
+  one step size and trajectory length over the chunk; with ``False``
+  each series adapts its own, the chunk still one batch of lanes (the
+  JAX package vmaps ``sample_chees`` over series for this).
 - **Cache.** With ``cache_dir``, each chunk (and the chain inits) is
   stored in the digest-keyed :class:`~hhmm_tpu_torch.batch.cache.
   ResultCache`; a rerun reads finished chunks back, the reference's
@@ -20,12 +24,17 @@ kernel launch.
   name the port's own sampling paths and the device type, so an entry
   written by the JAX package, or by the port on another device, is
   never read as this run's.
-- **Health.** Every sampler reports ``stats["chain_healthy"]``. Series
-  whose chains were quarantined come back with that mask down, as the
-  JAX package returns them once its healing ladder is used up; the
-  ladder itself (re-dispatch with re-jittered keys and escalated
-  configs), the placement planner and device-fault retries are not
-  ported yet.
+- **Healing.** Every sampler reports ``stats["chain_healthy"]``. A chunk
+  whose real series had a chain quarantined is dispatched again, up to
+  ``retry.max_heal_attempts`` times, with the escalated config of
+  :func:`~hhmm_tpu_torch.robust.retry.escalate`, fresh inits for the
+  sick series (:func:`default_init` at ``derive_seed(seed, series,
+  attempt)``) and the re-jittered chunk seed
+  :func:`~hhmm_tpu_torch.robust.retry.rejitter`. Only the healed series
+  are merged: a healthy series keeps its first dispatch's draws bit for
+  bit. A series still quarantined after the ladder comes back with its
+  mask down. Each dispatch runs once: a CUDA error raises (see
+  ``robust/retry.py``). The placement planner is not ported yet.
 - **Seeds.** The JAX package splits one PRNG key per series. The port's
   samplers draw a whole chunk from one ``torch.Generator``, seeded with
   :func:`derive_seed` of ``(seed, first series index of the chunk)``:
@@ -47,6 +56,8 @@ from hhmm_tpu_torch.batch.init import default_init
 from hhmm_tpu_torch.infer.chees import ChEESConfig, make_lp_bc, sample_chees_batched
 from hhmm_tpu_torch.infer.gibbs import GibbsConfig, sample_gibbs
 from hhmm_tpu_torch.infer.run import SamplerConfig, sample_nuts_batched
+from hhmm_tpu_torch.robust import faults
+from hhmm_tpu_torch.robust.retry import RetryPolicy, escalate, rejitter
 
 __all__ = ["derive_seed", "fit_batched"]
 
@@ -82,6 +93,7 @@ def fit_batched(
     cache_dir: Optional[str] = None,
     seed: int = 0,
     device: DeviceLike = None,
+    retry: Optional[RetryPolicy] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Fit ``model`` independently to every series in ``data``.
 
@@ -94,12 +106,16 @@ def fit_batched(
     lanes a leapfrog); a :class:`~hhmm_tpu_torch.infer.GibbsConfig`
     runs blocked conjugate Gibbs (the model implements
     ``gibbs_update``); a :class:`~hhmm_tpu_torch.infer.ChEESConfig` runs
-    ChEES-HMC with its step size and trajectory length shared over the
-    chunk (``make_lp_bc`` over the chunk, the first series' ``make_vg``
-    for the step-size probe, and no fused trajectory, as the JAX
-    ``fit_batched`` runs it).
+    ChEES-HMC over the chunk's ``make_lp_bc``, with no fused trajectory,
+    as the JAX ``fit_batched`` runs it: with its step size and
+    trajectory length shared over the chunk (the first series'
+    ``make_vg`` for the step-size probe), or, with
+    ``shared_adaptation=False``, adapted per series (the chunk's
+    ``make_vg`` for the probes).
     ``init``: ``[B, C, n_free]`` chain inits, else
     :func:`~hhmm_tpu_torch.batch.default_init` seeded from ``seed``.
+    ``retry``: the healing policy (default ``RetryPolicy()``; see the
+    module docstring).
 
     Returns ``(samples [B, C, S, n_free], stats)`` on ``device``, every
     stats entry with a leading series axis."""
@@ -109,6 +125,7 @@ def fit_batched(
             f"{type(config).__name__}"
         )
     device = resolve_device(device)
+    policy = retry if retry is not None else RetryPolicy()
     data = {k: torch.as_tensor(v, device=device) for k, v in data.items() if v is not None}
     sizes = {v.shape[0] for v in data.values()}
     if len(sizes) != 1:
@@ -117,7 +134,8 @@ def fit_batched(
     C = config.num_chains
     chees = isinstance(config, ChEESConfig)
     nuts = isinstance(config, SamplerConfig)
-    stage = f"{'chees-vg' if chees else 'nuts-vg' if nuts else 'gibbs'}-torch-v1-{device.type}"
+    # v2: a chunk's draws include its healed series
+    stage = f"{'chees-vg' if chees else 'nuts-vg' if nuts else 'gibbs'}-torch-v2-{device.type}"
     cache = ResultCache(cache_dir)
     host_data = {k: _host(v) for k, v in data.items()} if cache_dir else None
     if init is None:
@@ -136,6 +154,26 @@ def fit_batched(
     init = torch.as_tensor(init, dtype=torch.float32, device=device)
     if tuple(init.shape[:2]) != (B, C):
         raise ValueError(f"init must be [B={B}, chains={C}, dim], got {tuple(init.shape)}")
+
+    def run(cfg, chunk_data, chunk_init, chunk_w, cseed):
+        """One dispatch of a chunk."""
+        if chees:
+            # the step-size probe: the first series (shared) or each series
+            probe = {k: v[0] for k, v in chunk_data.items()} if cfg.shared_adaptation else chunk_data
+            return sample_chees_batched(
+                make_lp_bc(model, chunk_data, device=device),
+                chunk_init,
+                cfg,
+                seed=cseed,
+                device=device,
+                series_weight=chunk_w,
+                probe_vg=model.make_vg(probe),
+            )
+        if nuts:
+            return sample_nuts_batched(
+                model.make_vg(chunk_data), chunk_init, cfg, seed=cseed, device=device
+            )
+        return sample_gibbs(model, chunk_data, chunk_init, cfg, seed=cseed, device=device)
 
     chunk = max(1, min(int(chunk_size), B))  # as the JAX planner clamps it
     n_chunks = -(-B // chunk)
@@ -170,37 +208,71 @@ def fit_batched(
             stats = {k: torch.as_tensor(v, device=device) for k, v in hit.items()}
             print(f"# fit_batched {label}: cache hit", file=sys.stderr, flush=True)
         else:
-            if chees:
-                qs, stats = sample_chees_batched(
-                    make_lp_bc(model, chunk_data, device=device),
-                    chunk_init,
-                    config,
-                    seed=cseed,
-                    device=device,
-                    series_weight=chunk_w,
-                    probe_vg=model.make_vg({k: v[0] for k, v in chunk_data.items()}),
-                )
-            elif nuts:
-                qs, stats = sample_nuts_batched(
-                    model.make_vg(chunk_data), chunk_init, config, seed=cseed, device=device
-                )
-            else:
-                qs, stats = sample_gibbs(
-                    model, chunk_data, chunk_init, config, seed=cseed, device=device
-                )
+            qs, stats = run(config, chunk_data, chunk_init, chunk_w, cseed)
+            qs, stats = faults.corrupt_chunk_result(qs, stats, s, n, attempt=0)
+            qs, stats = _heal(run, policy, config, model, chunk_data, chunk_init, chunk_w,
+                              cseed, seed, s, n, qs, stats, label)
             if ck is not None:
                 cache.put(ck, {"samples": _host(qs), **{k: _host(v) for k, v in stats.items()}})
-        sick = ~stats["chain_healthy"][:n].reshape(n, -1).all(dim=1)
-        if bool(sick.any()):
-            print(
-                f"# fit_batched {label}: {int(sick.sum())} series quarantined "
-                "(returned with chain_healthy=False)",
-                file=sys.stderr,
-                flush=True,
-            )
+            print(f"# fit_batched {label}: computed + cached", file=sys.stderr, flush=True)
+            # fault injection: a simulated crash between chunks (the
+            # cached chunks above make the rerun resume)
+            faults.note_chunk_complete()
         qs_parts.append(qs[:n])
         stats_parts.append({k: v[:n] for k, v in stats.items()})
 
     samples = torch.cat(qs_parts)
     stats = {k: torch.cat([p[k] for p in stats_parts]) for k in stats_parts[0]}
     return samples, stats
+
+
+def _sick_series(stats, chunk_w: torch.Tensor) -> np.ndarray:
+    """Host bool ``[chunk]``: the real series (weight > 0) with a
+    quarantined chain."""
+    ch = stats["chain_healthy"]
+    bad = ~ch.reshape(ch.shape[0], -1).all(dim=1)
+    return _host(bad & (chunk_w > 0))
+
+
+def _heal(run, policy, config, model, chunk_data, chunk_init, chunk_w, cseed, seed, s, n,
+          qs, stats, label):
+    """The healing ladder of one chunk (the JAX ``fit_batched`` loop):
+    re-dispatch the whole chunk while real series are quarantined, and
+    merge only the healed series."""
+    sick = _sick_series(stats, chunk_w)
+    C = chunk_init.shape[1]
+    for attempt in range(1, policy.max_heal_attempts + 1):
+        if not sick.any():
+            break
+        cfg = escalate(config, attempt, policy)
+        init_r = chunk_init.clone()
+        for i in np.flatnonzero(sick):
+            one = {k: v[i : i + 1] for k, v in chunk_data.items()}
+            init_r[i] = default_init(model, one, 1, C, seed=derive_seed(seed, s + int(i), attempt),
+                                     device=chunk_init.device)[0]
+        print(
+            f"# fit_batched {label}: healing attempt {attempt}/{policy.max_heal_attempts} for "
+            f"{int(sick.sum())} quarantined series" + ("" if cfg == config else " (escalated config)"),
+            file=sys.stderr,
+            flush=True,
+        )
+        qs2, stats2 = run(cfg, chunk_data, init_r, chunk_w, rejitter(cseed, attempt))
+        qs2, stats2 = faults.corrupt_chunk_result(qs2, stats2, s, n, attempt=attempt)
+        healed = sick & ~_sick_series(stats2, chunk_w)
+        if healed.any():
+            hm = torch.as_tensor(healed, device=qs.device)
+
+            def merge(a, b):
+                return torch.where(hm.reshape((-1,) + (1,) * (a.ndim - 1)), b, a)
+
+            qs = merge(qs, qs2)
+            stats = {k: merge(v, stats2[k]) for k, v in stats.items()}
+            sick = sick & ~healed
+    if sick.any():
+        print(
+            f"# fit_batched {label}: {int(sick.sum())} series still quarantined after "
+            f"{policy.max_heal_attempts} healing attempts (returned with chain_healthy=False)",
+            file=sys.stderr,
+            flush=True,
+        )
+    return qs, stats

@@ -3,6 +3,10 @@
 Both packages lay out the unconstrained vector the same way (each
 bijector's free slice, in ``specs()`` order) and share constrained
 shapes, so conversion is a checked copy of numpy arrays into tensors.
+:func:`model_from_jax` builds the port's counterpart of a JAX
+multinomial model from its public attributes (read by name: nothing of
+the JAX package is imported), so its parameters carry across to a model
+of the same configuration.
 """
 
 from __future__ import annotations
@@ -14,7 +18,22 @@ import torch
 
 from hhmm_tpu_torch._device import DeviceLike, resolve_device
 
-__all__ = ["params_from_jax", "constrained_from_jax"]
+__all__ = ["params_from_jax", "constrained_from_jax", "model_from_jax"]
+
+
+def model_from_jax(jax_model):
+    """The port's model of the same class and configuration as the JAX
+    multinomial model instance ``jax_model``: ``MultinomialHMM`` (K, L)
+    or ``SemisupMultinomialHMM`` (K, L, groups, gate_mode)."""
+    from hhmm_tpu_torch import models
+
+    name = type(jax_model).__name__
+    m = jax_model
+    if name == "MultinomialHMM":
+        return models.MultinomialHMM(int(m.K), int(m.L))
+    if name == "SemisupMultinomialHMM":
+        return models.SemisupMultinomialHMM(int(m.K), int(m.L), np.asarray(m.groups), m.gate_mode)
+    raise ValueError(f"no port counterpart for the model class {name!r}")
 
 
 def params_from_jax(

@@ -1,7 +1,15 @@
 """Log-space math, constraint bijectors and distributions."""
 
 from hhmm_tpu_torch.core import dists
-from hhmm_tpu_torch.core.bijectors import Bijector, Ordered, Positive, Simplex, UnitInterval
+from hhmm_tpu_torch.core.bijectors import (
+    Bijector,
+    Identity,
+    MaskedSimplex,
+    Ordered,
+    Positive,
+    Simplex,
+    UnitInterval,
+)
 from hhmm_tpu_torch.core.lmath import (
     MASK_NEG,
     log_matvec,
@@ -14,6 +22,8 @@ from hhmm_tpu_torch.core.lmath import (
 
 __all__ = [
     "Bijector",
+    "Identity",
+    "MaskedSimplex",
     "Ordered",
     "Positive",
     "Simplex",

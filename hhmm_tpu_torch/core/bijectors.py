@@ -3,7 +3,9 @@ unconstrained ℝⁿ → constrained parameter spaces, with Stan's
 log-Jacobians.
 
 Ported: ``UnitInterval`` and ``Simplex`` (the Tayal model), ``Positive``
-and ``Ordered`` (the Gaussian HMM). All are batch-native:
+and ``Ordered`` (the Gaussian HMM), ``Identity`` and ``MaskedSimplex``
+(the IOHMM regressions and the HHMM trees' sparse rows). All are
+batch-native:
 ``forward`` maps ``x [..., n_free]`` to ``(y [..., *shape], log|J| [...])``
 and ``inverse`` maps ``y [..., *shape]`` back to ``x [..., n_free]``, so a
 whole batch of chains goes through one call.
@@ -17,7 +19,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-__all__ = ["Bijector", "UnitInterval", "Simplex", "Positive", "Ordered"]
+__all__ = ["Bijector", "Identity", "UnitInterval", "Simplex", "MaskedSimplex", "Positive", "Ordered"]
 
 
 class Bijector:
@@ -33,6 +35,22 @@ class Bijector:
     def inverse(self, y: torch.Tensor) -> torch.Tensor:
         """Constrained → unconstrained (used for inits; no jacobian)."""
         raise NotImplementedError
+
+
+class Identity(Bijector):
+    """y = x reshaped to ``shape``; log|J| = 0."""
+
+    def __init__(self, shape: Tuple[int, ...] = ()):
+        self.shape = tuple(shape)
+        self.n_free = math.prod(self.shape)
+
+    def forward(self, x):
+        lead = x.shape[:-1]
+        return x.reshape(lead + self.shape), torch.zeros(lead, dtype=x.dtype, device=x.device)
+
+    def inverse(self, y):
+        lead = y.shape[: y.ndim - len(self.shape)]
+        return y.reshape(lead + (self.n_free,))
 
 
 class UnitInterval(Bijector):
@@ -105,6 +123,39 @@ class Simplex(Bijector):
         z = y[..., :-1] / rem_before
         x = torch.log(z) - torch.log1p(-z) - self._offsets(y)
         return x.reshape(lead + (-1,))
+
+
+class MaskedSimplex(Bijector):
+    """Simplex over a static support subset of a length-n vector: entries
+    off the support are exactly 0 (an HHMM tree's structural zeros). A
+    support of m entries costs m-1 free parameters; m == 1 is a
+    deterministic row with none."""
+
+    def __init__(self, support):
+        mask = torch.as_tensor(support, dtype=torch.bool)
+        if mask.ndim != 1:
+            raise ValueError("support must be 1-D")
+        m = int(mask.sum())
+        if m < 1:
+            raise ValueError("support must have at least one entry")
+        self.support = mask.numpy()
+        self.shape = tuple(mask.shape)
+        self._idx = [int(i) for i in torch.nonzero(mask).flatten()]
+        self._inner = Simplex((m,))
+        self.n_free = self._inner.n_free
+
+    def forward(self, x):
+        vals, ldj = self._inner.forward(x)
+        lead = vals.shape[:-1]
+        y = torch.zeros(lead + self.shape, dtype=vals.dtype, device=vals.device)
+        idx = torch.tensor(self._idx, device=vals.device)
+        return y.index_copy(-1, idx, vals), ldj
+
+    def inverse(self, y):
+        vals = y[..., self._idx]
+        # renormalize the on-support mass: an init with (small) mass on
+        # the structural zeros packs to the nearest valid point
+        return self._inner.inverse(vals / vals.sum(-1, keepdim=True))
 
 
 class Positive(Bijector):

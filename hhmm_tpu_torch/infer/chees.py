@@ -10,9 +10,15 @@ so every chain takes the same number of leapfrogs per transition.
 
 :func:`sample_chees_batched` is the core: one (step size, trajectory
 length) pair pooled over every chain of a ``[B, C]`` batch, per-series
-centering of the criterion and per-series diagonal mass matrices.
-:func:`sample_chees` is the single-posterior form (``B = 1``). Details
-follow the JAX module and the paper:
+centering of the criterion and per-series diagonal mass matrices. With
+``ChEESConfig(shared_adaptation=False)`` every series owns its step
+size, trajectory length and their adaptation state instead (the JAX
+``fit_batched`` vmaps ``sample_chees`` over series for this): the series
+still run as one batch of lanes, one ``lp_bc`` call a leapfrog, each
+transition as long as its longest series, a series that has run its own
+count frozen for the rest of it (the vmapped ``while_loop``'s
+semantics). :func:`sample_chees` is the single-posterior form (``B =
+1``). Details follow the JAX module and the paper:
 
 - trajectory jitter ``t_i = u_i * t`` with ``u_i`` the van der Corput
   base-2 sequence (:func:`halton_base2`), shared by all chains;
@@ -22,15 +28,21 @@ follow the JAX module and the paper:
 - Adam ascent of ``log t`` on the pooled per-chain gradient
   ``accept_prob * (||q'-m'||^2 - ||q-m||^2) * ((q'-m') . v') * u_i``;
 - per-series mass matrices from cross-chain Welford estimates over
-  Stan's expanding windows (``infer/run.py::warmup_schedule``).
+  Stan's expanding windows (``infer/run.py::warmup_schedule``);
+- per-series adaptation: the accept statistic and the ChEES gradient are
+  reduced over each series' own chains, and the initial step size comes
+  from one lockstep search over the series
+  (``find_reasonable_step_size_batched``). At ``B = 1`` both arms run
+  the same operations and give the same draws bit for bit.
 
 What changes from the JAX module: ``lax.scan`` is a Python loop over
 transitions whose state stays on the device (a transition needs no
 host sync when it runs through a ``trajectory_fn``; the unfused
 leapfrog loop reads its step count on the host); ``jax.random`` is one
-``torch.Generator`` seeded with ``seed``. The fault-injection hooks
-(``robust/faults.py``), ``record_sampler_health``, the ``span`` trace
-and the ``jit`` argument are not ported.
+``torch.Generator`` seeded with ``seed``. An active in-scan fault plan
+(``robust/faults.py``) corrupts its chain after the transition, as in
+the JAX loop; ``record_sampler_health``, the ``span`` trace and the
+``jit`` argument are not ported.
 """
 
 from __future__ import annotations
@@ -42,7 +54,11 @@ import numpy as np
 import torch
 
 from hhmm_tpu_torch._device import DeviceLike, resolve_device
-from hhmm_tpu_torch.infer.nuts import _kinetic, find_reasonable_step_size
+from hhmm_tpu_torch.infer.nuts import (
+    _kinetic,
+    find_reasonable_step_size,
+    find_reasonable_step_size_batched,
+)
 from hhmm_tpu_torch.infer.run import (
     _da_init,
     _da_update,
@@ -52,7 +68,8 @@ from hhmm_tpu_torch.infer.run import (
     vg_from_logp,
     warmup_schedule,
 )
-from hhmm_tpu_torch.robust.guards import finite_mask, guard_update
+from hhmm_tpu_torch.robust import faults
+from hhmm_tpu_torch.robust.guards import finite_mask, guard_update, guard_where
 
 __all__ = ["ChEESConfig", "halton_base2", "make_lp_bc", "sample_chees", "sample_chees_batched"]
 
@@ -62,9 +79,14 @@ class ChEESConfig:
     """Budget and adaptation knobs (Hoffman et al. 2021 defaults, Stan's
     warmup structure). ``max_leapfrogs`` bounds the leapfrogs per
     transition; the trajectory-length ascent is clipped to ``eps *
-    max_leapfrogs``. The JAX config's ``shared_adaptation`` switch
-    belongs to its batched fitter (``batch/fit.py``), which is not
-    ported: here adaptation is always shared."""
+    max_leapfrogs``.
+
+    ``shared_adaptation``: adapt ONE (step size, trajectory length) pair
+    from statistics pooled over every series x chain of the batch
+    (:func:`sample_chees_batched`, and the chunks of
+    ``batch/fit.py::fit_batched``). With it off, each series adapts its
+    own pair from its own chains, and a transition lasts as long as its
+    longest series."""
 
     num_warmup: int = 250
     num_samples: int = 250
@@ -76,6 +98,7 @@ class ChEESConfig:
     adam_lr: float = 0.025
     adam_b1: float = 0.9
     adam_b2: float = 0.999
+    shared_adaptation: bool = True
 
 
 def halton_base2(n: int) -> np.ndarray:
@@ -121,22 +144,31 @@ def sample_chees_batched(
     probe_vg: Optional[Callable] = None,
     trajectory_fn: Optional[Callable] = None,
 ):
-    """ChEES-HMC over a series x chains batch with SHARED step-size and
-    trajectory-length adaptation (see the module docstring).
+    """ChEES-HMC over a series x chains batch, with the step size and
+    trajectory length shared by the batch or, with
+    ``config.shared_adaptation=False``, adapted per series (see the
+    module docstring).
 
     ``lp_bc``: ``q [B, C, dim] -> (logp [B, C], grad [B, C, dim])``
     (:func:`make_lp_bc`). ``init_q``: ``[B, C, dim]`` with ``C ==
     config.num_chains >= 2``. ``series_weight``: optional ``[B]``
-    weights of the pooled adaptation statistics (0 for padding series).
-    ``probe_vg``: optional single-point ``q [dim] -> (logp, grad)`` for
-    the initial step-size search (else ``lp_bc`` on a broadcast batch).
-    ``trajectory_fn``: optional fused trajectory ``(inv_mass, eps,
-    n_steps, q, p, logp, grad) -> (q, p, logp, grad)``, e.g.
-    ``kernels/cuda_traj.py::make_tayal_trajectory`` — one kernel launch
-    per transition instead of one ``lp_bc`` call per leapfrog.
+    weights of the adaptation statistics (0 for padding series: left
+    out of the pooled statistics, and, per series, run one leapfrog a
+    transition so they never lengthen it). ``probe_vg``: optional
+    value-and-grad for the initial step-size search: shared, one point
+    ``q [dim] -> (logp, grad)`` (chain 0 of series 0); per series, the
+    series' chain 0 ``q [B, dim] -> (logp [B], grad [B, dim])``; else
+    ``lp_bc`` on a broadcast batch. ``trajectory_fn``: optional fused
+    trajectory ``(inv_mass, eps, n_steps, q, p, logp, grad) -> (q, p,
+    logp, grad)``, e.g. ``kernels/cuda_traj.py::make_tayal_trajectory``
+    — one kernel launch per transition instead of one ``lp_bc`` call per
+    leapfrog; shared adaptation only (it takes one scalar ε).
 
     Returns ``(samples [B, C, num_samples, dim], stats)``; every stats
-    entry has a leading series axis."""
+    entry has a leading series axis. Per series, the stats add
+    ``lockstep_leapfrogs [B, W + S]`` (the leapfrogs the batch ran a
+    transition: its longest series') and ``lockstep_efficiency [B]``
+    (the mean leapfrogs a series needed over those the batch ran)."""
     device = resolve_device(device)
     init_q = torch.as_tensor(init_q, dtype=torch.float32, device=device)
     B, C, dim = init_q.shape
@@ -148,6 +180,12 @@ def sample_chees_batched(
     if C != config.num_chains:
         raise ValueError(
             f"init_q has {C} chains per series, config.num_chains={config.num_chains}"
+        )
+    shared = config.shared_adaptation
+    if trajectory_fn is not None and not shared:
+        raise ValueError(
+            "trajectory_fn takes one step size for the batch; per-series "
+            "adaptation (shared_adaptation=False) runs the unfused leapfrogs"
         )
     traj_cap = getattr(trajectory_fn, "cap", None)
     if traj_cap is not None and traj_cap < config.max_leapfrogs:
@@ -163,29 +201,55 @@ def sample_chees_batched(
     gen.manual_seed(seed)
     if series_weight is None:
         series_weight = torch.ones((B,), **f)
-    w_bc = torch.as_tensor(series_weight, **f)[:, None].expand(B, C)
+    series_weight = torch.as_tensor(series_weight, **f)
+    w_bc = series_weight[:, None].expand(B, C)
+    real = series_weight > 0
     W, S = config.num_warmup, config.num_samples
     halton = torch.as_tensor(halton_base2(W + S), **f)
     update_mass, window_end = warmup_schedule(W)
+    # an active in-scan fault plan (robust/faults.py)
+    fault = faults.batch_fault_arrays(B, C)
+
+    def per_lane(v):  # an adaptation scalar ([] shared, [B] per series) over [B, C, dim]
+        return v if shared else v[:, None, None]
+
+    def reduce_chains(x):  # [B, C] -> [] pooled, or [B] per series
+        return x.sum() if shared else x.sum(1)
 
     def kinetic(inv_mass, p):  # [B, dim], [B, C, dim] -> [B, C]
         return _kinetic(inv_mass[:, None, :], p)
 
+    lockstep = []  # per transition: the leapfrogs the batch ran
+
     def leapfrogs(inv_mass, eps, n_steps, q, p, logp, grad):
         if trajectory_fn is not None:
             return trajectory_fn(inv_mass, eps, n_steps, q, p, logp, grad)
-        for _ in range(int(n_steps)):
-            p_half = p + 0.5 * eps * grad
-            q = q + eps * inv_mass[:, None, :] * p_half
-            logp, grad = lp_bc(q)
-            p = p_half + 0.5 * eps * grad
+        e = per_lane(eps)
+        if shared:
+            n_min = n_max = int(n_steps)
+        else:
+            counts = n_steps.tolist()
+            n_min, n_max = min(counts), max(counts)
+        lockstep.append(n_max)
+        for i in range(n_max):
+            p_half = p + 0.5 * e * grad
+            q1 = q + e * inv_mass[:, None, :] * p_half
+            logp1, grad1 = lp_bc(q1)
+            p1 = p_half + 0.5 * e * grad1
+            if i < n_min:
+                q, p, logp, grad = q1, p1, logp1, grad1
+            else:  # series that have run their count keep their state
+                q, p, logp, grad = guard_where(i < n_steps, (q1, p1, logp1, grad1),
+                                               (q, p, logp, grad))
         return q, p, logp, grad
 
     def transition(qs, logps, grads, eps, inv_mass, traj, u, healthy):
         p0 = torch.randn((B, C, dim), generator=gen, **f) / torch.sqrt(inv_mass)[:, None, :]
         energy0 = -logps + kinetic(inv_mass, p0)
-        # ONE step count for every chain in the batch
+        # ONE step count for every chain of the batch (of a series)
         n_steps = torch.clamp(torch.ceil(u * traj / eps).to(torch.int32), 1, config.max_leapfrogs)
+        if not shared:
+            n_steps = torch.where(real, n_steps, torch.ones_like(n_steps))
         q1, p1, logp1, grad1 = leapfrogs(inv_mass, eps, n_steps, qs, p0, logps, grads)
         delta = -logp1 + kinetic(inv_mass, p1) - energy0
         diverging = (delta > 1000.0) | torch.isnan(delta)
@@ -197,20 +261,20 @@ def sample_chees_batched(
         logp_new = torch.where(accept, logp1, logps)
         grad_new = torch.where(accept[..., None], grad1, grads)
 
-        # ChEES gradient pooled over series, centred per series
+        # ChEES gradient centred per series, pooled over the batch or not
         m0 = qs.mean(dim=1, keepdim=True)
         m1 = q1.mean(dim=1, keepdim=True)
         dsq = ((q1 - m1) ** 2).sum(-1) - ((qs - m0) ** 2).sum(-1)  # [B, C]
         proj = ((q1 - m1) * (inv_mass[:, None, :] * p1)).sum(-1)
         per_chain = accept_prob * dsq * proj * u
         finite = torch.isfinite(per_chain)
-        # quarantined chains are left out of the pooled statistics
+        # quarantined chains are left out of the adaptation statistics
         w_h = w_bc * healthy.to(dtype)
         zero = torch.zeros_like(per_chain)
         w = torch.where(finite, accept_prob, zero) * w_h
         g = torch.where(finite, per_chain, zero) * w_h
-        chees_grad = g.sum() / torch.clamp_min(w.sum(), 1e-6)
-        mean_accept = (accept_prob * w_h).sum() / torch.clamp_min(w_h.sum(), 1e-6)
+        chees_grad = reduce_chains(g) / torch.clamp_min(reduce_chains(w), 1e-6)
+        mean_accept = reduce_chains(accept_prob * w_h) / torch.clamp_min(reduce_chains(w_h), 1e-6)
         return q_new, logp_new, grad_new, accept_prob, mean_accept, chees_grad, diverging, n_steps
 
     logps, grads = lp_bc(init_q)
@@ -221,23 +285,41 @@ def sample_chees_batched(
         healthy, torch.full((B, C), -1, device=device), torch.zeros((B, C), dtype=torch.long, device=device)
     )
 
-    # shared eps_0 from one representative chain (DA converges within the
-    # first warmup window regardless)
-    if probe_vg is not None:
-        single = probe_vg
+    if shared:
+        # shared eps_0 from one representative chain (DA converges within
+        # the first warmup window regardless)
+        if probe_vg is not None:
+            single = probe_vg
+        else:
+
+            def single(q):
+                lps, gs = lp_bc(q.expand(B, C, dim).to(dtype))
+                return lps[0, 0], gs[0, 0]
+
+        eps0 = find_reasonable_step_size(
+            single, torch.ones((dim,), **f), qs[0, 0], logps[0, 0], grads[0, 0], gen,
+            config.init_step_size,
+        )
     else:
+        # one search per series, from its chain 0, in lockstep
+        if probe_vg is not None:
+            probe = probe_vg
+        else:
 
-        def single(q):
-            lps, gs = lp_bc(q.expand(B, C, dim).to(dtype))
-            return lps[0, 0], gs[0, 0]
+            def probe(q):
+                lps, gs = lp_bc(q[:, None, :].expand(B, C, dim))
+                return lps[:, 0], gs[:, 0]
 
-    eps0 = find_reasonable_step_size(
-        single, torch.ones((dim,), **f), qs[0, 0], logps[0, 0], grads[0, 0], gen,
-        config.init_step_size,
-    )
+        z = torch.randn((B, dim), generator=gen, **f)
+        eps0 = find_reasonable_step_size_batched(
+            probe, torch.ones((B, dim), **f), qs[:, 0], logps[:, 0], grads[:, 0], z,
+            config.init_step_size,
+        )
 
     def guarded_step(t, qs, logps, grads, healthy, q_step, out):
         q1, logp1, grad1 = out[:3]
+        if fault is not None:
+            logp1, grad1, q1 = faults.corrupt(t, *fault, logp1, grad1, q1)
         (qs, logps, grads), ok = guard_update(
             healthy, (q1, logp1, grad1), (qs, logps, grads), batch_ndim=2
         )
@@ -245,13 +327,13 @@ def sample_chees_batched(
         return qs, logps, grads, ok, q_step
 
     da = _da_init(eps0)
-    log_traj = torch.log(torch.as_tensor(config.init_traj_length, **f))
-    adam_m = torch.zeros((), **f)
-    adam_v = torch.zeros((), **f)
+    log_traj = torch.log(torch.full_like(eps0, config.init_traj_length))
+    adam_m = torch.zeros_like(eps0)
+    adam_v = torch.zeros_like(eps0)
     adam_t = 0
     wf = _welford_init_bc(B, dim, dtype, device)
     warm_div = torch.empty((W, B, C), dtype=torch.bool, device=device)
-    warm_steps = torch.empty((W,), dtype=torch.int32, device=device)
+    warm_steps = torch.empty((W,) + eps0.shape, dtype=torch.int32, device=device)
     b1, b2 = config.adam_b1, config.adam_b2
     for t in range(W):
         eps = torch.exp(da.log_eps)
@@ -291,7 +373,7 @@ def sample_chees_batched(
     rec_lp = torch.empty((S, B, C), **f)
     rec_acc = torch.empty((S, B, C), **f)
     rec_div = torch.empty((S, B, C), dtype=torch.bool, device=device)
-    rec_steps = torch.empty((S,), dtype=torch.int32, device=device)
+    rec_steps = torch.empty((S,) + eps0.shape, dtype=torch.int32, device=device)
     for s in range(S):
         t = W + s
         out = transition(qs, logps, grads, eps_final, inv_mass, traj_final, halton[t], healthy)
@@ -303,19 +385,30 @@ def sample_chees_batched(
     def scd(x):  # [S, B, C, ...] -> [B, C, S, ...]
         return torch.movedim(x, 0, 2)
 
+    def by_series(x):  # [] -> [B, C] shared, [B] -> [B, C] per series
+        return x.expand(B, C) if shared else x[:, None].expand(B, C)
+
+    def steps_bc(x):  # [T] shared, [T, B] per series -> [B, C, T]
+        return (x[None, None, :] if shared else x.t()[:, None, :]).expand(B, C, x.shape[0])
+
     stats = {
         "accept_prob": scd(rec_acc),
-        "num_leaves": rec_steps[None, None, :].expand(B, C, S),
+        "num_leaves": steps_bc(rec_steps),
         "diverging": scd(rec_div),
         "logp": scd(rec_lp),
-        "step_size": eps_final.expand(B, C),
+        "step_size": by_series(eps_final),
         "inv_mass": inv_mass,
-        "traj_length": traj_final.expand(B, C),
+        "traj_length": by_series(traj_final),
         "warmup_diverging": scd(warm_div),
-        "warmup_num_leaves": warm_steps[None, :].expand(B, W),
+        "warmup_num_leaves": steps_bc(warm_steps)[:, 0],
         "chain_healthy": healthy,
         "quarantine_step": q_step,
     }
+    if not shared:
+        ran = torch.tensor(lockstep, dtype=torch.int32, device=device)
+        needed = torch.cat([warm_steps, rec_steps]).float()[:, real].mean(1)
+        stats["lockstep_leapfrogs"] = ran.expand(B, W + S)
+        stats["lockstep_efficiency"] = (needed.sum() / ran.sum().float()).expand(B)
     return scd(rec_q), stats
 
 

@@ -10,6 +10,8 @@ launch of each CUDA kernel (``kernels/cuda_semiring.py``), then the
 conjugate draws for all lanes at once. Randomness comes from one
 ``torch.Generator`` on the sampling device: uniforms ``u [N, T]`` for
 the FFBS, and ``torch._standard_gamma`` for the Beta/Dirichlet draws.
+A model whose ``build`` gives a time-varying ``log_A`` and no gate keys
+takes the scan filter and the Gumbel-max backward draw instead.
 """
 
 from __future__ import annotations
@@ -21,6 +23,9 @@ import torch
 
 from hhmm_tpu_torch._device import DeviceLike, resolve_device
 from hhmm_tpu_torch.kernels.dispatch import ffbs_dispatch
+from hhmm_tpu_torch.kernels.ffbs import backward_sample
+from hhmm_tpu_torch.kernels.filtering import forward_filter, time_varying
+from hhmm_tpu_torch.robust import faults
 from hhmm_tpu_torch.robust.guards import all_finite, guard_where
 
 __all__ = [
@@ -151,11 +156,24 @@ def sample_gibbs(
     ll_prev = torch.full((N,), float("nan"), device=device)
     rec = {k: torch.empty((S,) + v.shape, dtype=v.dtype, device=device) for k, v in params.items()}
     lls = torch.empty((S, N), device=device)
+    # an active in-scan fault plan (robust/faults.py), per lane
+    fault = faults.batch_fault_arrays(B, C)
+    if fault is not None:
+        fault = tuple(a.reshape(N) for a in fault)
 
     for t in range(config.num_warmup + S):
         log_pi, log_A, log_obs, mask = build(params, lanes)
-        z, ll = ffbs_dispatch(gen, log_pi, log_A, log_obs, mask, *gate_args)
+        if gk is None and time_varying(log_A, log_obs):
+            # a time-varying log_A without gate keys: the scan filter and
+            # the Gumbel-max backward draw, as the JAX sweep runs it
+            log_alpha, ll = forward_filter(log_pi, log_A, log_obs, mask)
+            z = backward_sample(gen, log_alpha, log_A, mask)
+        else:
+            z, ll = ffbs_dispatch(gen, log_pi, log_A, log_obs, mask, *gate_args)
         new = model.gibbs_update(gen, z, lanes, params)
+        if fault is not None:
+            ll, _, _ = faults.corrupt(t, *fault, logp=ll)
+            new = faults.corrupt_tree(t, *fault, new)
         ok = healthy & all_finite(new, ll)
         new = guard_where(ok, new, params)
         q_step = torch.where(healthy & ~ok, torch.full_like(q_step, t), q_step)

@@ -21,9 +21,10 @@ C, dim])`` call over every lane a leapfrog. :func:`sample_nuts` is the
 single-posterior form (``B = 1``). What changes from the JAX module:
 ``lax.scan`` is a Python loop over transitions whose state stays on the
 device (the tree reads one flag a leaf on the host); ``jax.random`` is
-one ``torch.Generator`` seeded with ``seed``. The fault-injection hooks
-(``robust/faults.py``), ``record_sampler_health``, the ``span`` trace and
-the ``jit`` argument are not ported.
+one ``torch.Generator`` seeded with ``seed``. An active in-scan fault
+plan (``robust/faults.py``) corrupts its chain after the transition, as
+in the JAX loop; ``record_sampler_health``, the ``span`` trace and the
+``jit`` argument are not ported.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ import torch
 
 from hhmm_tpu_torch._device import DeviceLike, resolve_device
 from hhmm_tpu_torch.infer.nuts import GeneratorDraws, find_reasonable_step_size_batched, nuts_step
+from hhmm_tpu_torch.robust import faults
 from hhmm_tpu_torch.robust.guards import finite_mask, guard_update, guard_where
 
 __all__ = ["SamplerConfig", "sample_nuts", "sample_nuts_batched", "vg_from_logp", "warmup_schedule"]
@@ -211,8 +213,15 @@ def sample_nuts_batched(
     q_step = torch.where(healthy, torch.full((N,), -1, device=device),
                          torch.zeros((N,), dtype=torch.long, device=device))
 
+    # an active in-scan fault plan (robust/faults.py), per lane
+    fault = faults.batch_fault_arrays(B, C)
+    if fault is not None:
+        fault = tuple(a.reshape(N) for a in fault)
+
     def step(t, eps, q, logp, grad, inv_mass, healthy, q_step):
         q1, logp1, grad1, info = nuts_step(lp, draws, q, logp, grad, eps, inv_mass, depth_max)
+        if fault is not None:
+            logp1, grad1, q1 = faults.corrupt(t, *fault, logp1, grad1, q1)
         (q1, logp1, grad1), ok = guard_update(healthy, (q1, logp1, grad1), (q, logp, grad))
         q_step = torch.where(healthy & ~ok, torch.full_like(q_step, t), q_step)
         lockstep.append((info.lockstep_leapfrogs, info.host_syncs))

@@ -19,7 +19,7 @@ from hhmm_tpu_torch.kernels.dispatch import (
     tayal_trajectory,
     viterbi_dispatch,
 )
-from hhmm_tpu_torch.kernels.ffbs import ffbs_fused, ffbs_invcdf_reference
+from hhmm_tpu_torch.kernels.ffbs import backward_sample, ffbs_fused, ffbs_invcdf_reference, ffbs_sample
 from hhmm_tpu_torch.kernels.filtering import (
     backward_pass,
     filter_step,
@@ -41,8 +41,10 @@ __all__ = [
     "filter_step",
     "forward_backward",
     "smooth",
+    "backward_sample",
     "ffbs_fused",
     "ffbs_invcdf_reference",
+    "ffbs_sample",
     "forward_filter",
     "forward_value_and_grad",
     "ForwardLoglik",

@@ -1,15 +1,19 @@
 """The model parameter contract (with generated quantities), the Tayal
-(2009) HHMM and the Gaussian HMM."""
+(2009) HHMM, the Gaussian HMM and the multinomial HMMs."""
 
-from hhmm_tpu_torch.models.base import BaseHMMModel
+from hhmm_tpu_torch.models.base import BaseHMMModel, semisup_gate
 from hhmm_tpu_torch.models.gaussian_hmm import GaussianHMM, NIGPrior, nig_emission_draw
+from hhmm_tpu_torch.models.multinomial_hmm import MultinomialHMM, SemisupMultinomialHMM
 from hhmm_tpu_torch.models.tayal import TayalHHMM, TayalHHMMLite
 
 __all__ = [
     "BaseHMMModel",
     "GaussianHMM",
+    "MultinomialHMM",
     "NIGPrior",
+    "SemisupMultinomialHMM",
     "nig_emission_draw",
+    "semisup_gate",
     "TayalHHMM",
     "TayalHHMMLite",
 ]

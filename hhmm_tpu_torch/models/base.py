@@ -27,12 +27,14 @@ import torch
 
 from hhmm_tpu_torch._device import DeviceLike, resolve_device
 from hhmm_tpu_torch.core.bijectors import Bijector
+from hhmm_tpu_torch.core.lmath import MASK_NEG
 from hhmm_tpu_torch.kernels.dispatch import ffbs_dispatch, smooth_dispatch, viterbi_dispatch
+from hhmm_tpu_torch.kernels.ffbs import ffbs_sample
 from hhmm_tpu_torch.kernels.filtering import time_varying
 from hhmm_tpu_torch.kernels.grad import forward_loglik
 from hhmm_tpu_torch.kernels.vg import ForwardLoglik
 
-__all__ = ["BaseHMMModel", "broadcast_data", "per_lane", "draw_lanes"]
+__all__ = ["BaseHMMModel", "broadcast_data", "per_lane", "draw_lanes", "semisup_gate"]
 
 Params = Dict[str, torch.Tensor]
 
@@ -87,6 +89,23 @@ def draw_lanes(theta_draws, data, device: DeviceLike):
     return lead, flat, lanes
 
 
+def semisup_gate(log_pi, log_A, log_obs, consistent, gate_mode: str):
+    """Observed-group evidence gating shared by the semisup-style models
+    (`hmm-multinom-semisup.stan:42-44`).
+
+    ``consistent [..., T, K]``: whether state j may own step t.
+    ``"stan"`` keeps the emission term on inconsistent destinations with
+    a unit transition factor (time-varying ``A_t[i, j] = consistent[t+1,
+    j] ? A[i, j] : 1``, i.e. ``log_A [..., T-1, K, K]``; π stays
+    ungated); ``"hard"`` forbids them outright (``MASK_NEG`` on the
+    emissions, ``log_A`` stays homogeneous). Returns the gated
+    ``(log_pi, log_A, log_obs)``."""
+    if gate_mode == "hard":
+        return log_pi, log_A, torch.where(consistent, log_obs, MASK_NEG)
+    log_A_t = torch.where(consistent[..., 1:, None, :], log_A[..., None, :, :], 0.0)
+    return log_pi, log_A_t, log_obs
+
+
 class BaseHMMModel:
     """Subclasses define ``specs()`` and ``build()``."""
 
@@ -109,6 +128,14 @@ class BaseHMMModel:
         K])`` float tensors with ``c[t, j] = gate_key[t] ==
         state_key[j]``."""
         return None
+
+    def init_unconstrained(
+        self, generator: torch.Generator, data: Dict[str, torch.Tensor]
+    ) -> torch.Tensor:
+        """Default chain init for one series: ``0.5 * N(0, 1)`` on the
+        unconstrained space, ``[n_free]`` on the generator's device
+        (models override it with data-driven inits)."""
+        return 0.5 * torch.randn((self.n_free,), generator=generator, device=generator.device)
 
     def log_prior(self, params: Params) -> torch.Tensor:
         """Log prior on the constrained values; flat (zero) by default,
@@ -256,13 +283,19 @@ class BaseHMMModel:
         ``BWD_SAMPLE`` launch on the card — with uniforms from
         ``generator``, which must live on ``device``. A model that
         expresses its gate by keys (:meth:`gate_keys`) keeps ``log_A``
-        homogeneous through :meth:`build_vg`, as the Gibbs sweep does."""
+        homogeneous through :meth:`build_vg`, as the Gibbs sweep does.
+        A time-varying ``log_A [n, T-1, K, K]`` from :meth:`build` takes
+        the Gumbel-max FFBS (:func:`~hhmm_tpu_torch.kernels.ffbs.
+        ffbs_sample`, the JAX package's route for it): the same target."""
         lead, flat, lanes = draw_lanes(theta_draws, data, device)
         params, _ = self.unpack(flat)
         gk = self.gate_keys(lanes)
         build = self.build_vg if gk is not None else self.build
         log_pi, log_A, log_obs, mask = build(params, lanes)
-        z, _ = ffbs_dispatch(generator, log_pi, log_A, log_obs, mask, *(gk or (None, None)))
+        if gk is None and time_varying(log_A, log_obs):
+            z = ffbs_sample(generator, log_pi, log_A, log_obs, mask)
+        else:
+            z, _ = ffbs_dispatch(generator, log_pi, log_A, log_obs, mask, *(gk or (None, None)))
         return z.reshape(lead + z.shape[1:])
 
     def constrained_draws(self, theta_draws: torch.Tensor) -> Params:

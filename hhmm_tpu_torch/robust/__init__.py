@@ -1,5 +1,20 @@
-"""Per-lane chain-health guards."""
+"""Per-lane chain-health guards, fault injection and the self-healing
+policy of ``fit_batched``."""
 
+from hhmm_tpu_torch.robust import faults
+from hhmm_tpu_torch.robust.faults import FaultPlan, SimulatedCrash
 from hhmm_tpu_torch.robust.guards import all_finite, finite_mask, guard_update, guard_where
+from hhmm_tpu_torch.robust.retry import RetryPolicy, escalate, rejitter
 
-__all__ = ["all_finite", "finite_mask", "guard_update", "guard_where"]
+__all__ = [
+    "FaultPlan",
+    "RetryPolicy",
+    "SimulatedCrash",
+    "all_finite",
+    "escalate",
+    "faults",
+    "finite_mask",
+    "guard_update",
+    "guard_where",
+    "rejitter",
+]

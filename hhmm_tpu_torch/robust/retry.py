@@ -1,0 +1,97 @@
+"""The self-healing policy of ``fit_batched`` (counterpart of the
+healing half of ``hhmm_tpu/robust/retry.py``): a bounded number of
+re-dispatches of the series whose chains were quarantined, with
+deterministic re-jittered seeds and an escalating remedy ladder.
+
+- **Escalation ladder** (:func:`escalate`), per healing attempt:
+
+  1. fresh inits and a re-jittered seed (same config),
+  2. \\+ halved ``init_step_size`` and raised ``target_accept``,
+  3. \\+ reduced ``max_treedepth`` (NUTS) / halved ``max_leapfrogs``
+     (ChEES).
+
+  Gibbs has no step-size knobs; every attempt is fresh inits and seed.
+- **Deterministic re-jitter** (:func:`rejitter`): a retry seed is a pure
+  function of (chunk seed, attempt), so a crashed and resumed sweep
+  replays the same healing and the digest cache stays coherent.
+
+Not carried over: the JAX package's device-level retry of a dispatch
+(``UNAVAILABLE:`` statuses of a TPU tunnel, with ``backoff`` between
+attempts) and ``ensure_backend``'s fallback to the CPU. A CUDA launch or
+runtime error is sticky to its context, so retrying the dispatch cannot
+heal it, and the port never hides the device behind a CPU route: a
+CUDA error raises. :class:`RetryPolicy` keeps ``device_retries`` and
+``backoff`` so a policy written for the JAX ladder reads the same here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Any, Dict
+
+__all__ = ["RetryPolicy", "escalate", "rejitter"]
+
+# salt folded in before the attempt, so a retry seed never equals an
+# ordinary derive_seed(seed, i) series derivation
+_SALT = 0x5EED
+
+
+@dataclass(frozen=True)
+class RetryPolicy:
+    """Bounds and knobs for the self-healing dispatch in ``fit_batched``.
+
+    ``max_heal_attempts``: re-dispatches of a chunk with quarantined
+    series (attempt 0 is the original dispatch). ``device_retries`` and
+    ``backoff_base_s`` / :meth:`backoff` are the JAX policy's device
+    retry fields, kept for parity; the port dispatches once (see the
+    module docstring)."""
+
+    max_heal_attempts: int = 3
+    device_retries: int = 4
+    backoff_base_s: float = 15.0
+    step_size_factor: float = 0.5
+    target_accept_raise: float = 0.05
+    target_accept_cap: float = 0.95
+    treedepth_step: int = 2
+    treedepth_floor: int = 4
+    leapfrog_floor: int = 8
+
+    def backoff(self, attempt: int) -> float:
+        """The JAX policy's backoff before device retry ``attempt``
+        (0-based): linear multiples of the base."""
+        return self.backoff_base_s * (attempt + 1)
+
+
+def rejitter(seed: int, attempt: int) -> int:
+    """Deterministic retry seed of ``seed`` for healing ``attempt``:
+    ``derive_seed(seed, salt, attempt)`` (the JAX ``rejitter`` folds the
+    same salt and the attempt into a key)."""
+    from hhmm_tpu_torch.batch.fit import derive_seed
+
+    return derive_seed(seed, _SALT, attempt)
+
+
+def escalate(config: Any, attempt: int, policy: RetryPolicy = RetryPolicy()) -> Any:
+    """Remedy ladder for healing attempt ``attempt`` (1-based).
+
+    Works on any frozen config dataclass by the knobs it owns
+    (``init_step_size`` / ``target_accept`` for both HMC samplers,
+    ``max_treedepth`` for NUTS, ``max_leapfrogs`` for ChEES); a config
+    with none of them (Gibbs) comes back unchanged."""
+    if attempt <= 1:
+        return config
+    kw: Dict[str, Any] = {}
+    if hasattr(config, "init_step_size"):
+        kw["init_step_size"] = config.init_step_size * (policy.step_size_factor ** (attempt - 1))
+    if hasattr(config, "target_accept"):
+        kw["target_accept"] = min(
+            policy.target_accept_cap,
+            config.target_accept + policy.target_accept_raise * (attempt - 1),
+        )
+    if attempt >= 3:
+        if hasattr(config, "max_treedepth"):
+            kw["max_treedepth"] = max(policy.treedepth_floor, config.max_treedepth - policy.treedepth_step)
+        if hasattr(config, "max_leapfrogs"):
+            kw["max_leapfrogs"] = max(policy.leapfrog_floor, config.max_leapfrogs // 2)
+    return dataclasses.replace(config, **kw) if kw else config

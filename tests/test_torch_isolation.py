@@ -19,7 +19,15 @@ import pytest
 import torch
 
 import hhmm_tpu_torch
-from hhmm_tpu_torch.apps.tayal import decode_states, run_window, simulate_ticks, wf_trade
+from hhmm_tpu_torch.apps.tayal import (
+    chain_marginal_ll,
+    decode_states,
+    degenerate_mode_probe,
+    per_draw_relabel_stats,
+    run_window,
+    simulate_ticks,
+    wf_trade,
+)
 from hhmm_tpu_torch.batch import default_init, fit_batched
 from hhmm_tpu_torch.convert import constrained_from_jax, params_from_jax
 from hhmm_tpu_torch.infer import (
@@ -45,7 +53,13 @@ from hhmm_tpu_torch.kernels import (
 )
 from hhmm_tpu_torch.kernels import dispatch as kernel_dispatch
 from hhmm_tpu_torch.kernels.cuda_build import BUILD_DIR, build
-from hhmm_tpu_torch.models import GaussianHMM, TayalHHMM, TayalHHMMLite
+from hhmm_tpu_torch.models import (
+    GaussianHMM,
+    MultinomialHMM,
+    SemisupMultinomialHMM,
+    TayalHHMM,
+    TayalHHMMLite,
+)
 from hhmm_tpu_torch.sim import tayal_batch
 
 torch.set_num_threads(1)
@@ -95,6 +109,13 @@ def test_port_file_list_is_complete():
         "hhmm_tpu_torch/apps/tayal/pipeline.py",
         "hhmm_tpu_torch/apps/tayal/features.py",
         "hhmm_tpu_torch/apps/tayal/analytics.py",
+        "hhmm_tpu_torch/apps/tayal/replication.py",
+        "hhmm_tpu_torch/robust/faults.py",
+        "hhmm_tpu_torch/robust/retry.py",
+        "hhmm_tpu_torch/models/multinomial_hmm.py",
+        "hhmm_tpu_torch/kernels/semiring.py",
+        "hhmm_tpu_torch/kernels/ffbs.py",
+        "hhmm_tpu_torch/core/bijectors.py",
     ):
         assert must in names
 
@@ -172,6 +193,30 @@ ENTRY_POINTS = {
     "filtered": lambda: TayalHHMMLite().filtered(
         torch.zeros(2, 35),
         {"x": _tiny()[0][0], "sign": _tiny()[1][0], "x_oos": _tiny()[0][0], "sign_oos": _tiny()[1][0]},
+    ),
+    "multinomial_generated": lambda: MultinomialHMM(3, 5).generated(
+        torch.zeros(2, MultinomialHMM(3, 5).n_free), {"x": torch.zeros(6, dtype=torch.long)}
+    ),
+    "semisup_state_draws": lambda: SemisupMultinomialHMM(4, 9, (0, 1, 1, 0)).state_draws(
+        torch.Generator(), torch.zeros(2, SemisupMultinomialHMM(4, 9, (0, 1, 1, 0)).n_free),
+        {"x": torch.zeros(6, dtype=torch.long), "g": torch.zeros(6, dtype=torch.long)},
+    ),
+    "fit_batched_multinomial_healing": lambda: fit_batched(
+        MultinomialHMM(2, 3), {"x": np.zeros((2, 6), np.int64)}, GibbsConfig(1, 1)
+    ),
+    "fit_batched_chees_per_series": lambda: fit_batched(
+        TayalHHMM(), dict(zip(("x", "sign"), _tiny())),
+        ChEESConfig(1, 1, num_chains=2, shared_adaptation=False),
+    ),
+    "chain_marginal_ll": lambda: chain_marginal_ll(
+        TayalHHMM(), np.zeros((2, 3, 35)), {"x": _tiny()[0][0], "sign": _tiny()[1][0]}
+    ),
+    "degenerate_mode_probe": lambda: degenerate_mode_probe(
+        TayalHHMM(), np.zeros(35), {"x": _tiny()[0][0], "sign": _tiny()[1][0]}, torch.Generator()
+    ),
+    "per_draw_relabel_stats": lambda: per_draw_relabel_stats(
+        TayalHHMM(), np.zeros((2, 35)), {"x": _tiny()[0][0], "sign": _tiny()[1][0]},
+        np.arange(6), np.arange(6) + 1, np.ones(8), torch.Generator(),
     ),
     "constrained_from_jax": lambda: constrained_from_jax(
         TayalHHMM(), {"p_11": np.float32(0.5), "A_row": np.full((2, 2), 0.5),

@@ -32,7 +32,7 @@
   mass, every draw and its log density agree within 1e-4 (the f32
   tolerance of the ``nuts_step`` case), without a fault and with one
   chain's state poisoned mid-warmup (the JAX ``nan_state`` fault, the
-  port's ``nuts_step`` wrapped to do the same): that chain's
+  port's own in-scan hook, ``robust/faults.py``): that chain's
   quarantine step, its frozen dual averaging, Welford state and mass;
 - the warmup's adapted inverse mass and step size on a badly scaled
   Gaussian against the JAX ``sample_nuts`` (``tests/test_nuts.py``'s
@@ -65,9 +65,9 @@ from hhmm_tpu_torch.infer import (
     split_rhat,
     vg_from_logp,
 )
-from hhmm_tpu_torch.infer import run as run_module
 from hhmm_tpu_torch.infer.nuts import _ckpt_idxs
 from hhmm_tpu_torch.models import GaussianHMM
+from hhmm_tpu_torch.robust import faults
 
 torch.set_num_threads(1)
 
@@ -439,7 +439,7 @@ SCALES_REPLAY = np.array([0.5, 1.0, 3.0])
 
 
 @pytest.mark.parametrize("fault", [None, 8])
-def test_sample_nuts_batched_replays_jax_chains(fault, monkeypatch):
+def test_sample_nuts_batched_replays_jax_chains(fault):
     """The warmup and sampling loop around ``nuts_step`` against the JAX
     ``sample_nuts`` with its key flow replayed (f32, 2 chains, 20 + 3,
     ``max_treedepth`` 6; the mass window closes at transition 17). With
@@ -453,20 +453,8 @@ def test_sample_nuts_batched_replays_jax_chains(fault, monkeypatch):
     # by about 2 at each window restart), which would say nothing of the
     # port
     init = np.random.default_rng(13).normal(size=(C, dim)).astype(np.float32)
-    if fault is not None:
-        real = run_module.nuts_step
-        calls = []
-
-        def poisoned(*args):
-            q, logp, grad, info = real(*args)
-            if len(calls) == fault:
-                q = q.clone()
-                q[1] = np.nan
-            calls.append(1)
-            return q, logp, grad, info
-
-        monkeypatch.setattr(run_module, "nuts_step", poisoned)
-    plan = j_faults.FaultPlan(kind="nan_state", step=-1 if fault is None else fault, chain=1)
+    step = -1 if fault is None else fault
+    plan = j_faults.FaultPlan(kind="nan_state", step=step, chain=1)
     scales = SCALES_REPLAY.astype(np.float32)
     with j_faults.inject(plan):
         jqs, jstats = j_sample_nuts(lambda q: -0.5 * jnp.sum((q / jnp.asarray(scales)) ** 2),
@@ -474,8 +462,9 @@ def test_sample_nuts_batched_replays_jax_chains(fault, monkeypatch):
                                     JSamplerConfig(**cfg))
     src = ReplayChain(jax.random.PRNGKey(4), C, dim, depth, jnp.float32)
     vg = vg_from_logp(lambda q: -0.5 * ((q / torch.as_tensor(scales)) ** 2).sum(-1))
-    qs, stats = sample_nuts_batched(vg, torch.as_tensor(init)[None], SamplerConfig(**cfg),
-                                    device="cpu", draws=src)
+    with faults.inject(faults.FaultPlan(kind="nan_state", step=step, chain=1)):
+        qs, stats = sample_nuts_batched(vg, torch.as_tensor(init)[None], SamplerConfig(**cfg),
+                                        device="cpu", draws=src)
     qs, stats = qs[0], {k: v[0] for k, v in stats.items()}
     healthy = [True, fault is None]
     assert stats["chain_healthy"].tolist() == healthy == np.asarray(jstats["chain_healthy"]).tolist()

@@ -402,7 +402,7 @@ class TestFitBatchedNuts:
         monkeypatch.setattr(fit_module, "digest_key", spy)
         fit_batched(TayalHHMM(), _tayal_ragged(1, 24), NUTS_SMALL, cache_dir=str(tmp_path),
                     device="cpu")
-        assert "sampler=nuts-vg-torch-v1-cpu" in stages
+        assert "sampler=nuts-vg-torch-v2-cpu" in stages
 
 
 def _mcse(draws):
