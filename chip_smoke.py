@@ -4,7 +4,7 @@ its hand-written CUDA kernels against its plain PyTorch version there.
 
     python3 chip_smoke.py
 
-Twelve main paths, each driven with the kernel counts set to 0 just
+Fourteen main paths, each driven with the kernel counts set to 0 just
 before it and read just after:
 
 - the batched Tayal Gibbs fit that ``bench.py`` runs by default (256
@@ -38,11 +38,11 @@ before it and read just after:
   value-and-grad call);
 - NUTS, the JAX package's default sampler: ``fit_batched`` with a
   ``SamplerConfig`` on the ChEES path's batch and model (256 series x
-  T=1024, stan gate, one chain, Stan's ``max_treedepth`` 10, 50 + 50
+  T=1024, stan gate, one chain, Stan's ``max_treedepth`` 10, 30 + 30
   transitions: 256 lanes in lockstep, ``FWD`` and ``VG_BWD`` once a
   value-and-grad call);
 - the ``hmm/main.R`` Gaussian gate under NUTS through ``make_logp``
-  (T=500, K=2, 2 chains, 150 + 150: ``FILTER`` forward and ``BETA``
+  (T=500, K=2, 2 chains, 100 + 100: ``FILTER`` forward and ``BETA``
   backward once a log-density call);
 - the walk-forward back-test by NUTS (``wf_trade`` with a
   ``SamplerConfig`` on every 8th of the ChEES arm's windows by length,
@@ -58,7 +58,19 @@ before it and read just after:
 - per-series ChEES adaptation (``ChEESConfig(shared_adaptation=False)``)
   through ``fit_batched`` at the ChEES cell, 50 + 50;
 - the replication diagnostics (``apps/tayal/replication.py``) on the
-  ChEES draws, their FFBS paths by the Gumbel-max scan.
+  ChEES draws, their FFBS paths by the Gumbel-max scan;
+- the input-output HMMs of ``iohmm-reg/main.R`` (K=3, M=4, stan mode)
+  and ``iohmm-mix/main.R`` (the hierarchical mixture, K=4, L=3), 64
+  simulated series x T=300 each through ``fit_batched`` NUTS (every
+  leapfrog one folded value-and-grad call: ``FWD`` and ``VG_BWD``), then
+  their time-varying decode and state draws;
+- the Hassan (2005) walk-forward forecaster (``apps/hassan/wf.py::
+  wf_forecast``) on the two frozen synthetic benchmarks of
+  ``examples/hassan_replication.py``: 30 steps each, a pilot fit, the
+  batched fit of the steps and the batched forecast step. These last two
+  paths run as four tasks (two models, two benchmarks), each in a
+  spawned process of its own, all at once: each is host-bound, one NUTS
+  leaf at a time.
 
 Phases, one JSON object per line:
 
@@ -217,14 +229,31 @@ Phases, one JSON object per line:
    arm's posterior means; first launches bitwise.
    replication — the twelfth: the four functions on the card, no kernel
    launched, the relabel statistics against the CPU's on the same noise.
+   iohmm — the thirteenth (a process a model): ``FWD`` and ``VG_BWD`` once a
+   value-and-grad call and nothing else, every chain healthy, divergent
+   share at most ``IO_DIV_MAX``; IOHMM-reg's posterior-mean ``b_km`` and
+   ``s_k`` on the median series within ``IO_B_ATOL`` / ``IO_S_ATOL``
+   after matching intercepts; ``generated`` (IOHMM-reg) or
+   ``IOHMMHMixLite.generated`` (the mixture) and ``state_draws`` on 8
+   draws a series, finite, no kernel launched (the scans and the
+   Gumbel-max FFBS); seconds a fit (four processes sharing the host and
+   the card), ms a value-and-grad call (timed alone, after the tasks),
+   lockstep efficiency, Viterbi accuracy, decode seconds; the first
+   launch of each kernel at each shape bitwise against its plain version.
+   hassan — the fourteenth (a process a benchmark): ``FWD`` and ``VG_BWD`` once a
+   value-and-grad call of the pilot and the fit, none in the forecast
+   step; finite forecasts for every step; the gates ``HS_GATES`` and
+   ``HS_DIV_MAX``; pilot, fit and forecast seconds (shared as above),
+   value-and-grad calls and ms (alone), lockstep efficiency, the three errors beside the JAX record's
+   (``results/hassan_replication.json``); first launches bitwise.
 9. the timeline line (host seconds a group of phases), the kernels line
    (every kernel; the semiring kernels with their K range, their time at
    K=64 and their zoo_wide launches; ``FWD``, ``BWD_SAMPLE`` and
    ``VG_BWD`` with their walk_forward launches; ``FWD`` and ``VG_BWD``
    with their NUTS launches and time, ``FILTER`` and ``BETA`` with the
    Gaussian NUTS gate's; each kernel with its launches on the multinom,
-   heal and chees_per_series paths and their first launches' shapes and
-   times), then the last line ``{"ok": true, "device": ...}``.
+   heal, chees_per_series, iohmm and hassan paths and their first
+   launches' shapes and times), then the last line ``{"ok": true, "device": ...}``.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line. It imports nothing of JAX or of ``hhmm_tpu``.
@@ -234,7 +263,9 @@ from __future__ import annotations
 
 import contextlib
 import io
+import itertools
 import json
+import multiprocessing
 import re
 import subprocess
 import sys
@@ -242,11 +273,14 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import ExitStack
+from pathlib import Path
 from unittest import mock
 
 import numpy as np
 import torch
 
+from hhmm_tpu_torch.apps.hassan import DEFAULT_HYPERPARAMS, simulate_ohlc, wf_forecast
+from hhmm_tpu_torch.apps.hassan import wf as hassan_wf
 from hhmm_tpu_torch.apps.tayal import build_tasks, replication, run_window, simulate_ticks, wf_trade
 from hhmm_tpu_torch.apps.tayal import wf as wf_module
 from hhmm_tpu_torch.apps.tayal.trading import equity_curve
@@ -275,6 +309,9 @@ from hhmm_tpu_torch.kernels.ffbs import gumbel
 from hhmm_tpu_torch.kernels.filtering import smooth
 from hhmm_tpu_torch.models import (
     GaussianHMM,
+    IOHMMHMix,
+    IOHMMHMixLite,
+    IOHMMReg,
     MultinomialHMM,
     NIGPrior,
     SemisupMultinomialHMM,
@@ -285,7 +322,14 @@ from hhmm_tpu_torch.models import base as zoo_base
 from hhmm_tpu_torch.models.base import broadcast_data
 from hhmm_tpu_torch.native import zigzag as native_zigzag
 from hhmm_tpu_torch.robust import FaultPlan, RetryPolicy, SimulatedCrash, faults
-from hhmm_tpu_torch.sim import hmm_sim, obsmodel_categorical, obsmodel_gaussian
+from hhmm_tpu_torch.sim import (
+    hmm_sim,
+    iohmm_sim,
+    obsmodel_categorical,
+    obsmodel_gaussian,
+    obsmodel_mix,
+    obsmodel_reg,
+)
 from hhmm_tpu_torch.sim.tayal import tayal_batch, tayal_phi
 
 # main path: bench.py's default Gibbs workload
@@ -345,20 +389,23 @@ WF_DIV_MAX = 0.2  # mean divergent share a task (tests/test_chees.py's wf_trade 
 # sixth main path: NUTS, the JAX package's default sampler, through
 # fit_batched on the ChEES phase's batch and model (256 series x T=1024,
 # stan gate, one chain, one flat batch of 256 lanes) at Stan's
-# max_treedepth; 50 + 50 transitions, not the reference's 250 + 250 (at
+# max_treedepth; 30 + 30 transitions, not the reference's 250 + 250 (at
 # 100 + 100 the phase alone took 188 s on the card: 34,668
-# value-and-grad calls, 173 lockstep leapfrogs a transition)
-NUTS_WARMUP, NUTS_SAMPLES, NUTS_TREEDEPTH = 50, 50, 10
+# value-and-grad calls, 173 lockstep leapfrogs a transition; at 50 + 50
+# 111-160 s, cut to make room for the IOHMM and Hassan paths)
+NUTS_WARMUP, NUTS_SAMPLES, NUTS_TREEDEPTH = 30, 30, 10
 NUTS_DIV_MAX = 0.05  # divergent share of the sampling transitions
 # seventh: the hmm/main.R gate under NUTS through make_logp
 # (tests/test_models.py::test_gaussian_hmm_recovery: T=500, K=2, its A,
-# p1, means and sigma, 2 chains, its bounds), 150 + 150 transitions, not
+# p1, means and sigma, 2 chains, its bounds), 100 + 100 transitions, not
 # the test's 300 + 300: at 300 + 300 the phase took 63-95 s on an NVIDIA
 # H100 80GB HBM3 at 700 W, its errors 0.021, 0.015 and 0.032 against the
-# bounds 0.08, 0.05 and 0.10
+# bounds 0.08, 0.05 and 0.10 (at 150 + 150, 72 s; at 100 + 100, 69 s on
+# a slower host, errors 0.020, 0.016 and 0.029: cut to make room for the
+# IOHMM and Hassan paths)
 GN_T, GN_A, GN_P1 = 500, [[0.8, 0.2], [0.35, 0.65]], [0.9, 0.1]
 GN_MU, GN_SIGMA = [1.0, 2.0], [0.3, 0.3]
-GN_WARMUP, GN_SAMPLES, GN_CHAINS = 150, 150, 2
+GN_WARMUP, GN_SAMPLES, GN_CHAINS = 100, 100, 2
 GN_MU_ATOL, GN_SIGMA_ATOL, GN_A_ATOL, GN_DIV_MAX = 0.08, 0.05, 0.10, 0.05
 SEED_GN = 42
 # eighth: the walk-forward back-test by NUTS (stan gate, one chain),
@@ -405,6 +452,38 @@ CPS_PHI_MAE_MAX = 0.08  # the emission rows after 50 + 50 (PHI_MAE_MAX holds 150
 # every leg 5 ticks (tayal_batch has no ticks); the card's relabel
 # stats against the CPU's on the first REP_CPU_DRAWS draws, same noise
 REP_LEG_TICKS, REP_CPU_DRAWS = 5, 16
+# thirteenth: the IOHMMs of iohmm-reg/main.R:10-22 (T=300, K=3, M=4,
+# stan mode) and iohmm-mix/main.R:10-39 (the hierarchical mixture, K=4,
+# L=3, M=4, DEFAULT_HYPERPARAMS), as examples/iohmm_main.py builds them,
+# 64 series each (one seed a series), fit_batched NUTS in one chunk, one
+# chain, 50 + 50 transitions at max_treedepth 6 (the depth of the frozen
+# Hassan record, results/hassan_replication.json; cut from Stan's 10);
+# then 8 draws a series through generated / oblik_t and 8 state_draws a
+# series (the Gumbel route of the time-varying log_A)
+IO_SERIES, IO_T, IO_M, IO_K_REG, IO_K_MIX, IO_L = 64, 300, 4, 3, 4, 3
+IO_WARMUP, IO_SAMPLES, IO_TREEDEPTH, IO_DRAWS, SEED_IO = 50, 50, 6, 8, 2005
+# the gate: the posterior-mean b_km and s_k of IOHMM-reg, after matching
+# intercepts, on the median series, within the bounds of
+# tests/test_models.py::test_iohmm_reg_recovery; the divergent share
+IO_B_ATOL, IO_S_ATOL, IO_DIV_MAX = 0.25, 0.15, 0.05
+# fourteenth: wf_forecast on examples/hassan_replication.py's two frozen
+# synthetic benchmarks (T=180, train_len 150: 30 walk-forward steps) at
+# K=4, L=3, one chain, max_treedepth 6, 30 + 30 transitions (the
+# record's 300 + 300, cut: every tree runs the 63 leapfrogs of depth 6,
+# about 9 ms each on the host clock, so at 100 + 100 a benchmark took
+# about 200 s, 80 of them the pilot; at 20 + 20 SYN-A missed its gates,
+# MAPE 1.65 % and divergence rate 0.157), the pilot by wf_forecast's own
+# rule (30 + 50)
+HS_BENCHMARKS = {
+    "SYN-A": dict(seed=2005, T=180, vol=0.008, regimes=2, drift_spread=-0.015, train_len=150),
+    "SYN-B": dict(seed=2006, T=180, vol=0.02, regimes=2, drift_spread=0.01, train_len=150),
+}
+HS_K, HS_L, HS_WARMUP, HS_SAMPLES, HS_TREEDEPTH = 4, 3, 30, 30, 6
+# gates, each at least as loose as the JAX record at 300 + 300 (SYN-A R²
+# 0.994, MAPE 0.86 %; SYN-B R² 0.481, MAPE 1.70 %)
+HS_GATES = {"SYN-A": dict(r2_min=0.95, mape_max=1.5), "SYN-B": dict(r2_min=None, mape_max=3.0)}
+HS_DIV_MAX = 0.05  # divergence rate, mean over the steps
+HS_RECORD = "results/hassan_replication.json"
 
 # the FFBS checks (each bitwise against the plain versions): every K the
 # kernels take, gated and not, at the main path's shape with a ragged
@@ -2550,7 +2629,7 @@ def phase_gaussian_nuts(device):
     ``tests/test_models.py::test_gaussian_hmm_recovery`` on the port's
     simulator, ``sample_nuts(model.make_logp(data))`` (the target through
     ``forward_loglik``: ``FILTER`` forward and ``BETA`` backward once a
-    log-density call, and nothing else), 150 + 150 transitions on 2
+    log-density call, and nothing else), 100 + 100 transitions on 2
     chains: posterior means within the test's bounds, divergent share
     under ``GN_DIV_MAX``, Viterbi accuracy of ``generated`` above
     ``G_ACC_MIN``; the first launch of each kernel bitwise against its
@@ -3159,6 +3238,355 @@ def phase_replication(device, chees_qs):
          launches=rose)
 
 
+# ---------------------------------------------------------------------------
+# main paths 13-14: the IOHMMs and the Hassan walk-forward forecaster
+# ---------------------------------------------------------------------------
+
+
+def io_batch(kind, device):
+    """``(data, truth)``: ``IO_SERIES`` series of the reference script's
+    configuration ``kind`` (``"reg"`` or ``"hmix"``), simulated on the
+    card by ``iohmm_sim``, series i from seed ``SEED_IO + i`` (its inputs,
+    weights and emissions as ``examples/iohmm_main.py`` draws them)."""
+    xs, us, zs, truth = [], [], [], []
+    for i in range(IO_SERIES):
+        rng = np.random.default_rng(SEED_IO + i)
+        K = IO_K_REG if kind == "reg" else IO_K_MIX
+        u = np.column_stack([np.ones(IO_T), rng.normal(size=(IO_T, IO_M - 1))])
+        w = rng.normal(size=(K, IO_M)) * 1.5
+        if kind == "reg":
+            b = rng.normal(size=(K, IO_M)) * 2.0
+            obs, t = obsmodel_reg(b, np.full(K, 0.4)), {"b_km": b, "s_k": np.full(K, 0.4)}
+        else:
+            lam = rng.dirichlet(np.ones(IO_L), size=K)
+            mu = np.sort(rng.normal(size=(K, IO_L)) * 3.0, axis=1) + np.arange(K)[:, None] * 4.0
+            obs, t = obsmodel_mix(lam, mu, np.full((K, IO_L), 0.5)), {"mu_kl": mu}
+        gen = torch.Generator(device=device)
+        gen.manual_seed(SEED_IO + i)
+        sim = iohmm_sim(gen, u, w, obs)
+        xs.append(sim["x"])
+        us.append(sim["u"])
+        zs.append(sim["z"])
+        truth.append(t)
+    return {"x": torch.stack(xs), "u": torch.stack(us)}, torch.stack(zs), truth
+
+
+def reg_errors(post, truth):
+    """Per series, after matching intercepts (the permutation of the
+    fitted states nearest the true intercepts, over all K!), the largest
+    absolute error of the posterior-mean ``b_km`` and of ``s_k``."""
+    b_hat = post["b_km"].mean((1, 2)).cpu().numpy()
+    s_hat = post["s_k"].mean((1, 2)).cpu().numpy()
+    eb, es = [], []
+    for i, t in enumerate(truth):
+        perm = min(itertools.permutations(range(IO_K_REG)),
+                   key=lambda p: np.abs(b_hat[i][list(p), 0] - t["b_km"][:, 0]).sum())
+        eb.append(float(np.abs(b_hat[i][list(perm)] - t["b_km"]).max()))
+        es.append(float(np.abs(s_hat[i][list(perm)] - t["s_k"]).max()))
+    return np.asarray(eb), np.asarray(es)
+
+
+def io_fit(name, model, data, device):
+    """``fit_batched`` NUTS on the batch in one chunk: the launches
+    (``FWD`` and ``VG_BWD`` once a value-and-grad call, nothing else),
+    health, the divergent share, the lockstep cost."""
+    cls = type(model)
+    init = default_init(model, data, IO_SERIES, 1, seed=SEED_IO, device=device)
+    cfg = SamplerConfig(num_warmup=IO_WARMUP, num_samples=IO_SAMPLES, num_chains=1,
+                        max_treedepth=IO_TREEDEPTH)
+    vg = VGCounter(cls.make_vg)
+    before = launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    with mock.patch.object(cls, "make_vg", autospec=True, side_effect=vg):
+        qs, stats = fit_batched(model, data, cfg, init=init, chunk_size=IO_SERIES,
+                                seed=SEED_IO, device=device)
+    sync()
+    wall = time.perf_counter() - t0
+    rose = rose_since(before)
+    if rose != {cs.FWD.name: vg.calls, cs.VG_BWD.name: vg.calls}:
+        raise AssertionError(f"iohmm {name}: launches {rose} for {vg.calls} value-and-grad calls")
+    if not bool(stats["chain_healthy"].all()) or not bool(torch.isfinite(stats["logp"]).all()):
+        raise AssertionError(f"iohmm {name}: an unhealthy chain or a non-finite logp")
+    if tuple(qs.shape) != (IO_SERIES, 1, IO_SAMPLES, model.n_free):
+        raise AssertionError(f"iohmm {name}: qs shape {tuple(qs.shape)}")
+    div_share = float(stats["diverging"].float().mean())
+    if not div_share <= IO_DIV_MAX:
+        raise AssertionError(f"iohmm {name}: divergent share {div_share:.3g} (limit {IO_DIV_MAX})")
+    eps = stats["step_size"].reshape(-1)
+    transitions = IO_WARMUP + IO_SAMPLES
+    row = dict(model=name, K=model.K, M=model.M, trans_mode=model.trans_mode, series=IO_SERIES,
+               T=IO_T, chains=1, warmup=IO_WARMUP, samples=IO_SAMPLES,
+               max_treedepth=IO_TREEDEPTH, seconds=wall, transitions_per_s=transitions / wall,
+               value_and_grad_calls=vg.calls, **lockstep(stats),
+               step_size=dict(min=float(eps.min()), median=float(eps.median()),
+                              max=float(eps.max())),
+               divergent_share=div_share, launches=rose, logp_mean=float(stats["logp"].mean()))
+    return qs, row
+
+
+def io_outputs(name, model, qs, data, z_true, device):
+    """``IO_DRAWS`` draws a series through the time-varying decode
+    (``generated`` for IOHMM-reg, ``IOHMMHMixLite.generated`` for the
+    mixture) and as many ``state_draws`` (the Gumbel route): no kernel
+    launched, every output finite; for IOHMM-reg the Viterbi accuracy
+    of the per-step mode over draws against the simulated states after
+    ``greedy_relabel``."""
+    draws = thin(qs[:, 0], IO_DRAWS)
+    row = {}
+    before = launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    if name == "reg":
+        out = model.generated(draws, data, device=device)
+        check_probabilities(f"iohmm {name}", out, "alpha")
+        check_probabilities(f"iohmm {name}", out, "gamma")
+    else:
+        lite = IOHMMHMixLite(model.K, model.M, model.L, model.hyperparams, model.trans_mode)
+        out = lite.generated(draws, data, device=device)
+        if tuple(out["oblik_t"].shape) != (IO_SERIES, IO_DRAWS, IO_T):
+            raise AssertionError(f"iohmm {name}: oblik_t shape {tuple(out['oblik_t'].shape)}")
+    sync()
+    row["decode_seconds"] = time.perf_counter() - t0
+    if not all(bool(torch.isfinite(v.float()).all()) for v in out.values()):
+        raise AssertionError(f"iohmm {name}: a non-finite generated quantity")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED_IO)
+    sync()
+    t0 = time.perf_counter()
+    zs = model.state_draws(gen, draws, data, device=device)
+    sync()
+    row["state_draws_seconds"] = time.perf_counter() - t0
+    rose = rose_since(before)
+    if rose:  # the time-varying log_A runs the scans
+        raise AssertionError(f"iohmm {name}: the time-varying decode launched {rose}")
+    if tuple(zs.shape) != (IO_SERIES, IO_DRAWS, IO_T) or not bool(
+            ((zs >= 0) & (zs < model.K)).all()):
+        raise AssertionError(f"iohmm {name}: state_draws {tuple(zs.shape)} out of range")
+    row["decode_lanes"] = IO_SERIES * IO_DRAWS
+    zt = z_true.cpu().numpy()
+    for key, path in (("viterbi", out.get("zstar")), ("state_draws", zs)):
+        if path is None:
+            continue
+        z_hat = torch.mode(path, dim=1).values.cpu().numpy()
+        acc = [float((greedy_relabel(zt[b], z_hat[b], model.K)[z_hat[b]] == zt[b]).mean())
+               for b in range(IO_SERIES)]
+        row[f"{key}_accuracy_mean"] = float(np.mean(acc))
+        row[f"{key}_accuracy_median"] = float(np.median(acc))
+    return row
+
+
+def iohmm_task(name, device):
+    """One IOHMM configuration of the thirteenth main path (``"reg"``:
+    IOHMM-reg in stan mode; ``"hmix"``: the hierarchical mixture) on
+    ``IO_SERIES`` simulated series: ``fit_batched`` NUTS (every leapfrog
+    one folded value-and-grad call, ``FWD`` + ``VG_BWD`` ungated at K=3
+    or 4), then the time-varying decode and state draws. Gates: for
+    IOHMM-reg the posterior-mean ``b_km`` and ``s_k`` on the median
+    series within ``IO_B_ATOL`` / ``IO_S_ATOL``; every output finite, the
+    divergent share at most ``IO_DIV_MAX``. Returns the phase line's
+    fields and ``(model, data, last draws)`` for :func:`vg_ms_alone`."""
+    data, z, truth = io_batch(name, device)
+    if name == "reg":
+        model = IOHMMReg(K=IO_K_REG, M=IO_M)
+    else:
+        model = IOHMMHMix(K=IO_K_MIX, M=IO_M, L=IO_L, hyperparams=DEFAULT_HYPERPARAMS)
+    qs, row = io_fit(name, model, data, device)
+    if name == "reg":
+        eb, es = reg_errors(model.constrained_draws(qs), truth)
+        row.update(b_err_median=float(np.median(eb)), s_err_median=float(np.median(es)),
+                   b_err_max=float(eb.max()), s_err_max=float(es.max()),
+                   b_within_share=float((eb <= IO_B_ATOL).mean()))
+        if not (np.median(eb) <= IO_B_ATOL and np.median(es) <= IO_S_ATOL):
+            raise AssertionError(f"iohmm reg: median-series b error {np.median(eb):.3g} (bound "
+                                 f"{IO_B_ATOL}), s error {np.median(es):.3g} (bound {IO_S_ATOL})")
+    else:
+        mu_hat = model.constrained_draws(qs)["mu_kl"].mean((1, 2)).cpu().numpy()
+        mu_err = [float(np.abs(np.sort(mu_hat[i].ravel()) - np.sort(t["mu_kl"].ravel())).mean())
+                  for i, t in enumerate(truth)]
+        row["mu_sorted_mae_median"] = float(np.median(mu_err))
+    row.update(io_outputs(name, model, qs, data, z, device))
+    return row, (model, data, qs[:, :, -1].contiguous())
+
+
+class Timed:
+    """Wraps a function of ``wf.py`` for a ``with`` block: its host
+    seconds (synchronized around each call), its calls, and the
+    value-and-grad calls (``vg``) made inside it."""
+
+    def __init__(self, module, name, vg):
+        self.module, self.name, self.vg = module, name, vg
+        self.seconds, self.calls, self.vg_calls, self.out = 0.0, 0, 0, None
+
+    def __enter__(self):
+        fn = getattr(self.module, self.name)
+
+        def timed(*args, **kw):
+            sync()
+            t0, c0 = time.perf_counter(), self.vg.calls
+            self.out = fn(*args, **kw)
+            sync()
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+            self.vg_calls += self.vg.calls - c0
+            return self.out
+
+        self.patch = mock.patch.object(self.module, self.name, timed)
+        self.patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.patch.stop()
+
+
+def hassan_task(name, device):
+    """One benchmark of the fourteenth main path: ``wf_forecast`` on the
+    frozen synthetic benchmark ``name`` of ``examples/hassan_replication.
+    py``: the pilot (``sample`` on step 0's data), the batched fit of the
+    30 steps and the batched forecast step, each timed; ``FWD`` and
+    ``VG_BWD`` once a value-and-grad call (pilot and fit), the forecast
+    step none. Gates (``HS_GATES``, ``HS_DIV_MAX``) on the errors and the
+    divergence rate, beside the JAX record's at 300 + 300. Returns the
+    phase line's fields and ``(model, data of the 30 steps, last draws)``
+    for :func:`vg_ms_alone`."""
+    record = json.loads((Path(__file__).resolve().parent / HS_RECORD).read_text())
+    spec = HS_BENCHMARKS[name]
+    ohlc = simulate_ohlc(np.random.default_rng(spec["seed"]), T=spec["T"], vol=spec["vol"],
+                         regimes=spec["regimes"], drift_spread=spec["drift_spread"])
+    cfg = SamplerConfig(num_warmup=HS_WARMUP, num_samples=HS_SAMPLES, num_chains=1,
+                        max_treedepth=HS_TREEDEPTH)
+    vg = VGCounter(IOHMMHMixLite.make_vg)
+    before = launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    with mock.patch.object(IOHMMHMixLite, "make_vg", autospec=True, side_effect=vg), \
+            Timed(hassan_wf, "sample", vg) as pilot, \
+            Timed(hassan_wf, "fit_batched", vg) as fit, \
+            Timed(hassan_wf, "step_forecasts", vg) as fc:
+        res = wf_forecast(ohlc, spec["train_len"], K=HS_K, L=HS_L, config=cfg,
+                          seed=spec["seed"], device=device)
+    sync()
+    wall = time.perf_counter() - t0
+    rose = rose_since(before)
+    if rose != {cs.FWD.name: vg.calls, cs.VG_BWD.name: vg.calls} or fc.vg_calls:
+        raise AssertionError(f"hassan {name}: launches {rose} for {vg.calls} "
+                             f"value-and-grad calls ({fc.vg_calls} in the forecast)")
+    S = spec["T"] - spec["train_len"]
+    if (res.forecasts.shape[0], res.point.shape, pilot.calls, fit.calls) != (
+            S, (S,), 1, 1) or not np.isfinite(res.forecasts).all():
+        raise AssertionError(f"hassan {name}: forecasts {res.forecasts.shape}, "
+                             f"finite {np.isfinite(res.forecasts).all()}")
+    stats = fit.out[1]
+    if not bool(stats["chain_healthy"].all()):
+        raise AssertionError(f"hassan {name}: an unhealthy chain")
+    # the fit's value-and-grad call: the steps' lanes at the last draws
+    x_pad, u_pad, mask = hassan_wf.pad_steps(hassan_wf.step_datasets(ohlc, spec["train_len"]))
+    data = {k: torch.as_tensor(v, dtype=torch.float32)
+            for k, v in (("x", x_pad), ("u", u_pad), ("mask", mask))}
+    vg_in = (IOHMMHMixLite(HS_K, 4, HS_L, DEFAULT_HYPERPARAMS), data,
+             fit.out[0][:, :, -1].contiguous())
+    e, div = res.errors, float(res.diverged.mean())
+    jax_rec = record["benchmarks"][name]
+    g = HS_GATES[name]
+    if not (e["mape"] <= g["mape_max"] and (g["r2_min"] is None or e["r2"] >= g["r2_min"])
+            and div <= HS_DIV_MAX):
+        raise AssertionError(f"hassan {name}: MAPE {e['mape']:.3g} %, R² {e['r2']:.4g}, "
+                             f"divergence rate {div:.3g} against the gates {g}")
+    return dict(
+        benchmark=name, steps=S, T_max=spec["T"] - 2, train_len=spec["train_len"], K=HS_K,
+        L=HS_L, warmup=HS_WARMUP, samples=HS_SAMPLES, max_treedepth=HS_TREEDEPTH,
+        seconds=wall, pilot_seconds=pilot.seconds, fit_seconds=fit.seconds,
+        forecast_seconds=fc.seconds, pilot_value_and_grad_calls=pilot.vg_calls,
+        fit_value_and_grad_calls=fit.vg_calls, **lockstep(stats), launches=rose, mse=e["mse"],
+        mape_pct=e["mape"], r2=e["r2"], divergence_rate=div,
+        jax_record=dict(mse=jax_rec["mse"], mape_pct=jax_rec["mape_pct"], r2=jax_rec["r2"],
+                        divergence_rate=jax_rec["divergence_rate"],
+                        warmup=record["config"]["warmup"], samples=record["config"]["samples"]),
+        gates=dict(g, divergence_max=HS_DIV_MAX)), vg_in
+
+
+# the four tasks of main paths 13 and 14, each in a process of its own
+IO_HS_TASKS = (("iohmm", "reg"), ("iohmm", "hmix"), ("hassan", "SYN-A"), ("hassan", "SYN-B"))
+
+
+def _host_tensors(v):
+    return tuple(a.cpu() if torch.is_tensor(a) else a for a in v)
+
+
+def io_hs_worker(task):
+    """Run one task ``(path, name, device)`` of ``IO_HS_TASKS`` in a
+    spawned process. Returns ``(path, row, vg_in, kept)``: the phase
+    line's fields (``row["launches"]`` the task's own count, checked
+    there against its value-and-grad calls), the value-and-grad inputs
+    for :func:`vg_ms_alone` and the first launch of each kernel at each
+    shape (:class:`LaneRecorder`), their tensors on the host."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    path, name, device = task
+    device = torch.device(device)
+    with LaneRecorder() as rec:
+        row, (model, data, q) = (iohmm_task if path == "iohmm" else hassan_task)(name, device)
+    vg_in = (model, {k: v.cpu() for k, v in data.items()}, q.cpu())
+    kept = {key: (_host_tensors(args), _host_tensors(outs)) for key, (args, outs) in rec.calls.items()}
+    return path, row, vg_in, kept
+
+
+def vg_ms_alone(model, data, q, device) -> float:
+    """ms a call of ``model.make_vg(data)`` at the draws ``q`` on the
+    host clock: one warm call, then 20 synchronized calls, with nothing
+    else on the host or the card."""
+    fn = model.make_vg({k: v.to(device) for k, v in data.items()})
+    q = q.to(device)
+    fn(q)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        fn(q)
+    sync()
+    return (time.perf_counter() - t0) / 20 * 1e3
+
+
+def phase_iohmm_hassan(device):
+    """Main paths 13 (``iohmm``: IOHMM-reg and the mixture) and 14
+    (``hassan``: SYN-A and SYN-B), their four tasks each in a spawned
+    process of its own, all at once (each is host-bound: one process runs
+    one NUTS leaf at a time; the reference fits its symbols in parallel
+    too). A task's seconds are taken with the four sharing the host and
+    the card (``shared_by_processes``). Each task checks its own launches
+    and gates; here, with the workers done, each task's value-and-grad
+    call is timed alone, and per path the tasks' launches are summed and
+    the first launch of each kernel at each shape is held bitwise against
+    its plain version on the card. Returns ``{path: (launches, kept
+    rows)}``."""
+    t0 = time.perf_counter()
+    pool = multiprocessing.get_context("spawn").Pool(len(IO_HS_TASKS))
+    try:
+        results = pool.map(io_hs_worker, [t + (str(device),) for t in IO_HS_TASKS], chunksize=1)
+    finally:
+        pool.close()
+        pool.join()
+    wall = time.perf_counter() - t0
+    out = {}
+    for path in ("iohmm", "hassan"):
+        launches, calls = {}, {}
+        for p, row, vg_in, kept in results:
+            if p != path:
+                continue
+            emit(path, **row, shared_by_processes=len(IO_HS_TASKS),
+                 value_and_grad_ms_alone=vg_ms_alone(*vg_in, device))
+            for k, v in row["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+            for key, (args, outs) in kept.items():
+                calls.setdefault(key, (tuple(a.to(device) if torch.is_tensor(a) else a
+                                             for a in args),
+                                       tuple(o.to(device) for o in outs)))
+        kernels = kept_vs_plain(calls, path)
+        emit(f"{path}_kernels", launches=launches, kernels_vs_plain=kernels,
+             processes_wall_seconds=wall)
+        out[path] = (launches, kernels)
+    return out
+
+
 def ptxas_usage(log: str) -> dict:
     """``{kernel<template args>: [registers, spill store bytes, spill load
     bytes, static shared bytes]}`` from an ``nvcc -Xptxas -v`` log (its
@@ -3384,6 +3812,12 @@ def main() -> int:
     clock.append(("replication", time.perf_counter()))
     reset_all()
     phase_replication(device, chees_qs)
+    # main paths 13 and 14, the IOHMMs (fits, decodes, state draws) and
+    # the Hassan walk-forward forecaster, their four tasks in parallel
+    # processes (each counts its own launches from 0)
+    clock.append(("iohmm_hassan", time.perf_counter()))
+    io_hs = phase_iohmm_hassan(device)
+    (io, io_kept), (hs, hs_kept) = io_hs["iohmm"], io_hs["hassan"]
     clock.append(("end", time.perf_counter()))
     emit("timeline", seconds={a: b - ta for (a, ta), (_, b) in zip(clock, clock[1:])},
          total_seconds=clock[-1][1] - clock[0][1])
@@ -3405,10 +3839,13 @@ def main() -> int:
                 if not heal.get(k.name)]
     missing += [f"{n} (chees_per_series)" for n in (cs.FWD.name, cs.VG_BWD.name)
                 if not cps.get(n)]
+    missing += [f"{n} ({path})" for path, counts in (("iohmm", io), ("hassan", hs))
+                for n in (cs.FWD.name, cs.VG_BWD.name) if not counts.get(n)]
     if missing:
         raise AssertionError(f"a main path never launched {missing}")
-    # the first launch of each kernel at each shape of this slice's paths
-    kept = {"multinom": mn_kept, "heal": heal_kept, "chees_per_series": cps_kept}
+    # the first launch of each kernel at each shape of paths 9 to 14
+    kept = {"multinom": mn_kept, "heal": heal_kept, "chees_per_series": cps_kept,
+            "iohmm": io_kept, "hassan": hs_kept}
 
     t = kern["timing"]
     vt, tt, dt = vgk["timing"], trk["timing"], deck["timing"]
@@ -3482,7 +3919,8 @@ def main() -> int:
         if k in (cs.FILTER, cs.BETA):
             rows[-1].update(launches_gaussian_nuts=gnuts[k.name], ms_gaussian_nuts=gn_ms[k.name],
                             shape_gaussian_nuts=dict(N=GN_CHAINS, T=GN_T, K=2))
-        for path, counts in (("multinom", mn), ("heal", heal), ("chees_per_series", cps)):
+        for path, counts in (("multinom", mn), ("heal", heal), ("chees_per_series", cps),
+                             ("iohmm", io), ("hassan", hs)):
             if counts.get(k.name):
                 rows[-1][f"launches_{path}"] = counts[k.name]
                 rows[-1][f"kept_{path}"] = [

@@ -12,7 +12,8 @@ JAX package so each counterpart is easy to find:
   hand-written CUDA kernels (``kernels/csrc``) with their plain PyTorch
   versions
 - ``models``   the parameter contract (with the fused ``make_vg`` and
-  the generated quantities), the Tayal (2009) HHMM and the Gaussian HMM
+  the generated quantities), the Tayal (2009) HHMM, the Gaussian and
+  multinomial HMMs and the input-output HMMs
 - ``infer``    batch-native blocked Gibbs, ChEES-HMC with its warmup
   adaptation, MCMC diagnostics and label-switching utilities
 - ``sim``      simulators on ``torch.Generator`` streams
@@ -21,7 +22,8 @@ JAX package so each counterpart is easy to find:
 - ``native``   the C++ zig-zag feature extractor, built with g++ at
   first use (ctypes)
 - ``apps``     the Tayal (2009) application: features, trading,
-  analytics and the walk-forward back-test (``apps/tayal/wf.py``)
+  analytics and the walk-forward back-test (``apps/tayal/wf.py``); the
+  Hassan (2005) walk-forward forecaster (``apps/hassan/wf.py``)
 - ``convert``  carries the JAX package's draws and parameters across
 
 Entry points take ``device=None``, meaning CUDA, and raise on a host

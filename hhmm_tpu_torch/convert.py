@@ -4,9 +4,9 @@ Both packages lay out the unconstrained vector the same way (each
 bijector's free slice, in ``specs()`` order) and share constrained
 shapes, so conversion is a checked copy of numpy arrays into tensors.
 :func:`model_from_jax` builds the port's counterpart of a JAX
-multinomial model from its public attributes (read by name: nothing of
-the JAX package is imported), so its parameters carry across to a model
-of the same configuration.
+multinomial or input-output HMM from its public attributes (read by
+name: nothing of the JAX package is imported), so its parameters carry
+across to a model of the same configuration.
 """
 
 from __future__ import annotations
@@ -23,8 +23,10 @@ __all__ = ["params_from_jax", "constrained_from_jax", "model_from_jax"]
 
 def model_from_jax(jax_model):
     """The port's model of the same class and configuration as the JAX
-    multinomial model instance ``jax_model``: ``MultinomialHMM`` (K, L)
-    or ``SemisupMultinomialHMM`` (K, L, groups, gate_mode)."""
+    model instance ``jax_model``: ``MultinomialHMM`` (K, L),
+    ``SemisupMultinomialHMM`` (K, L, groups, gate_mode), ``IOHMMReg``
+    (K, M, trans_mode), ``IOHMMMix`` (K, M, L, trans_mode), ``IOHMMHMix``
+    or ``IOHMMHMixLite`` (K, M, L, hyperparams, trans_mode)."""
     from hhmm_tpu_torch import models
 
     name = type(jax_model).__name__
@@ -33,6 +35,13 @@ def model_from_jax(jax_model):
         return models.MultinomialHMM(int(m.K), int(m.L))
     if name == "SemisupMultinomialHMM":
         return models.SemisupMultinomialHMM(int(m.K), int(m.L), np.asarray(m.groups), m.gate_mode)
+    if name == "IOHMMReg":
+        return models.IOHMMReg(int(m.K), int(m.M), m.trans_mode)
+    if name == "IOHMMMix":
+        return models.IOHMMMix(int(m.K), int(m.M), int(m.L), m.trans_mode)
+    if name in ("IOHMMHMix", "IOHMMHMixLite"):
+        cls = getattr(models, name)
+        return cls(int(m.K), int(m.M), int(m.L), np.asarray(m.hyperparams), m.trans_mode)
     raise ValueError(f"no port counterpart for the model class {name!r}")
 
 

@@ -10,7 +10,10 @@ over the leading axes of ``theta``.
 
 Data arrays ``[..., T]`` carry a prefix of the parameters' leading axes
 (series, then chains, as the JAX package nests its vmaps):
-:func:`broadcast_data` aligns them to the parameters' axes.
+:func:`broadcast_data` aligns them to the parameters' axes. A key named
+in a model's :attr:`BaseHMMModel.event_ndim` has that many trailing
+event axes (the IOHMM's input ``u [..., T, M]`` has two); every other
+key has one.
 
 Generated quantities (:meth:`BaseHMMModel.generated`,
 :meth:`BaseHMMModel.state_draws`) take every posterior draw of every
@@ -58,31 +61,37 @@ def broadcast_data(
     return v.reshape(prefix + fill + event).expand(tuple(lead) + event)
 
 
-def per_lane(v: torch.Tensor, lead: Tuple[int, ...], n: int) -> torch.Tensor:
-    """A data array as ``[n, T]`` lanes for draws with leading axes
-    ``lead`` (``n = prod(lead)``): ``[T]`` is shared by every draw;
-    ``[lead[0], T]`` holds one series per leading index, repeated over
-    the remaining draw axes."""
-    if v.ndim == 1:
-        return v.expand(n, v.shape[0])
-    if v.ndim == 2 and len(lead) >= 1 and v.shape[0] == lead[0]:
+def per_lane(
+    v: torch.Tensor, lead: Tuple[int, ...], n: int, event_ndim: int = 1
+) -> torch.Tensor:
+    """A data array as ``[n, *event]`` lanes for draws with leading axes
+    ``lead`` (``n = prod(lead)``; ``event`` is ``[T]``, or ``[T, M]`` for
+    ``event_ndim=2``): ``[*event]`` is shared by every draw;
+    ``[lead[0], *event]`` holds one series per leading index, repeated
+    over the remaining draw axes."""
+    if v.ndim == event_ndim:
+        return v.expand((n,) + tuple(v.shape))
+    if v.ndim == event_ndim + 1 and len(lead) >= 1 and v.shape[0] == lead[0]:
         return v.repeat_interleave(n // lead[0], dim=0)
+    event = "T" if event_ndim == 1 else "T, M"
     raise ValueError(
-        f"data arrays must be [T] or [{lead[0] if lead else 'B'}, T] for draws "
-        f"with leading axes {lead}, got {tuple(v.shape)}"
+        f"data arrays must be [{event}] or [{lead[0] if lead else 'B'}, {event}] for "
+        f"draws with leading axes {lead}, got {tuple(v.shape)}"
     )
 
 
-def draw_lanes(theta_draws, data, device: DeviceLike):
+def draw_lanes(theta_draws, data, device: DeviceLike, event_ndim: Optional[Dict[str, int]] = None):
     """``(lead, flat theta [n, n_free], data lanes {k: [n, T]})`` for
-    draws ``[..., n_free]``, on ``device`` (None: CUDA)."""
+    draws ``[..., n_free]``, on ``device`` (None: CUDA); a key named in
+    ``event_ndim`` keeps that many event axes (``[n, T, M]``)."""
     device = resolve_device(device)
+    event_ndim = event_ndim or {}
     theta = torch.as_tensor(theta_draws, dtype=torch.float32, device=device)
     lead = tuple(theta.shape[:-1])
     flat = theta.reshape(-1, theta.shape[-1])
     n = flat.shape[0]
     lanes = {
-        k: per_lane(torch.as_tensor(v, device=device), lead, n)
+        k: per_lane(torch.as_tensor(v, device=device), lead, n, event_ndim.get(k, 1))
         for k, v in data.items()
         if v is not None
     }
@@ -108,6 +117,19 @@ def semisup_gate(log_pi, log_A, log_obs, consistent, gate_mode: str):
 
 class BaseHMMModel:
     """Subclasses define ``specs()`` and ``build()``."""
+
+    # data keys with more than one event axis, and how many (the IOHMM's
+    # ``{"u": 2}``: ``u [..., T, M]``); every other key is ``[..., T]``
+    event_ndim: Dict[str, int] = {}
+
+    def _lanes(self, data: Dict[str, torch.Tensor], lead: Tuple[int, ...]):
+        """``data`` aligned to the parameters' leading axes ``lead``
+        (:func:`broadcast_data` with each key's event rank)."""
+        return {
+            k: broadcast_data(v, lead, self.event_ndim.get(k, 1))
+            for k, v in data.items()
+            if v is not None
+        }
 
     def specs(self) -> List[Tuple[str, Bijector]]:
         raise NotImplementedError
@@ -157,8 +179,7 @@ class BaseHMMModel:
         ``theta``'s leading axes (:func:`broadcast_data`)."""
 
         def logp(theta: torch.Tensor) -> torch.Tensor:
-            lead = tuple(theta.shape[:-1])
-            lanes = {k: broadcast_data(v, lead) for k, v in data.items() if v is not None}
+            lanes = self._lanes(data, tuple(theta.shape[:-1]))
             params, ldj = self.unpack(theta)
             return self.loglik(params, lanes) + self.log_prior(params) + ldj
 
@@ -182,7 +203,7 @@ class BaseHMMModel:
 
         def vg(theta: torch.Tensor):
             lead = tuple(theta.shape[:-1])
-            lanes = {k: broadcast_data(v, lead) for k, v in data.items() if v is not None}
+            lanes = self._lanes(data, lead)
             gk = self.gate_keys(lanes)
             n = math.prod(lead)
             with torch.enable_grad():
@@ -255,7 +276,7 @@ class BaseHMMModel:
         ``FILTER``, ``BETA``, ``VITERBI`` and ``BACKTRACK`` once each
         (``kernels/dispatch.py``); a time-varying ``log_A`` runs the
         scans. Outputs carry the draws' leading axes."""
-        lead, flat, lanes = draw_lanes(theta_draws, data, device)
+        lead, flat, lanes = draw_lanes(theta_draws, data, device, self.event_ndim)
         params, _ = self.unpack(flat)
         log_pi, log_A, log_obs, mask = self.build(params, lanes)
         log_alpha, _, log_gamma, ll = smooth_dispatch(log_pi, log_A, log_obs, mask)
@@ -287,7 +308,7 @@ class BaseHMMModel:
         A time-varying ``log_A [n, T-1, K, K]`` from :meth:`build` takes
         the Gumbel-max FFBS (:func:`~hhmm_tpu_torch.kernels.ffbs.
         ffbs_sample`, the JAX package's route for it): the same target."""
-        lead, flat, lanes = draw_lanes(theta_draws, data, device)
+        lead, flat, lanes = draw_lanes(theta_draws, data, device, self.event_ndim)
         params, _ = self.unpack(flat)
         gk = self.gate_keys(lanes)
         build = self.build_vg if gk is not None else self.build

@@ -53,8 +53,11 @@ from hhmm_tpu_torch.kernels import (
 )
 from hhmm_tpu_torch.kernels import dispatch as kernel_dispatch
 from hhmm_tpu_torch.kernels.cuda_build import BUILD_DIR, build
+from hhmm_tpu_torch.apps.hassan import simulate_ohlc, wf_forecast
 from hhmm_tpu_torch.models import (
     GaussianHMM,
+    IOHMMHMixLite,
+    IOHMMReg,
     MultinomialHMM,
     SemisupMultinomialHMM,
     TayalHHMM,
@@ -116,6 +119,12 @@ def test_port_file_list_is_complete():
         "hhmm_tpu_torch/kernels/semiring.py",
         "hhmm_tpu_torch/kernels/ffbs.py",
         "hhmm_tpu_torch/core/bijectors.py",
+        "hhmm_tpu_torch/models/iohmm.py",
+        "hhmm_tpu_torch/sim/iohmm.py",
+        "hhmm_tpu_torch/apps/hassan/__init__.py",
+        "hhmm_tpu_torch/apps/hassan/data.py",
+        "hhmm_tpu_torch/apps/hassan/forecast.py",
+        "hhmm_tpu_torch/apps/hassan/wf.py",
     ):
         assert must in names
 
@@ -217,6 +226,18 @@ ENTRY_POINTS = {
     "per_draw_relabel_stats": lambda: per_draw_relabel_stats(
         TayalHHMM(), np.zeros((2, 35)), {"x": _tiny()[0][0], "sign": _tiny()[1][0]},
         np.arange(6), np.arange(6) + 1, np.ones(8), torch.Generator(),
+    ),
+    "wf_forecast": lambda: wf_forecast(simulate_ohlc(np.random.default_rng(0), T=12), 10),
+    # the IOHMM make_vg through the entry points that place its data
+    "iohmm_fit_batched_nuts": lambda: fit_batched(
+        IOHMMReg(2, 2), {"x": np.zeros((1, 6)), "u": np.zeros((1, 6, 2))}, SamplerConfig(1, 1)
+    ),
+    "iohmm_default_init": lambda: default_init(
+        IOHMMReg(2, 2), {"x": np.zeros((1, 6)), "u": np.zeros((1, 6, 2))}, 1, 1
+    ),
+    "hmix_lite_generated": lambda: IOHMMHMixLite(2, 2, 2, np.ones(9)).generated(
+        torch.zeros(2, IOHMMHMixLite(2, 2, 2, np.ones(9)).n_free),
+        {"x": torch.zeros(6), "u": torch.zeros(6, 2)},
     ),
     "constrained_from_jax": lambda: constrained_from_jax(
         TayalHHMM(), {"p_11": np.float32(0.5), "A_row": np.full((2, 2), 0.5),
