@@ -4,7 +4,7 @@ its hand-written CUDA kernels against its plain PyTorch version there.
 
     python3 chip_smoke.py
 
-Fourteen main paths, each driven with the kernel counts set to 0 just
+Sixteen main paths, each driven with the kernel counts set to 0 just
 before it and read just after:
 
 - the batched Tayal Gibbs fit that ``bench.py`` runs by default (256
@@ -46,7 +46,7 @@ before it and read just after:
   backward once a log-density call);
 - the walk-forward back-test by NUTS (``wf_trade`` with a
   ``SamplerConfig`` on every 8th of the ChEES arm's windows by length,
-  50 + 50 transitions) and ``run_window`` on the first of them;
+  30 + 30 transitions) and ``run_window`` on the first of them;
 - the multinomial HMMs of ``hmm/main-multinom.R`` (K=3, L=5) and
   ``hmm/main-multinom-semisup.R`` (K=4, L=9, both gates), 256 series x
   T=1024 each: ``fit_batched`` Gibbs 100 + 300 in chunks of 64,
@@ -67,10 +67,22 @@ before it and read just after:
 - the Hassan (2005) walk-forward forecaster (``apps/hassan/wf.py::
   wf_forecast``) on the two frozen synthetic benchmarks of
   ``examples/hassan_replication.py``: 30 steps each, a pilot fit, the
-  batched fit of the steps and the batched forecast step. These last two
-  paths run as four tasks (two models, two benchmarks), each in a
-  spawned process of its own, all at once: each is host-bound, one NUTS
-  leaf at a time.
+  batched fit of the steps and the batched forecast step;
+- the tree HHMM's route-augmented Gibbs sampler on the 63-leaf Jangmin
+  (2004) market tree (``models/tree.py::TreeHMM``, semi-supervised,
+  hard gate): 64 simulated markets x T=100, ``fit_batched`` Gibbs 250 +
+  500 (``FWD`` and ``BWD_SAMPLE`` at K=63 once a sweep), then 20 + 20 in
+  the stan gate on 8 of them (the gated pair);
+- the Jangmin application (``apps/jangmin.py``): the semi-supervised
+  NUTS fit of the tree on 64 markets x T=250 through ``fit_batched``
+  (100 + 100, depth 5: ``FWD`` and ``VG_BWD`` at K=63 once a
+  value-and-grad call), the ungated twin's decode of 50 draws a market
+  in one ``generated`` call (3,200 lanes: ``FILTER``, ``BETA``,
+  ``VITERBI``, ``BACKTRACK`` at K=63), the true-parameter oracle's
+  decode, and ``fit_market`` on one market. These last four paths run
+  as six tasks (two IOHMMs, two benchmarks, the two tree paths), each in
+  a spawned process of its own, all at once: each is host-bound, one
+  Gibbs sweep or NUTS leaf at a time.
 
 Phases, one JSON object per line:
 
@@ -246,14 +258,34 @@ Phases, one JSON object per line:
    ``HS_DIV_MAX``; pilot, fit and forecast seconds (shared as above),
    value-and-grad calls and ms (alone), lockstep efficiency, the three errors beside the JAX record's
    (``results/hassan_replication.json``); first launches bitwise.
+   tree_gibbs — the fifteenth (a process): ``FWD`` and ``BWD_SAMPLE``
+   once a sweep and nothing else, in each gate; every chain healthy and
+   every logp finite; over the markets the median ESS(lp) at least
+   ``TG_ESS_MIN`` and the median split-R̂(lp) under ``TG_RHAT_MAX``
+   (``tests/test_routes.py``'s bars); ms a sweep and the FFBS pair's
+   share of it; the first launch of each kernel at each shape and gate
+   at K=63 bitwise against its plain version, its float inputs finite
+   (the clamped kernels' rule).
+   jangmin — the sixteenth (a process): ``FWD`` and ``VG_BWD`` once a
+   value-and-grad call, each decode kernel once a ``generated`` call;
+   divergent share under ``JM_DIV_MAX``, every output finite, the mean
+   decode accuracy above the mean majority-class rate and the median gap
+   to the true-parameter oracle at least ``JM_ORACLE_GAP``
+   (``tests/test_jangmin_app.py``'s gates); ``fit_market`` once, finite,
+   divergent share under ``JM_DIV_MAX``; seconds a fit, ms a
+   value-and-grad call (alone) with the kernel pair's and ``assemble``'s
+   shares (``assemble``'s op counts too), lockstep efficiency, decode
+   seconds, accuracies beside the oracle's; first launches bitwise, as
+   above.
 9. the timeline line (host seconds a group of phases), the kernels line
    (every kernel; the semiring kernels with their K range, their time at
    K=64 and their zoo_wide launches; ``FWD``, ``BWD_SAMPLE`` and
    ``VG_BWD`` with their walk_forward launches; ``FWD`` and ``VG_BWD``
    with their NUTS launches and time, ``FILTER`` and ``BETA`` with the
    Gaussian NUTS gate's; each kernel with its launches on the multinom,
-   heal, chees_per_series, iohmm and hassan paths and their first
-   launches' shapes and times), then the last line ``{"ok": true, "device": ...}``.
+   heal, chees_per_series, iohmm, hassan, tree_gibbs and jangmin paths
+   and their first launches' shapes and times: K=63 on the last two),
+   then the last line ``{"ok": true, "device": ...}``.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line. It imports nothing of JAX or of ``hhmm_tpu``.
@@ -278,9 +310,11 @@ from unittest import mock
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from hhmm_tpu_torch.apps.hassan import DEFAULT_HYPERPARAMS, simulate_ohlc, wf_forecast
 from hhmm_tpu_torch.apps.hassan import wf as hassan_wf
+from hhmm_tpu_torch.apps.jangmin import _regime_decode, fit_market, simulate_market
 from hhmm_tpu_torch.apps.tayal import build_tasks, replication, run_window, simulate_ticks, wf_trade
 from hhmm_tpu_torch.apps.tayal import wf as wf_module
 from hhmm_tpu_torch.apps.tayal.trading import equity_curve
@@ -298,6 +332,7 @@ from hhmm_tpu_torch.infer import (
     sample_chees_batched,
     sample_gibbs,
     sample_nuts,
+    split_rhat_many,
 )
 from hhmm_tpu_torch.core.lmath import MASK_NEG
 from hhmm_tpu_torch.kernels import cuda_semiring as cs
@@ -317,7 +352,9 @@ from hhmm_tpu_torch.models import (
     SemisupMultinomialHMM,
     TayalHHMM,
     TayalHHMMLite,
+    TreeHMM,
 )
+from hhmm_tpu_torch.hhmm import jangmin2004_tree
 from hhmm_tpu_torch.models import base as zoo_base
 from hhmm_tpu_torch.models.base import broadcast_data
 from hhmm_tpu_torch.native import zigzag as native_zigzag
@@ -409,7 +446,8 @@ GN_WARMUP, GN_SAMPLES, GN_CHAINS = 100, 100, 2
 GN_MU_ATOL, GN_SIGMA_ATOL, GN_A_ATOL, GN_DIV_MAX = 0.08, 0.05, 0.10, 0.05
 SEED_GN = 42
 # eighth: the walk-forward back-test by NUTS (stan gate, one chain),
-# 50 + 50 transitions, not the reference's 250 + 250, on every 8th of the
+# 30 + 30 transitions (50 + 50 until the tree paths joined the script's
+# budget), not the reference's 250 + 250, on every 8th of the
 # ChEES arm's 16 windows ordered by in-sample ticks: the shortest (about
 # 900 legs) and one of about 3,100 (one fit group of 2); then run_window
 # on the shortest. On all 16 windows at 50 + 50 the arm alone took 732 s on the
@@ -417,7 +455,7 @@ SEED_GN = 42
 # 8,500 legs ran up to 1023 lockstep leapfrogs a transition); at 10 + 10,
 # 115 s, with the step sizes unadapted (one dual-averaging update after
 # the mass window: 72 % of the transitions divergent)
-WF_NUTS_STRIDE, WF_NUTS_WARMUP, WF_NUTS_SAMPLES = 8, 50, 50
+WF_NUTS_STRIDE, WF_NUTS_WARMUP, WF_NUTS_SAMPLES = 8, 30, 30
 # ninth: the multinomial HMMs of hmm/main-multinom.R:7-27 (K=3, L=5) and
 # hmm/main-multinom-semisup.R:7-41 (K=4, L=9, groups (0, 1, 1, 0), the
 # sparse Tayal-shaped A), as examples/hmm_main.py builds them, 256
@@ -484,6 +522,27 @@ HS_K, HS_L, HS_WARMUP, HS_SAMPLES, HS_TREEDEPTH = 4, 3, 30, 30, 6
 HS_GATES = {"SYN-A": dict(r2_min=0.95, mape_max=1.5), "SYN-B": dict(r2_min=None, mape_max=3.0)}
 HS_DIV_MAX = 0.05  # divergence rate, mean over the steps
 HS_RECORD = "results/hassan_replication.json"
+# fifteenth: the route-augmented Gibbs of tests/test_routes.py::
+# test_jangmin_single_chain_ess at full width, batched: the 63-leaf
+# Jangmin tree semi-supervised (hard gate, order_mu="none") on 64 markets
+# of T=100 (simulate_market, default_rng(i) for market i, true regime
+# labels), fit_batched Gibbs 250 + 500 in one chunk, one chain; the JAX
+# test's bars (there on market 0) on the median market; then 20 + 20 in
+# the stan gate on 8 of them (the gated FFBS pair at K=63)
+TG_MARKETS, TG_T, TG_WARMUP, TG_SAMPLES = 64, 100, 250, 500
+TG_ESS_MIN, TG_RHAT_MAX = 50.0, 1.05
+TG_STAN_MARKETS, TG_STAN_WARMUP, TG_STAN_SAMPLES = 8, 20, 20
+# sixteenth: the semi-supervised NUTS fit of tests/test_jangmin_app.py::
+# test_semisup_fit_recovers_regimes at full width, batched: 64 markets of
+# T=250 (default_rng(1000 + i)), hard gate, one chain, 100 + 100 at
+# max_treedepth 5 (the test's own configuration); the ungated twin's
+# decode of 50 thinned draws a market in one generated call (3,200 lanes
+# at K=63); the test's gates (divergent share, majority rate, 0.05 below
+# the true-parameter oracle) over the markets; fit_market once at 30 + 30
+SEED_TREE = 1000
+JM_MARKETS, JM_T, JM_WARMUP, JM_SAMPLES, JM_TREEDEPTH, JM_DRAWS = 64, 250, 100, 100, 5, 50
+JM_DIV_MAX, JM_ORACLE_GAP = 0.15, -0.05
+JM_APP_WARMUP, JM_APP_SAMPLES = 30, 30
 
 # the FFBS checks (each bitwise against the plain versions): every K the
 # kernels take, gated and not, at the main path's shape with a ragged
@@ -2689,7 +2748,7 @@ def phase_walk_forward_nuts(device, tasks):
     """The eighth main path: ``wf_trade`` with a ``SamplerConfig`` on
     every ``WF_NUTS_STRIDE``-th of the ChEES arm's windows ordered by
     in-sample ticks (the shortest and one of about 3,100 legs: one fit
-    group of 2 windows; stan gate, one chain, 50 + 50 transitions): ``FWD`` and
+    group of 2 windows; stan gate, one chain, 30 + 30 transitions): ``FWD`` and
     ``VG_BWD`` once a value-and-grad call and ``FWD`` twice a decode
     dispatch, every chain healthy, trades for every lag, the lockstep
     cost a fit group. Then ``run_window`` on the first of the windows.
@@ -3505,28 +3564,255 @@ def hassan_task(name, device):
         gates=dict(g, divergence_max=HS_DIV_MAX)), vg_in
 
 
-# the four tasks of main paths 13 and 14, each in a process of its own
-IO_HS_TASKS = (("iohmm", "reg"), ("iohmm", "hmix"), ("hassan", "SYN-A"), ("hassan", "SYN-B"))
+# ---------------------------------------------------------------------------
+# main paths 15-16: the tree HHMM (the 63-leaf Jangmin market tree)
+# ---------------------------------------------------------------------------
+
+
+def markets(n, T, seed0):
+    """``(data, regimes)``: ``n`` markets of ``simulate_market(T)``,
+    market i from ``np.random.default_rng(seed0 + i)``; ``data`` holds
+    the returns ``x [n, T]`` (float32) and the true regime labels ``g``
+    (the semi-supervision), ``regimes [n, T]`` the same labels."""
+    ms = [simulate_market(T, np.random.default_rng(seed0 + i)) for i in range(n)]
+    g = np.stack([m["regime"] for m in ms])
+    return {"x": np.stack([m["x"] for m in ms]).astype(np.float32), "g": g}, g
+
+
+def jangmin_model(gate_mode="hard", semisup=True):
+    return TreeHMM(jangmin2004_tree(), semisup=semisup, gate_mode=gate_mode, order_mu="none")
+
+
+def tree_gibbs_task(name, device):
+    """The fifteenth main path (``tree_gibbs``): the route-augmented
+    Gibbs sampler of ``tests/test_routes.py::
+    test_jangmin_single_chain_ess`` at full width, batched:
+    ``fit_batched`` Gibbs ``TG_WARMUP + TG_SAMPLES`` on ``TG_MARKETS``
+    markets in one chunk (hard gate: ``FWD`` + ``BWD_SAMPLE`` ungated at
+    K=63 once a sweep), then ``TG_STAN_WARMUP + TG_STAN_SAMPLES`` in the
+    stan gate on ``TG_STAN_MARKETS`` of them (the gated pair through the
+    gate keys). Gates: every chain healthy and every logp finite; over
+    the markets the median ESS(lp) at least ``TG_ESS_MIN`` and the median
+    split-R̂(lp) under ``TG_RHAT_MAX``. Returns the phase line's fields
+    and no value-and-grad inputs."""
+    data, _ = markets(TG_MARKETS, TG_T, 0)
+    row = {}
+    for gate, n, warm, samp in (("hard", TG_MARKETS, TG_WARMUP, TG_SAMPLES),
+                                ("stan", TG_STAN_MARKETS, TG_STAN_WARMUP, TG_STAN_SAMPLES)):
+        before = launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        qs, stats = fit_batched(jangmin_model(gate), {k: v[:n] for k, v in data.items()},
+                                GibbsConfig(warm, samp, 1), chunk_size=n, seed=SEED_TREE,
+                                device=device)
+        sync()
+        wall = time.perf_counter() - t0
+        sweeps = warm + samp
+        rose = rose_since(before)
+        if rose != {cs.FWD.name: sweeps, cs.BWD_SAMPLE.name: sweeps}:
+            raise AssertionError(f"tree_gibbs {gate}: launches {rose} for {sweeps} sweeps")
+        if not bool(stats["chain_healthy"].all()) or not bool(torch.isfinite(stats["logp"]).all()) \
+                or not bool(torch.isfinite(qs).all()):
+            raise AssertionError(f"tree_gibbs {gate}: an unhealthy chain or a non-finite draw")
+        row[gate] = dict(markets=n, T=TG_T, warmup=warm, samples=samp, seconds=wall,
+                         sweep_ms=wall / sweeps * 1e3, launches=rose)
+        if gate == "hard":  # ESS and split-R-hat of lp, per market
+            lp = stats["logp"].cpu().numpy().astype(np.float64)  # [markets, 1, samples]
+            e, r = ess_many(lp), split_rhat_many(lp)
+            row[gate].update(ess_lp_median=float(np.median(e)), ess_lp_min=float(e.min()),
+                             rhat_lp_median=float(np.median(r)), rhat_lp_max=float(r.max()))
+            if not (np.median(e) >= TG_ESS_MIN and np.median(r) < TG_RHAT_MAX):
+                raise AssertionError(f"tree_gibbs: median ESS(lp) {np.median(e):.3g} (bound "
+                                     f"{TG_ESS_MIN}), median split-R-hat {np.median(r):.4g} "
+                                     f"(bound {TG_RHAT_MAX})")
+    return row, None
+
+
+def jangmin_task(name, device):
+    """The sixteenth main path (``jangmin``): the semi-supervised NUTS
+    fit of ``tests/test_jangmin_app.py::test_semisup_fit_recovers_
+    regimes`` at full width, batched: ``fit_batched`` NUTS on
+    ``JM_MARKETS`` markets of T=``JM_T`` in one chunk (hard gate, one
+    chain, ``JM_WARMUP + JM_SAMPLES`` at ``max_treedepth`` ``JM_TREEDEPTH``:
+    ``FWD`` + ``VG_BWD`` at K=63 once a value-and-grad call), then the
+    ungated twin's decode of ``JM_DRAWS`` thinned draws a market in one
+    ``generated`` call (``FILTER``, ``BETA``, ``VITERBI``, ``BACKTRACK``
+    once each on 3,200 lanes), the true-parameter oracle's decode (one
+    more call), and ``fit_market`` once on market 0 at ``JM_APP_WARMUP +
+    JM_APP_SAMPLES``. Gates: divergent share under ``JM_DIV_MAX``, every
+    output finite, the mean accuracy above the mean majority-class rate,
+    the median of (accuracy - oracle accuracy) at least
+    ``JM_ORACLE_GAP``; ``fit_market`` finite with a divergent share under
+    ``JM_DIV_MAX``. Returns the phase line's fields and ``(model, data,
+    last draws)`` for :func:`vg_ms_alone`."""
+    data, regimes = markets(JM_MARKETS, JM_T, SEED_TREE)
+    model = jangmin_model()
+    cfg = SamplerConfig(num_warmup=JM_WARMUP, num_samples=JM_SAMPLES, num_chains=1,
+                        max_treedepth=JM_TREEDEPTH)
+    vg = VGCounter(TreeHMM.make_vg)
+    before = launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    with mock.patch.object(TreeHMM, "make_vg", autospec=True, side_effect=vg):
+        qs, stats = fit_batched(model, data, cfg, chunk_size=JM_MARKETS, seed=SEED_TREE,
+                                device=device)
+    sync()
+    wall = time.perf_counter() - t0
+    rose = rose_since(before)
+    if rose != {cs.FWD.name: vg.calls, cs.VG_BWD.name: vg.calls}:
+        raise AssertionError(f"jangmin: launches {rose} for {vg.calls} value-and-grad calls")
+    div_share = float(stats["diverging"].float().mean())
+    if not (bool(stats["chain_healthy"].all()) and bool(torch.isfinite(qs).all())
+            and bool(torch.isfinite(stats["logp"]).all())):
+        raise AssertionError("jangmin: an unhealthy chain or a non-finite draw")
+    if not div_share < JM_DIV_MAX:
+        raise AssertionError(f"jangmin: divergent share {div_share:.3g} (limit {JM_DIV_MAX})")
+    eps = stats["step_size"].reshape(-1)
+    row = dict(markets=JM_MARKETS, T=JM_T, K=model.K, n_free=model.n_free, chains=1,
+               warmup=JM_WARMUP, samples=JM_SAMPLES, max_treedepth=JM_TREEDEPTH, seconds=wall,
+               seconds_a_market=wall / JM_MARKETS, value_and_grad_calls=vg.calls,
+               **lockstep(stats), divergent_share=div_share,
+               step_size=dict(min=float(eps.min()), median=float(eps.median()),
+                              max=float(eps.max())), launches=rose)
+
+    # the unsupervised decode through the ungated twin, and the oracle's
+    twin = jangmin_model(semisup=False)
+    x = torch.as_tensor(data["x"], device=device)
+    draws = qs[:, 0, :: max(1, JM_SAMPLES // JM_DRAWS)]
+    theta_true = twin.pack({k: torch.as_tensor(v, dtype=torch.float32, device=device)
+                            for k, v in twin.spec_params().items()})
+    groups = np.asarray(twin.groups)
+    acc, row["launches_decode"] = {}, {}
+    for key, theta in (("fit", draws), ("oracle", theta_true.expand(JM_MARKETS, 1, -1))):
+        before = launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        out = twin.generated(theta, {"x": x}, device=device)
+        sync()
+        row[f"decode_seconds_{key}"] = time.perf_counter() - t0
+        rose = rose_since(before)
+        if rose != {k.name: 1 for k in DECODE_KERNELS}:
+            raise AssertionError(f"jangmin decode ({key}): launches {rose}")
+        for k, v in rose.items():
+            row["launches_decode"][k] = row["launches_decode"].get(k, 0) + v
+        if not all(bool(torch.isfinite(v.float()).all()) for v in out.values()):
+            raise AssertionError(f"jangmin decode ({key}): a non-finite generated quantity")
+        hat = _regime_decode(out["gamma"].mean(1).cpu().numpy(), groups)
+        acc[key] = (hat == regimes).mean(1)
+        del out
+    row["decode_lanes"] = int(draws.shape[0] * draws.shape[1])
+    majority = np.asarray([np.bincount(r).max() / JM_T for r in regimes])
+    gap = acc["fit"] - acc["oracle"]
+    row.update(accuracy_mean=float(acc["fit"].mean()), accuracy_median=float(np.median(acc["fit"])),
+               oracle_accuracy_mean=float(acc["oracle"].mean()),
+               majority_rate_mean=float(majority.mean()), gap_median=float(np.median(gap)),
+               gap_min=float(gap.min()))
+    if not (acc["fit"].mean() > majority.mean() and np.median(gap) >= JM_ORACLE_GAP):
+        raise AssertionError(f"jangmin: accuracy {acc['fit'].mean():.3g} (majority rate "
+                             f"{majority.mean():.3g}), median gap to the oracle "
+                             f"{np.median(gap):.3g} (bound {JM_ORACLE_GAP})")
+
+    # the app's entry point once, on market 0
+    app_cfg = SamplerConfig(num_warmup=JM_APP_WARMUP, num_samples=JM_APP_SAMPLES, num_chains=1,
+                            max_treedepth=JM_TREEDEPTH)
+    vg_app = VGCounter(TreeHMM.make_vg)
+    before = launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    with mock.patch.object(TreeHMM, "make_vg", autospec=True, side_effect=vg_app):
+        fit = fit_market(data["x"][0], data["g"][0], app_cfg, seed=SEED_TREE,
+                         regime_true=regimes[0], device=device)
+    sync()
+    app = dict(seconds=time.perf_counter() - t0, value_and_grad_calls=vg_app.calls,
+               launches=rose_since(before), accuracy=fit.accuracy,
+               divergent_share=float(fit.stats["diverging"].float().mean()))
+    want = {cs.FWD.name: vg_app.calls, cs.VG_BWD.name: vg_app.calls,
+            **{k.name: 1 for k in DECODE_KERNELS}}
+    if app["launches"] != want:
+        raise AssertionError(f"jangmin fit_market: launches {app['launches']}, want {want}")
+    if not (bool(torch.isfinite(fit.samples).all()) and app["divergent_share"] < JM_DIV_MAX
+            and fit.regime_hat.shape == (JM_T,)):
+        raise AssertionError(f"jangmin fit_market: non-finite samples or divergent share "
+                             f"{app['divergent_share']:.3g}")
+    row["fit_market"] = app
+    return row, (model, {k: torch.as_tensor(v) for k, v in data.items()},
+                 qs[:, :, -1].contiguous())
+
+
+class OpCount(TorchDispatchMode):
+    """Counts the torch ops dispatched inside a ``with`` block (views
+    included)."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+def assemble_cost(model, q, device) -> dict:
+    """``TreeHMM.assemble`` alone at the draws ``q [N, 1, n_free]``: the
+    torch ops of one forward and of its backward, and ms a forward +
+    backward on the host clock (one warm call, then 20 synchronized
+    ones)."""
+    params, _ = model.unpack(q.to(device))
+    rows = params.slots.detach().requires_grad_(True)
+
+    def call():
+        pi, A = model._expansion(rows)
+        return torch.autograd.grad(pi.sum() + A.sum(), rows)
+
+    call()
+    with OpCount() as fwd:
+        pi, A = model._expansion(rows)
+    loss = pi.sum() + A.sum()
+    with OpCount() as bwd:
+        torch.autograd.grad(loss, rows)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        call()
+    sync()
+    return dict(ops_forward=fwd.n, ops_backward=bwd.n, ms=(time.perf_counter() - t0) / 20 * 1e3,
+                lanes=int(rows.shape[0] * rows.shape[1]))
+
+
+# ---------------------------------------------------------------------------
+# main paths 13-16 in spawned processes
+# ---------------------------------------------------------------------------
+
+# the six tasks of main paths 13 to 16, each in a process of its own
+POOL_TASKS = (("iohmm", "reg"), ("iohmm", "hmix"), ("hassan", "SYN-A"), ("hassan", "SYN-B"),
+              ("tree_gibbs", "jangmin"), ("jangmin", "nuts"))
+POOL_PATHS = ("iohmm", "hassan", "tree_gibbs", "jangmin")
 
 
 def _host_tensors(v):
     return tuple(a.cpu() if torch.is_tensor(a) else a for a in v)
 
 
-def io_hs_worker(task):
-    """Run one task ``(path, name, device)`` of ``IO_HS_TASKS`` in a
+def pool_worker(task):
+    """Run one task ``(path, name, device)`` of ``POOL_TASKS`` in a
     spawned process. Returns ``(path, row, vg_in, kept)``: the phase
-    line's fields (``row["launches"]`` the task's own count, checked
-    there against its value-and-grad calls), the value-and-grad inputs
-    for :func:`vg_ms_alone` and the first launch of each kernel at each
-    shape (:class:`LaneRecorder`), their tensors on the host."""
+    line's fields (its launches the task's own count, checked there
+    against its sweeps, value-and-grad calls and decode calls), the
+    value-and-grad inputs for :func:`vg_ms_alone` (None for the Gibbs
+    path) and the first launch of each kernel at each shape
+    (:class:`LaneRecorder`; the decode kernels too on the ``jangmin``
+    path), their tensors on the host."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     path, name, device = task
     device = torch.device(device)
-    with LaneRecorder() as rec:
-        row, (model, data, q) = (iohmm_task if path == "iohmm" else hassan_task)(name, device)
-    vg_in = (model, {k: v.cpu() for k, v in data.items()}, q.cpu())
+    run = {"iohmm": iohmm_task, "hassan": hassan_task, "tree_gibbs": tree_gibbs_task,
+           "jangmin": jangmin_task}[path]
+    with LaneRecorder(decode=path == "jangmin") as rec:
+        row, vg_in = run(name, device)
+    if vg_in is not None:
+        model, data, q = vg_in
+        vg_in = (model, {k: v.cpu() for k, v in data.items()}, q.cpu())
     kept = {key: (_host_tensors(args), _host_tensors(outs)) for key, (args, outs) in rec.calls.items()}
     return path, row, vg_in, kept
 
@@ -3546,41 +3832,79 @@ def vg_ms_alone(model, data, q, device) -> float:
     return (time.perf_counter() - t0) / 20 * 1e3
 
 
-def phase_iohmm_hassan(device):
-    """Main paths 13 (``iohmm``: IOHMM-reg and the mixture) and 14
-    (``hassan``: SYN-A and SYN-B), their four tasks each in a spawned
-    process of its own, all at once (each is host-bound: one process runs
-    one NUTS leaf at a time; the reference fits its symbols in parallel
-    too). A task's seconds are taken with the four sharing the host and
+def check_finite_inputs(calls, phase):
+    """The clamped kernels' rule on the path's own inputs: every kept
+    ``FWD``, ``BWD_SAMPLE`` and ``VG_BWD`` launch saw finite floats only
+    (structural zeros arrive as ``safe_log(0)``, hard-gated emissions as
+    ``MASK_NEG``)."""
+    clamped = (cs.FWD.name, cs.BWD_SAMPLE.name, cs.VG_BWD.name)
+    for (name, N, T, K, gated), (args, _) in calls.items():
+        if name in clamped and not all(bool(torch.isfinite(a).all()) for a in args
+                                       if torch.is_tensor(a) and a.is_floating_point()):
+            raise AssertionError(f"{phase}: {name} N={N} T={T} K={K} gated={gated} "
+                                 f"got a non-finite input")
+
+
+def phase_pool(device):
+    """Main paths 13 (``iohmm``: IOHMM-reg and the mixture), 14
+    (``hassan``: SYN-A and SYN-B), 15 (``tree_gibbs``) and 16
+    (``jangmin``), their six tasks each in a spawned process of its own,
+    all at once (each is host-bound: one process runs one sweep or one
+    NUTS leaf at a time; the reference fits its symbols in parallel
+    too). A task's seconds are taken with the six sharing the host and
     the card (``shared_by_processes``). Each task checks its own launches
-    and gates; here, with the workers done, each task's value-and-grad
-    call is timed alone, and per path the tasks' launches are summed and
-    the first launch of each kernel at each shape is held bitwise against
-    its plain version on the card. Returns ``{path: (launches, kept
-    rows)}``."""
+    and gates; here, with the workers done, each NUTS task's
+    value-and-grad call is timed alone (and the Jangmin tree's
+    ``assemble``), and per path the tasks' launches are summed and the
+    first launch of each kernel at each shape is held bitwise against
+    its plain version on the card and timed. Returns ``{path: (launches,
+    kept rows)}``."""
     t0 = time.perf_counter()
-    pool = multiprocessing.get_context("spawn").Pool(len(IO_HS_TASKS))
+    pool = multiprocessing.get_context("spawn").Pool(len(POOL_TASKS))
     try:
-        results = pool.map(io_hs_worker, [t + (str(device),) for t in IO_HS_TASKS], chunksize=1)
+        results = pool.map(pool_worker, [t + (str(device),) for t in POOL_TASKS], chunksize=1)
     finally:
         pool.close()
         pool.join()
     wall = time.perf_counter() - t0
     out = {}
-    for path in ("iohmm", "hassan"):
-        launches, calls = {}, {}
+    for path in POOL_PATHS:
+        launches, calls, rows = {}, {}, []
         for p, row, vg_in, kept in results:
             if p != path:
                 continue
-            emit(path, **row, shared_by_processes=len(IO_HS_TASKS),
-                 value_and_grad_ms_alone=vg_ms_alone(*vg_in, device))
-            for k, v in row["launches"].items():
-                launches[k] = launches.get(k, 0) + v
+            if vg_in is not None:
+                row["value_and_grad_ms_alone"] = vg_ms_alone(*vg_in, device)
+            if path == "jangmin":
+                row["assemble"] = assemble_cost(vg_in[0], vg_in[2], device)
+            rows.append(row)
+            for r in (row.values() if path == "tree_gibbs" else (row,)):
+                for k, v in r["launches"].items():
+                    launches[k] = launches.get(k, 0) + v
+            if path == "jangmin":
+                for r in (row["launches_decode"], row["fit_market"]["launches"]):
+                    for k, v in r.items():
+                        launches[k] = launches.get(k, 0) + v
             for key, (args, outs) in kept.items():
                 calls.setdefault(key, (tuple(a.to(device) if torch.is_tensor(a) else a
                                              for a in args),
                                        tuple(o.to(device) for o in outs)))
+        check_finite_inputs(calls, path)
         kernels = kept_vs_plain(calls, path)
+        for row in rows:
+            if path == "tree_gibbs":  # a sweep: FWD + BWD_SAMPLE at the fit's lanes
+                for gate, r in row.items():
+                    pair = [k["ms"] for k in kernels if k["N"] == r["markets"]
+                            and k["gated"] == (gate == "stan")]
+                    r["ffbs_pair_ms"] = sum(pair)
+                    r["ffbs_share"] = sum(pair) / r["sweep_ms"]
+            elif path == "jangmin":
+                pair = [k["ms"] for k in kernels if k["N"] == JM_MARKETS and k["T"] == JM_T
+                        and k["kernel"] in (cs.FWD.name, cs.VG_BWD.name)]
+                vgms = row["value_and_grad_ms_alone"]
+                row.update(kernel_pair_ms=sum(pair), kernel_pair_share=sum(pair) / vgms,
+                           assemble_share=row["assemble"]["ms"] / vgms)
+            emit(path, **row, shared_by_processes=len(POOL_TASKS))
         emit(f"{path}_kernels", launches=launches, kernels_vs_plain=kernels,
              processes_wall_seconds=wall)
         out[path] = (launches, kernels)
@@ -3812,12 +4136,14 @@ def main() -> int:
     clock.append(("replication", time.perf_counter()))
     reset_all()
     phase_replication(device, chees_qs)
-    # main paths 13 and 14, the IOHMMs (fits, decodes, state draws) and
-    # the Hassan walk-forward forecaster, their four tasks in parallel
-    # processes (each counts its own launches from 0)
-    clock.append(("iohmm_hassan", time.perf_counter()))
-    io_hs = phase_iohmm_hassan(device)
-    (io, io_kept), (hs, hs_kept) = io_hs["iohmm"], io_hs["hassan"]
+    # main paths 13 to 16, the IOHMMs (fits, decodes, state draws), the
+    # Hassan walk-forward forecaster, the Jangmin tree's Gibbs fit and its
+    # NUTS fit with the decode, their six tasks in parallel processes
+    # (each counts its own launches from 0)
+    clock.append(("pool", time.perf_counter()))
+    pooled = phase_pool(device)
+    (io, io_kept), (hs, hs_kept) = pooled["iohmm"], pooled["hassan"]
+    (tg, tg_kept), (jm, jm_kept) = pooled["tree_gibbs"], pooled["jangmin"]
     clock.append(("end", time.perf_counter()))
     emit("timeline", seconds={a: b - ta for (a, ta), (_, b) in zip(clock, clock[1:])},
          total_seconds=clock[-1][1] - clock[0][1])
@@ -3841,11 +4167,14 @@ def main() -> int:
                 if not cps.get(n)]
     missing += [f"{n} ({path})" for path, counts in (("iohmm", io), ("hassan", hs))
                 for n in (cs.FWD.name, cs.VG_BWD.name) if not counts.get(n)]
+    missing += [f"{n} (tree_gibbs)" for n in (cs.FWD.name, cs.BWD_SAMPLE.name) if not tg.get(n)]
+    missing += [f"{k.name} (jangmin)" for k in (cs.FWD, cs.VG_BWD) + DECODE_KERNELS
+                if not jm.get(k.name)]
     if missing:
         raise AssertionError(f"a main path never launched {missing}")
-    # the first launch of each kernel at each shape of paths 9 to 14
+    # the first launch of each kernel at each shape of paths 9 to 16
     kept = {"multinom": mn_kept, "heal": heal_kept, "chees_per_series": cps_kept,
-            "iohmm": io_kept, "hassan": hs_kept}
+            "iohmm": io_kept, "hassan": hs_kept, "tree_gibbs": tg_kept, "jangmin": jm_kept}
 
     t = kern["timing"]
     vt, tt, dt = vgk["timing"], trk["timing"], deck["timing"]
@@ -3920,7 +4249,7 @@ def main() -> int:
             rows[-1].update(launches_gaussian_nuts=gnuts[k.name], ms_gaussian_nuts=gn_ms[k.name],
                             shape_gaussian_nuts=dict(N=GN_CHAINS, T=GN_T, K=2))
         for path, counts in (("multinom", mn), ("heal", heal), ("chees_per_series", cps),
-                             ("iohmm", io), ("hassan", hs)):
+                             ("iohmm", io), ("hassan", hs), ("tree_gibbs", tg), ("jangmin", jm)):
             if counts.get(k.name):
                 rows[-1][f"launches_{path}"] = counts[k.name]
                 rows[-1][f"kept_{path}"] = [

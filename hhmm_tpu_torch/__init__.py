@@ -11,9 +11,12 @@ JAX package so each counterpart is easy to find:
   Viterbi), FFBS, value-and-grad and trajectory entries, and the
   hand-written CUDA kernels (``kernels/csrc``) with their plain PyTorch
   versions
+- ``hhmm``     the HHMM structure DSL: node taxonomy, the recursive
+  simulator, the example trees, the tree → flat HMM compiler and the
+  route tables of the tree Gibbs sampler
 - ``models``   the parameter contract (with the fused ``make_vg`` and
   the generated quantities), the Tayal (2009) HHMM, the Gaussian and
-  multinomial HMMs and the input-output HMMs
+  multinomial HMMs, the input-output HMMs and the tree HHMM
 - ``infer``    batch-native blocked Gibbs, ChEES-HMC with its warmup
   adaptation, MCMC diagnostics and label-switching utilities
 - ``sim``      simulators on ``torch.Generator`` streams
@@ -23,7 +26,8 @@ JAX package so each counterpart is easy to find:
   first use (ctypes)
 - ``apps``     the Tayal (2009) application: features, trading,
   analytics and the walk-forward back-test (``apps/tayal/wf.py``); the
-  Hassan (2005) walk-forward forecaster (``apps/hassan/wf.py``)
+  Hassan (2005) walk-forward forecaster (``apps/hassan/wf.py``); the
+  Jangmin (2004) market-regime fit (``apps/jangmin.py``)
 - ``convert``  carries the JAX package's draws and parameters across
 
 Entry points take ``device=None``, meaning CUDA, and raise on a host

@@ -4,9 +4,9 @@ Both packages lay out the unconstrained vector the same way (each
 bijector's free slice, in ``specs()`` order) and share constrained
 shapes, so conversion is a checked copy of numpy arrays into tensors.
 :func:`model_from_jax` builds the port's counterpart of a JAX
-multinomial or input-output HMM from its public attributes (read by
-name: nothing of the JAX package is imported), so its parameters carry
-across to a model of the same configuration.
+multinomial, input-output or tree HMM from its public attributes (read
+by name: nothing of the JAX package is imported), so its parameters
+carry across to a model of the same configuration.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from hhmm_tpu_torch._device import DeviceLike, resolve_device
+from hhmm_tpu_torch.hhmm.structure import End, Internal, Production, finalize
 
 __all__ = ["params_from_jax", "constrained_from_jax", "model_from_jax"]
 
@@ -26,7 +27,9 @@ def model_from_jax(jax_model):
     model instance ``jax_model``: ``MultinomialHMM`` (K, L),
     ``SemisupMultinomialHMM`` (K, L, groups, gate_mode), ``IOHMMReg``
     (K, M, trans_mode), ``IOHMMMix`` (K, M, L, trans_mode), ``IOHMMHMix``
-    or ``IOHMMHMixLite`` (K, M, L, hyperparams, trans_mode)."""
+    or ``IOHMMHMixLite`` (K, M, L, hyperparams, trans_mode), ``TreeHMM``
+    (the tree rebuilt node by node, semisup, gate_mode, order_mu and the
+    two prior scales)."""
     from hhmm_tpu_torch import models
 
     name = type(jax_model).__name__
@@ -42,7 +45,33 @@ def model_from_jax(jax_model):
     if name in ("IOHMMHMix", "IOHMMHMixLite"):
         cls = getattr(models, name)
         return cls(int(m.K), int(m.M), int(m.L), np.asarray(m.hyperparams), m.trans_mode)
+    if name == "TreeHMM":
+        return models.TreeHMM(
+            finalize(_tree_from_jax(m.root)), semisup=bool(m.semisup), gate_mode=m.gate_mode,
+            order_mu=m.order_mu, prior_mu_scale=m.prior_mu_scale,
+            prior_sigma_scale=m.prior_sigma_scale,
+        )
     raise ValueError(f"no port counterpart for the model class {name!r}")
+
+
+def _tree_from_jax(node):
+    """The port's copy of a JAX HHMM node and its subtree, from the
+    fields of each node class by name (``obs``/``name`` of a
+    ``Production``, ``name`` of an ``End``, ``pi``/``A``/``children``/
+    ``name`` of an ``Internal``); :func:`finalize` then assigns the
+    parents, indices and leaf ids."""
+    kind = type(node).__name__
+    if kind == "Production":
+        obs = node.obs
+        if isinstance(obs, tuple):
+            obs = (obs[0], {k: np.array(v) if np.ndim(v) else v for k, v in obs[1].items()})
+        return Production(obs=obs, name=node.name)
+    if kind == "End":
+        return End(name=node.name)
+    if kind == "Internal":
+        return Internal(pi=np.array(node.pi), A=np.array(node.A), name=node.name,
+                        children=[_tree_from_jax(c) for c in node.children])
+    raise ValueError(f"no port counterpart for the HHMM node class {kind!r}")
 
 
 def params_from_jax(

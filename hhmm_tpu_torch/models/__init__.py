@@ -1,12 +1,13 @@
 """The model parameter contract (with generated quantities), the Tayal
-(2009) HHMM, the Gaussian HMM, the multinomial HMMs and the
-input-output HMMs."""
+(2009) HHMM, the Gaussian HMM, the multinomial HMMs, the input-output
+HMMs and the tree HHMM."""
 
 from hhmm_tpu_torch.models.base import BaseHMMModel, semisup_gate
 from hhmm_tpu_torch.models.gaussian_hmm import GaussianHMM, NIGPrior, nig_emission_draw
 from hhmm_tpu_torch.models.iohmm import IOHMMHMix, IOHMMHMixLite, IOHMMMix, IOHMMReg
 from hhmm_tpu_torch.models.multinomial_hmm import MultinomialHMM, SemisupMultinomialHMM
 from hhmm_tpu_torch.models.tayal import TayalHHMM, TayalHHMMLite
+from hhmm_tpu_torch.models.tree import TreeHMM
 
 __all__ = [
     "BaseHMMModel",
@@ -22,4 +23,5 @@ __all__ = [
     "semisup_gate",
     "TayalHHMM",
     "TayalHHMMLite",
+    "TreeHMM",
 ]

@@ -54,6 +54,7 @@ from hhmm_tpu_torch.kernels import (
 from hhmm_tpu_torch.kernels import dispatch as kernel_dispatch
 from hhmm_tpu_torch.kernels.cuda_build import BUILD_DIR, build
 from hhmm_tpu_torch.apps.hassan import simulate_ohlc, wf_forecast
+from hhmm_tpu_torch.apps.jangmin import fit_market
 from hhmm_tpu_torch.models import (
     GaussianHMM,
     IOHMMHMixLite,
@@ -62,7 +63,9 @@ from hhmm_tpu_torch.models import (
     SemisupMultinomialHMM,
     TayalHHMM,
     TayalHHMMLite,
+    TreeHMM,
 )
+from hhmm_tpu_torch.hhmm import hier2x2_tree
 from hhmm_tpu_torch.sim import tayal_batch
 
 torch.set_num_threads(1)
@@ -125,6 +128,14 @@ def test_port_file_list_is_complete():
         "hhmm_tpu_torch/apps/hassan/data.py",
         "hhmm_tpu_torch/apps/hassan/forecast.py",
         "hhmm_tpu_torch/apps/hassan/wf.py",
+        "hhmm_tpu_torch/hhmm/__init__.py",
+        "hhmm_tpu_torch/hhmm/structure.py",
+        "hhmm_tpu_torch/hhmm/simulate.py",
+        "hhmm_tpu_torch/hhmm/examples.py",
+        "hhmm_tpu_torch/hhmm/compile.py",
+        "hhmm_tpu_torch/hhmm/routes.py",
+        "hhmm_tpu_torch/models/tree.py",
+        "hhmm_tpu_torch/apps/jangmin.py",
     ):
         assert must in names
 
@@ -239,6 +250,12 @@ ENTRY_POINTS = {
         torch.zeros(2, IOHMMHMixLite(2, 2, 2, np.ones(9)).n_free),
         {"x": torch.zeros(6), "u": torch.zeros(6, 2)},
     ),
+    # the tree HHMM: numpy data go to the card, the app fits there
+    "tree_make_vg": lambda: TreeHMM(hier2x2_tree()).make_vg({"x": np.zeros(6, np.float32)}),
+    "tree_generated": lambda: TreeHMM(hier2x2_tree()).generated(
+        torch.zeros(2, TreeHMM(hier2x2_tree()).n_free), {"x": torch.zeros(6)}
+    ),
+    "fit_market": lambda: fit_market(np.zeros(10), np.zeros(10, np.int64)),
     "constrained_from_jax": lambda: constrained_from_jax(
         TayalHHMM(), {"p_11": np.float32(0.5), "A_row": np.full((2, 2), 0.5),
                       "phi_k": np.full((4, 9), 1 / 9)},
