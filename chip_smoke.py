@@ -4,7 +4,7 @@ its hand-written CUDA kernels against its plain PyTorch version there.
 
     python3 chip_smoke.py
 
-Sixteen main paths, each driven with the kernel counts set to 0 just
+Twenty-one main paths, each driven with the kernel counts set to 0 just
 before it and read just after:
 
 - the batched Tayal Gibbs fit that ``bench.py`` runs by default (256
@@ -79,10 +79,21 @@ before it and read just after:
   value-and-grad call), the ungated twin's decode of 50 draws a market
   in one ``generated`` call (3,200 lanes: ``FILTER``, ``BETA``,
   ``VITERBI``, ``BACKTRACK`` at K=63), the true-parameter oracle's
-  decode, and ``fit_market`` on one market. These last four paths run
-  as six tasks (two IOHMMs, two benchmarks, the two tree paths), each in
-  a spawned process of its own, all at once: each is host-bound, one
-  Gibbs sweep or NUTS leaf at a time.
+  decode, and ``fit_market`` on one market;
+- the explicit-duration HSMMs (``models/hsmm.py``) on the count-down
+  expansion: ``bench_zoo.py``'s HSMM arm (K=2, Dmax=6, so K'=12; 256
+  series x T=400) by Gibbs through ``fit_batched``, ``generated`` and
+  ``state_draws``; ``tests/test_hsmm.py``'s recovery gate on 256 series
+  (the HSMM against the geometric HMM on held-out steps, ``FILTER``);
+  three regimes of daily returns with dwells up to Dmax=60 (K'=180, the
+  kernels' big layout: 64 series x T=1000, Gibbs, the decode of 1,280
+  lanes); ``MultinomialHSMM(K=3, Dmax=8, L=5)`` (K'=24, 256 x T=1024);
+  and the K'=12 model under NUTS (64 series, depth 6).
+The two NUTS paths of the Tayal batch and the Gaussian gate, and the
+IOHMM, Hassan, tree and HSMM-NUTS paths run as nine tasks (NUTS, the
+Gaussian gate, two IOHMMs, two benchmarks, the two tree paths, the
+HSMM), each in a spawned process of its own, all at once: each is
+host-bound, one Gibbs sweep or NUTS leaf at a time.
 
 Phases, one JSON object per line:
 
@@ -143,6 +154,16 @@ Phases, one JSON object per line:
    and value-and-grad kernels ungated and gated with masked runs at both
    ends, the decode kernels on sparse A with tie lanes and -inf evidence
    rows; then each timed at K=64, N=256, T=500.
+   kernels_big — every semiring kernel bitwise equal to its plain
+   version above K=128 (``csrc/big_core.cuh``: the lane's A, and
+   ``VG_BWD``'s d_A, in a stream-ordered device scratch; byte map
+   fields to K=256, 16-bit above; a thread several states above 1024)
+   at K in ``BIG_KS`` = {129, 180, 256, 257, 320, 1024, 1025} on 8 lanes
+   (T=48, T=12 from K=1024), the FFBS and value-and-grad kernels
+   ungated and gated on finite inputs with masked runs at both ends,
+   the decode kernels on sparse A with tie lanes and -inf evidence rows;
+   each kernel timed at each K beside its bound, and at K=180 on one
+   lane.
    decode_smooth — ``TayalHHMM(gate_mode="hard").generated`` on 32
    Gibbs draws x 256 series: shapes, probability rows, each decode
    kernel launched once, every output against the plain versions on
@@ -202,16 +223,19 @@ Phases, one JSON object per line:
    group, its inputs kept as the path made them, bitwise equal to the
    plain version on the same inputs and timed on them; the ``FWD`` +
    ``BWD_SAMPLE`` pair as a share of a Gibbs group's sweep.
-   nuts — the sixth main path (see above): every chain healthy, ``FWD``
+   nuts — the sixth main path (see above; a process of the pool, with
+   the paths from the thirteenth on): every chain healthy, ``FWD``
    and ``VG_BWD`` launched once a value-and-grad call and nothing else,
    posterior-mean emission rows within ``PHI_MAE_MAX`` of the
    simulator's, divergent share under ``NUTS_DIV_MAX``; the first launch
    of each kernel bitwise against its plain version and timed; the
    lockstep cost (leapfrogs the batch ran a transition against the mean
    leaves a lane needed), depth histogram, step sizes, ms a
-   value-and-grad call, host syncs a transition, worst-parameter ESS
-   and the gap to the ChEES posterior means.
-   gaussian_nuts — the seventh: ``tests/test_models.py``'s bounds (mu
+   value-and-grad call (timed alone, after the pool), host syncs a
+   transition, worst-parameter ESS and the gap to the ChEES posterior
+   means.
+   gaussian_nuts — the seventh (a process of the pool):
+   ``tests/test_models.py``'s bounds (mu
    0.08, sigma 0.05, A 0.10 absolute, divergent share under 0.05,
    Viterbi accuracy of ``generated`` above 0.9), ``FILTER`` and ``BETA``
    launched once a log-density call, their first launches bitwise
@@ -277,15 +301,41 @@ Phases, one JSON object per line:
    shares (``assemble``'s op counts too), lockstep efficiency, decode
    seconds, accuracies beside the oracle's; first launches bitwise, as
    above.
+   hsmm — the seventeenth: ``FWD`` and ``BWD_SAMPLE`` at K'=12 once a
+   sweep, each decode kernel once for ``generated`` on 32 draws a
+   series, the FFBS pair once for ``state_draws``; every fit finite,
+   probability rows summing to 1; posterior-mean mu and duration rows
+   against the truth, collapsed Viterbi accuracy, the split of a sweep
+   (build, FFBS pair, conjugate update); first launches bitwise.
+   hsmm_dmax1 — the Dmax=1 contract: ``GaussianHSMM(K=3, Dmax=1)`` and
+   ``GaussianHMM(K=3)`` on the same draws give the same built terms,
+   ``generated`` outputs and ``state_draws`` paths, bit for bit.
+   hsmm_recovery — the eighteenth: both fits' launches as above, one
+   ``FILTER`` a model for the held-out log-likelihoods; the HSMM's
+   pooled margin over the geometric HMM positive.
+   hsmm_daily — the nineteenth, at K'=180: the fit's and the decode's
+   launches as above, plus ``VITERBI`` and ``BACKTRACK`` twice for the
+   true-parameter decodes; the median collapsed regime accuracy within
+   ``HD_ACC_GAP`` of the decode by the true emissions and transitions
+   with flat durations (the true-parameter decode's reported beside it);
+   the split of a sweep, the decode kernels' share of ``generated``;
+   first launches bitwise.
+   multinom_hsmm — the twentieth: the fit's launches as above, every fit
+   finite, the emission rows after the best relabelling.
+   hsmm_nuts — the twenty-first (a process): ``FWD`` and ``VG_BWD``
+   once a value-and-grad call and nothing else, divergent share at most
+   ``HN_DIV_MAX``; value-and-grad ms alone with the kernel pair's share.
 9. the timeline line (host seconds a group of phases), the kernels line
    (every kernel; the semiring kernels with their K range, their time at
    K=64 and their zoo_wide launches; ``FWD``, ``BWD_SAMPLE`` and
    ``VG_BWD`` with their walk_forward launches; ``FWD`` and ``VG_BWD``
    with their NUTS launches and time, ``FILTER`` and ``BETA`` with the
    Gaussian NUTS gate's; each kernel with its launches on the multinom,
-   heal, chees_per_series, iohmm, hassan, tree_gibbs and jangmin paths
-   and their first launches' shapes and times: K=63 on the last two),
-   then the last line ``{"ok": true, "device": ...}``.
+   heal, chees_per_series, iohmm, hassan, tree_gibbs, jangmin and HSMM
+   paths and their first launches' shapes and times: K=63 on the tree
+   paths, K'=180 on ``hsmm_daily``; the semiring kernels with their
+   times and bounds at each K of ``kernels_big``), then the last line
+   ``{"ok": true, "device": ...}``.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line. It imports nothing of JAX or of ``hhmm_tpu``.
@@ -297,6 +347,7 @@ import contextlib
 import io
 import itertools
 import json
+import itertools
 import multiprocessing
 import re
 import subprocess
@@ -344,10 +395,12 @@ from hhmm_tpu_torch.kernels.ffbs import gumbel
 from hhmm_tpu_torch.kernels.filtering import smooth
 from hhmm_tpu_torch.models import (
     GaussianHMM,
+    GaussianHSMM,
     IOHMMHMix,
     IOHMMHMixLite,
     IOHMMReg,
     MultinomialHMM,
+    MultinomialHSMM,
     NIGPrior,
     SemisupMultinomialHMM,
     TayalHHMM,
@@ -361,6 +414,7 @@ from hhmm_tpu_torch.native import zigzag as native_zigzag
 from hhmm_tpu_torch.robust import FaultPlan, RetryPolicy, SimulatedCrash, faults
 from hhmm_tpu_torch.sim import (
     hmm_sim,
+    hsmm_sim,
     iohmm_sim,
     obsmodel_categorical,
     obsmodel_gaussian,
@@ -408,6 +462,13 @@ ZW_K, ZW_WARMUP, ZW_SAMPLES, ZW_DRAWS, ZW_CPU_SERIES = 64, 10, 10, 2, 16
 # at (9, 75), T off every ring's and chunk's length
 WIDE_KS = (17, 24, 32, 33, 48, 64, 96, 128)
 WIDE_SHAPES = ((64, 256), (9, 75))
+# above K=128 (a block a lane, the lane's A in a device scratch): every
+# semiring kernel against its plain version at byte map fields (129, 180
+# = the HSMM's 3 x 60, 256), 16-bit fields (257, 320) and more states
+# than a block's 1024 threads (1025), at T = 48 (T = 12 from K = 1024:
+# the plain versions' loops over K set the time), 8 lanes
+BIG_KS = (129, 180, 256, 257, 320, 1024, 1025)
+BIG_N, BIG_T, BIG_T_HUGE = 8, 48, 12
 # fifth main path: the Tayal walk-forward back-test (the reference's
 # test-strategy.R protocol: 5-day train + 1-day trade windows), 34
 # symbols x 11 days of simulated ticks = 204 tasks; legs a day spread
@@ -477,11 +538,12 @@ MN_ACC_GAP, MN_PHI_MAE_MAX = 0.15, 0.12
 MN_FREQ_Z_MAX = 6.0  # |z| of the two state-draw routes' pooled frequencies
 # tenth: the healing ladder of fit_batched on the Tayal batch (hard gate,
 # Gibbs 100 + 300, chunks of 64): the faulted series sits in the second
-# chunk; the NUTS heal runs 8 series of T=256, 20 + 20, max_treedepth 5
+# chunk; the NUTS heal runs 8 series of T=256, 10 + 10, max_treedepth 5
 # (4 at the ladder's third rung; at 6 its four dispatches took about half
 # of the phase)
 HEAL_SERIES, HEAL_CHUNK = 70, 64
 HEAL_NUTS_SERIES, HEAL_NUTS_T, HEAL_NUTS_TREEDEPTH = 8, 256, 5
+HEAL_NUTS_WARMUP, HEAL_NUTS_SAMPLES = 10, 10  # 20 + 20 until the HSMM paths
 # eleventh: per-series ChEES adaptation at the ChEES cell (stan gate, 2
 # chains, cap 16), 256 series in one chunk, 50 + 50 transitions
 CPS_WARMUP, CPS_SAMPLES = 50, 50
@@ -543,6 +605,58 @@ SEED_TREE = 1000
 JM_MARKETS, JM_T, JM_WARMUP, JM_SAMPLES, JM_TREEDEPTH, JM_DRAWS = 64, 250, 100, 100, 5, 50
 JM_DIV_MAX, JM_ORACLE_GAP = 0.15, -0.05
 JM_APP_WARMUP, JM_APP_SAMPLES = 30, 30
+# seventeenth to twenty-second: the explicit-duration HSMMs
+# (models/hsmm.py) on the count-down expansion, every series simulated by
+# hsmm_sim in one batch on a CPU generator. hsmm: bench_zoo.py::
+# bench_hsmm's arm (K=2, Dmax=6, so K'=12; T=400, its A and peaked dur,
+# mu +-0.8, sigma 0.7), its one series widened to 256, fit_batched Gibbs
+# 100 + 300 in one chunk, then generated and state_draws on 32 draws a
+# series (8192 lanes)
+HSMM_K, HSMM_DMAX, HSMM_T, HSMM_SERIES = 2, 6, 400, 256
+HSMM_A = [[0.0, 1.0], [1.0, 0.0]]
+HSMM_DUR = [[0.02, 0.03, 0.15, 0.40, 0.30, 0.10], [0.02, 0.08, 0.30, 0.40, 0.15, 0.05]]
+HSMM_MU, HSMM_SIGMA = [-0.8, 0.8], [0.7, 0.7]
+HSMM_WARMUP, HSMM_SAMPLES, HSMM_DRAWS, SEED_HSMM = 100, 300, 32, 2010
+# hsmm_dmax1: the Dmax=1 contract on the card, GaussianHSMM(K=3, Dmax=1)
+# against GaussianHMM(K=3) on the hmm/main.R data, 256 series x T=500, 8
+# random draws a series
+D1_DRAWS = 8
+# hsmm_nuts: the hsmm arm's model without a prior under NUTS, 64 series
+# (bench_zoo.py's --max-treedepth 6), 30 + 30 transitions, in the spawned
+# pool (FWD + VG_BWD at K'=12 once a value-and-grad call)
+HN_SERIES, HN_WARMUP, HN_SAMPLES, HN_TREEDEPTH, HN_DIV_MAX = 64, 30, 30, 6, 0.05
+# hsmm_recovery: tests/test_hsmm.py::test_hsmm_beats_geometric_hmm_heldout
+# (K=2, Dmax=6, T=300, the first 220 steps to train, its dur) widened
+# from 4 series to 256: the HSMM and the geometric GaussianHMM by Gibbs
+# 60 + 120, every 4th draw filtered over the whole series (one FILTER
+# launch a model); the gate: the pooled held-out one-step log-likelihood
+# of the HSMM above the HMM's
+HR_T, HR_TRAIN, HR_SERIES, HR_WARMUP, HR_SAMPLES, HR_THIN = 300, 220, 256, 60, 120, 4
+HR_DUR = [[0.0, 0.0, 0.1, 0.3, 0.4, 0.2], [0.0, 0.1, 0.4, 0.4, 0.1, 0.0]]
+HR_MU, HR_SIGMA = [-0.9, 0.9], [0.75, 0.75]
+# hsmm_daily: three regimes of daily returns (means -1, 0, 1 in sigma
+# units) whose dwells last up to a quarter (Dmax=60 trading days, so K'=
+# 180: every kernel in the big layout), peaked dwells of 10-50 steps
+# (modes 15, 30, 45, sd 6), 64 series x T=1000, Gibbs 100 + 200, then the
+# decode of 20 thinned draws a series (1,280 lanes); the gate: the median
+# over series of the collapsed Viterbi regime accuracy within HD_ACC_GAP
+# of the decode by the true emissions and transitions with flat duration
+# pmfs (see phase_hsmm_daily; the gap to the true-parameter decode is
+# reported)
+HD_K, HD_DMAX, HD_T, HD_SERIES = 3, 60, 1000, 64
+HD_MU, HD_SIGMA = [-1.0, 0.0, 1.0], [1.0, 1.0, 1.0]
+HD_A = [[0.0, 0.5, 0.5], [0.5, 0.0, 0.5], [0.5, 0.5, 0.0]]
+HD_PEAKS, HD_DWELL_SD, HD_DWELL_RANGE = (15, 30, 45), 6.0, (10, 50)
+HD_WARMUP, HD_SAMPLES, HD_DRAWS, HD_ACC_GAP = 100, 200, 20, 0.05
+# multinom_hsmm: MultinomialHSMM at hmm/main-multinom.R's K=3, L=5 with
+# Dmax=8 (K'=24, a block a lane), 256 series x T=1024, Gibbs 100 + 300 in
+# one chunk; the emission rows reported after the best relabelling
+MH_K, MH_DMAX, MH_L, MH_T, MH_SERIES = 3, 8, 5, 1024, 256
+MH_A = [[0.0, 0.6, 0.4], [0.5, 0.0, 0.5], [0.3, 0.7, 0.0]]
+MH_DUR = [[0.05, 0.10, 0.20, 0.30, 0.20, 0.10, 0.05, 0.0],
+          [0.30, 0.40, 0.20, 0.10, 0.0, 0.0, 0.0, 0.0],
+          [0.0, 0.0, 0.05, 0.10, 0.15, 0.20, 0.25, 0.25]]
+MH_WARMUP, MH_SAMPLES = 100, 300
 
 # the FFBS checks (each bitwise against the plain versions): every K the
 # kernels take, gated and not, at the main path's shape with a ragged
@@ -2107,6 +2221,89 @@ def phase_kernels_wide(device):
     return dict(cases=cases, timing=timing)
 
 
+def phase_kernels_big(device):
+    """Every semiring kernel bitwise equal to its plain version at each K
+    of ``BIG_KS`` (the big layout of ``csrc/big_core.cuh``, the big
+    backward sampler and, above K = 256, the 16-bit maps and their
+    backtrack): ``FWD``, ``BWD_SAMPLE`` and ``VG_BWD`` ungated and gated
+    on finite (clamped) inputs with masked runs at both ends; ``FILTER``,
+    ``BETA``, ``VITERBI`` and ``BACKTRACK`` on ``MASK_NEG``-sparse A with
+    tie lanes and all -inf evidence rows (``make_decode_case``). Each
+    kernel is then timed at each K on the same lanes (dense mask), beside
+    its bound, and at K = 180 on one lane."""
+    cases, timing = [], {}
+    for i, K in enumerate(BIG_KS):
+        N, T = BIG_N, (BIG_T if K < 1024 else BIG_T_HUGE)
+        for gated in (False, True):
+            lanes, u_t = make_case(9000 + 4 * i + gated, N, T, K, gated, device, both_ends=True)
+            pi_t, A_t, obs_t, mask_t, gate_t, sk_t = lanes
+            ll_k, a_k = cs.fwd_lanes(*lanes)
+            z_k = cs.bwd_sample_lanes(A_t, mask_t, a_k, u_t, gate_t, sk_t)
+            vg_k = cs.vg_bwd_lanes(A_t, obs_t, mask_t, a_k, ll_k, gate_t, sk_t)
+            ll_p, a_p = cs.fwd_plain(*lanes)
+            z_p = cs.bwd_sample_plain(A_t, mask_t, a_p, u_t, gate_t, sk_t)
+            vg_p = cs.vg_bwd_plain(A_t, obs_t, mask_t, a_p, ll_p, gate_t, sk_t)
+            sync()
+            same = {cs.FWD.name: torch.equal(a_k, a_p) and torch.equal(ll_k, ll_p),
+                    cs.BWD_SAMPLE.name: torch.equal(z_k, z_p),
+                    cs.VG_BWD.name: all(torch.equal(g, w) for g, w in zip(vg_k, vg_p))}
+            if not all(same.values()):
+                raise AssertionError(f"big K={K} N={N} T={T} gated={gated}: not bitwise "
+                                     f"equal to the plain versions {same}, "
+                                     f"{int((z_k != z_p).sum())} draws differ")
+            cases.append(dict(K=K, N=N, T=T, gated=gated, kernels=list(same)))
+        lanes = make_decode_case(9500 + i, N, T, K, device, finite=False)
+        pi_t, A_t, obs_t, mask_t = lanes
+        vit = cs.VITERBI.name
+        got = {cs.FILTER.name: cs.filter_lanes(*lanes),
+               cs.BETA.name: (cs.beta_lanes(A_t, obs_t, mask_t),),
+               vit: cs.viterbi_lanes(*lanes)}
+        got[cs.BACKTRACK.name] = (cs.backtrack_lanes(got[vit][2], got[vit][1]),)
+        want = {cs.FILTER.name: cs.filter_plain(*lanes),
+                cs.BETA.name: (cs.beta_plain(A_t, obs_t, mask_t),),
+                vit: cs.viterbi_plain(*lanes)}
+        want[cs.BACKTRACK.name] = (cs.backtrack_plain(want[vit][2], want[vit][1]),)
+        sync()
+        bad = [k for k in got if not all(torch.equal(a, b) for a, b in zip(got[k], want[k]))]
+        if bad:
+            raise AssertionError(f"big decode K={K} N={N} T={T}: not identical to the plain "
+                                 f"versions {bad}")
+        cases.append(dict(K=K, N=N, T=T, kernels=list(got)))
+        timing[K] = big_kernel_timing(device, 9900 + i, N, T, K)
+        emit("big_kernels_vs_plain", K=K, N=N, T=T, bitwise_equal=True,
+             map_bits=cs._map_bits(K), timing=timing[K])
+    one_lane = big_kernel_timing(device, 9990, 1, BIG_T, 180)
+    emit("big_kernel_one_lane", K=180, T=BIG_T, timing=one_lane)
+    return dict(cases=cases, timing=timing, one_lane=one_lane)
+
+
+def big_kernel_timing(device, seed, N, T, K):
+    """``{kernel: {"ms", "bound_ms", "bound_by"}}`` of each semiring kernel
+    on ``N`` lanes of ``T`` steps at ``K`` (dense mask; the decode kernels
+    on finite sparse lanes), ms from CUDA events."""
+    lanes, u_t = make_case(seed, N, T, K, False, device)
+    pi_t, A_t, obs_t, mask_t, _, _ = lanes
+    mask_t.fill_(1.0)
+    ll, alpha = cs.fwd_lanes(*lanes)
+    dec = make_decode_case(seed, N, T, K, device, finite=True)
+    dec[3].fill_(1.0)
+    _, dl, bk = cs.viterbi_lanes(*dec)
+    calls = {
+        cs.FWD: (lambda: cs.fwd_lanes(*lanes), fwd_bytes_ops(lanes)),
+        cs.BWD_SAMPLE: (lambda: cs.bwd_sample_lanes(A_t, mask_t, alpha, u_t), bwd_bytes_ops(lanes)),
+        cs.VG_BWD: (lambda: cs.vg_bwd_lanes(A_t, obs_t, mask_t, alpha, ll), vg_bytes_ops(lanes)),
+        cs.FILTER: (lambda: cs.filter_lanes(*dec), decode_bytes_ops(cs.FILTER, dec)),
+        cs.BETA: (lambda: cs.beta_lanes(*dec[1:]), decode_bytes_ops(cs.BETA, dec)),
+        cs.VITERBI: (lambda: cs.viterbi_lanes(*dec), decode_bytes_ops(cs.VITERBI, dec)),
+        cs.BACKTRACK: (lambda: cs.backtrack_lanes(bk, dl), decode_bytes_ops(cs.BACKTRACK, dec)),
+    }
+    out = {}
+    for k, (fn, (b, ops)) in calls.items():
+        bms, by = bound(b, ops)
+        out[k.name] = dict(ms=time_ms(fn, reps=5), bound_ms=bms, bound_by=by)
+    return out
+
+
 def phase_zoo_wide(device):
     """The Gaussian HMM at K=64 (a block a lane on the card) on 256
     simulated series, T=500 (sticky A, means 1.5 apart, as
@@ -2608,15 +2805,17 @@ def lockstep(stats) -> dict:
             "host_syncs_per_transition": float(syncs.mean())}
 
 
-def phase_nuts(device, chees_phi):
-    """The sixth main path: ``fit_batched`` with a ``SamplerConfig`` on
-    the ChEES phase's batch and model (stan gate, 256 series x T=1024,
-    one chain: 256 lanes in lockstep), ``max_treedepth`` 10. Every chain
-    healthy, ``FWD`` and ``VG_BWD`` launched once a value-and-grad call
-    and nothing else, the emission rows near the simulator's, divergent
-    share under ``NUTS_DIV_MAX``; the first launch of each kernel
-    bitwise against its plain version; the lockstep cost, the depths,
-    step sizes, ms a value-and-grad call and host syncs a transition."""
+def nuts_task(name, device):
+    """The sixth main path, in a spawned process: ``fit_batched`` with a
+    ``SamplerConfig`` on the ChEES phase's batch and model (stan gate,
+    256 series x T=1024, one chain: 256 lanes in lockstep),
+    ``max_treedepth`` 10. Every chain healthy, ``FWD`` and ``VG_BWD``
+    launched once a value-and-grad call and nothing else, the emission
+    rows near the simulator's, divergent share under ``NUTS_DIV_MAX``;
+    the lockstep cost, the depths, step sizes and host syncs a
+    transition. Returns the phase line's fields (with ``phi_mean`` for
+    the gap to the ChEES posterior, taken in the parent) and ``(model,
+    data, last draws)`` for :func:`vg_ms_alone`."""
     x, sign = tayal_batch(N_SERIES, T_FIT, seed=SEED_DATA, device=device)
     data = {"x": x, "sign": sign}
     model = TayalHHMM()
@@ -2627,8 +2826,7 @@ def phase_nuts(device, chees_phi):
     before = launch_counts()
     sync()
     t0 = time.perf_counter()
-    with mock.patch.object(TayalHHMM, "make_vg", autospec=True, side_effect=vg), \
-            LaneRecorder() as rec:
+    with mock.patch.object(TayalHHMM, "make_vg", autospec=True, side_effect=vg):
         qs, stats = fit_batched(model, data, cfg, init=init, chunk_size=N_SERIES,
                                 seed=SEED_SAMPLER, device=device)
     sync()
@@ -2646,53 +2844,37 @@ def phase_nuts(device, chees_phi):
     div_share = float(stats["diverging"].float().mean())
     if not div_share < NUTS_DIV_MAX:
         raise AssertionError(f"nuts: divergent share {div_share:.3g} (limit {NUTS_DIV_MAX})")
-    gap = np.minimum(
-        np.abs(phi_mean - chees_phi).mean(axis=(1, 2)),
-        np.abs(phi_mean[:, MIRROR] - chees_phi).mean(axis=(1, 2)),
-    )
-    kernels = kept_vs_plain(rec.calls, "nuts")
-    # one value-and-grad call over the 256 lanes at the last draws, on the
-    # host clock around synchronized calls (what a leaf waits for)
-    fn = model.make_vg(data)
-    q_last = qs[:, :, -1].contiguous()
-    fn(q_last)
-    sync()
-    t1 = time.perf_counter()
-    for _ in range(20):
-        fn(q_last)
-    sync()
-    vg_ms = (time.perf_counter() - t1) / 20 * 1e3
     transitions = NUTS_WARMUP + NUTS_SAMPLES
     eps = stats["step_size"].reshape(-1)
     depth = stats["depth"].reshape(-1)
-    emit("nuts", series=N_SERIES, T=T_FIT, chains=1, warmup=NUTS_WARMUP, samples=NUTS_SAMPLES,
-         max_treedepth=NUTS_TREEDEPTH, seconds=wall, transitions_per_s=transitions / wall,
-         transition_ms=wall / transitions * 1e3, value_and_grad_calls=vg.calls,
-         value_and_grad_ms=vg_ms, value_and_grad_share=vg.calls * vg_ms / 1e3 / wall,
-         **lockstep(stats),
-         depth_histogram_sampling=torch.bincount(depth, minlength=NUTS_TREEDEPTH + 1).tolist(),
-         leaves_mean_sampling=float(stats["num_leaves"].float().mean()),
-         step_size=dict(min=float(eps.min()), median=float(eps.median()), max=float(eps.max())),
-         accept_mean_sampling=float(stats["accept_prob"].mean()),
-         divergent_share=div_share, divergent_warmup=int(stats["warmup_diverging"].sum()),
-         launches=rose, kernels_vs_plain=kernels, logp_mean=float(stats["logp"].mean()),
-         ess_worst_param_min=float(worst.min()), ess_worst_param_mean=float(worst.mean()),
-         mirror_fold_share=swap_share,
-         phi_mae_mean=float(mae.mean()), phi_mae_max=float(mae.max()),
-         phi_gap_vs_chees_mean=float(gap.mean()))
-    return rose, {k["kernel"]: k["ms"] for k in kernels}
+    row = dict(series=N_SERIES, T=T_FIT, chains=1, warmup=NUTS_WARMUP, samples=NUTS_SAMPLES,
+               max_treedepth=NUTS_TREEDEPTH, seconds=wall, transitions_per_s=transitions / wall,
+               transition_ms=wall / transitions * 1e3, value_and_grad_calls=vg.calls,
+               **lockstep(stats),
+               depth_histogram_sampling=torch.bincount(depth,
+                                                       minlength=NUTS_TREEDEPTH + 1).tolist(),
+               leaves_mean_sampling=float(stats["num_leaves"].float().mean()),
+               step_size=dict(min=float(eps.min()), median=float(eps.median()),
+                              max=float(eps.max())),
+               accept_mean_sampling=float(stats["accept_prob"].mean()),
+               divergent_share=div_share, divergent_warmup=int(stats["warmup_diverging"].sum()),
+               launches=rose, logp_mean=float(stats["logp"].mean()),
+               ess_worst_param_min=float(worst.min()), ess_worst_param_mean=float(worst.mean()),
+               mirror_fold_share=swap_share,
+               phi_mae_mean=float(mae.mean()), phi_mae_max=float(mae.max()), phi_mean=phi_mean)
+    return row, (model, data, qs[:, :, -1].contiguous())
 
 
-def phase_gaussian_nuts(device):
-    """The seventh main path: the ``hmm/main.R`` gate of
+def gaussian_nuts_task(name, device):
+    """The seventh main path, in a spawned process: the ``hmm/main.R`` gate of
     ``tests/test_models.py::test_gaussian_hmm_recovery`` on the port's
     simulator, ``sample_nuts(model.make_logp(data))`` (the target through
     ``forward_loglik``: ``FILTER`` forward and ``BETA`` backward once a
     log-density call, and nothing else), 100 + 100 transitions on 2
     chains: posterior means within the test's bounds, divergent share
     under ``GN_DIV_MAX``, Viterbi accuracy of ``generated`` above
-    ``G_ACC_MIN``; the first launch of each kernel bitwise against its
-    plain version."""
+    ``G_ACC_MIN``. Returns the phase line's fields (its ``launches``: the
+    fit's and the decode's together) and no value-and-grad inputs."""
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED_GN)
     z_true, x = hmm_sim(gen, GN_T, GN_A, GN_P1, obsmodel_gaussian(GN_MU, GN_SIGMA))
@@ -2704,8 +2886,7 @@ def phase_gaussian_nuts(device):
     before = launch_counts()
     sync()
     t0 = time.perf_counter()
-    with LaneRecorder() as rec:
-        qs, stats = sample_nuts(logp, init, cfg, seed=SEED_SAMPLER, device=device)
+    qs, stats = sample_nuts(logp, init, cfg, seed=SEED_SAMPLER, device=device)
     sync()
     wall = time.perf_counter() - t0
     rose = rose_since(before)
@@ -2731,17 +2912,17 @@ def phase_gaussian_nuts(device):
     acc = float((out["zstar"] == z_true[None]).float().mean())
     if not acc > G_ACC_MIN:
         raise AssertionError(f"gaussian_nuts: Viterbi accuracy {acc:.4g}")
-    kernels = kept_vs_plain(rec.calls, "gaussian_nuts")
     transitions = GN_WARMUP + GN_SAMPLES
-    emit("gaussian_nuts", T=GN_T, K=2, chains=GN_CHAINS, warmup=GN_WARMUP, samples=GN_SAMPLES,
-         seconds=wall, transitions_per_s=transitions / wall, logp_calls=logp.calls,
-         logp_call_ms=wall / logp.calls * 1e3, **lockstep({k: v[None] for k, v in stats.items()}),
-         step_size=stats["step_size"].tolist(), divergent_share=div_share,
-         posterior_means={k: v.tolist() for k, v in est.items()}, max_abs_err=errs,
-         viterbi_accuracy=acc, generated_draws=int(draws.shape[0]), launches=rose,
-         generated_launches=rose_gen, kernels_vs_plain=kernels)
     path = {n: rose.get(n, 0) + rose_gen.get(n, 0) for n in set(rose) | set(rose_gen)}
-    return path, {k["kernel"]: k["ms"] for k in kernels}
+    row = dict(T=GN_T, K=2, chains=GN_CHAINS, warmup=GN_WARMUP, samples=GN_SAMPLES,
+               seconds=wall, transitions_per_s=transitions / wall, logp_calls=logp.calls,
+               logp_call_ms=wall / logp.calls * 1e3,
+               **lockstep({k: v[None] for k, v in stats.items()}),
+               step_size=stats["step_size"].tolist(), divergent_share=div_share,
+               posterior_means={k: v.tolist() for k, v in est.items()}, max_abs_err=errs,
+               viterbi_accuracy=acc, generated_draws=int(draws.shape[0]), fit_launches=rose,
+               generated_launches=rose_gen, launches=path)
+    return row, None
 
 
 def phase_walk_forward_nuts(device, tasks):
@@ -3112,8 +3293,8 @@ def phase_heal(device):
         nuts_model = TayalHHMM()
         nuts_data = {"x": x[:HEAL_NUTS_SERIES, :HEAL_NUTS_T].contiguous(),
                      "sign": sign[:HEAL_NUTS_SERIES, :HEAL_NUTS_T].contiguous()}
-        ncfg = SamplerConfig(num_warmup=20, num_samples=20, num_chains=1,
-                             max_treedepth=HEAL_NUTS_TREEDEPTH)
+        ncfg = SamplerConfig(num_warmup=HEAL_NUTS_WARMUP, num_samples=HEAL_NUTS_SAMPLES,
+                             num_chains=1, max_treedepth=HEAL_NUTS_TREEDEPTH)
         ladder = []
         real_escalate = fit_module.escalate
 
@@ -3151,7 +3332,8 @@ def phase_heal(device):
     kernels = kept_vs_plain(heal_calls, "heal")
     emit("heal", series=N_SERIES, T=T_FIT, chunk=HEAL_CHUNK, faulted_series=s,
          gibbs_dispatches=gibbs_dispatches, **report,
-         nuts=dict(series=HEAL_NUTS_SERIES, T=HEAL_NUTS_T, warmup=20, samples=20,
+         nuts=dict(series=HEAL_NUTS_SERIES, T=HEAL_NUTS_T, warmup=HEAL_NUTS_WARMUP,
+                   samples=HEAL_NUTS_SAMPLES,
                    value_and_grad_calls=vg.calls, ladder=ladder,
                    lines=ladder_lines(log.lines)),
          launches=rose, heal_dispatch_kernels_vs_plain=kernels)
@@ -3780,13 +3962,375 @@ def assemble_cost(model, q, device) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# main paths 17-22: the explicit-duration HSMMs
+# ---------------------------------------------------------------------------
+
+
+def hsmm_batch(seed, B, T, A, dur, device, mu=None, sigma=None, phi=None):
+    """``(z [B, T]`` regime paths, ``x [B, T])`` by ``hsmm_sim`` on a CPU
+    generator seeded ``seed`` (uniform initial regime), on ``device``:
+    Gaussian emissions, or categorical ones from the rows of ``phi``."""
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    obs = obsmodel_gaussian(mu, sigma) if phi is None else obsmodel_categorical(phi)
+    z, x = hsmm_sim(gen, T, A, dur, np.ones(len(A)) / len(A), obs, batch=(B,))
+    return z.to(device), x.to(device)
+
+
+def hsmm_gibbs(name, model, data, warmup, samples, seed, device):
+    """``fit_batched`` Gibbs in one chunk, one chain, of an HSMM or (in
+    ``hsmm_recovery``) the geometric HMM, from ``default_init`` (timed
+    apart: a k-means a series on the host for the Gaussian models):
+    ``(qs [B, 1, S, D], fields)``; ``FWD`` and ``BWD_SAMPLE`` exactly once
+    a sweep, every chain healthy, every logp finite."""
+    B = data["x"].shape[0]
+    t0 = time.perf_counter()
+    init = default_init(model, data, B, 1, seed=seed, device=device)
+    init_wall = time.perf_counter() - t0
+    before = launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    qs, stats = fit_batched(model, data, GibbsConfig(warmup, samples, 1), init=init,
+                            chunk_size=B, seed=seed, device=device)
+    sync()
+    wall = time.perf_counter() - t0
+    rose, sweeps = rose_since(before), warmup + samples
+    if rose != {cs.FWD.name: sweeps, cs.BWD_SAMPLE.name: sweeps}:
+        raise AssertionError(f"{name}: fit launches {rose}, expected {sweeps} FWD and BWD_SAMPLE")
+    if not bool(stats["chain_healthy"].all()) or not bool(torch.isfinite(stats["logp"]).all()):
+        raise AssertionError(f"{name}: an unhealthy chain or a non-finite logp")
+    return qs, dict(series=B, K=model.K, Dmax=getattr(model, "Dmax", 1),
+                    T=int(data["x"].shape[1]), warmup=warmup, samples=samples,
+                    init_seconds=init_wall, fit_seconds=wall, sweep_ms=wall / sweeps * 1e3,
+                    fit_launches=rose)
+
+
+def host_ms(fn, reps: int = 10) -> float:
+    """Synchronized host ms of a call, one warm call first."""
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    sync()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def sweep_split(model, q, data, device) -> dict:
+    """Host ms of the three parts of a Gibbs sweep on the fit's lanes at
+    the draws ``q [B, D]``: ``unpack`` + ``build`` (the count-down
+    expansion), the FFBS pair (``ffbs_dispatch``) and ``gibbs_update``."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    params, _ = model.unpack(q)
+    terms = model.build(params, data)
+    z, _ = td.ffbs_dispatch(gen, *terms)
+    return dict(build_ms=host_ms(lambda: model.build(model.unpack(q)[0], data)),
+                ffbs_ms=host_ms(lambda: td.ffbs_dispatch(gen, *terms)),
+                update_ms=host_ms(lambda: model.gibbs_update(gen, z, data, params)))
+
+
+def pair_ms(kernels, names, N, T):
+    """Sum of the kept launches' ms of ``names`` at ``(N, T)``."""
+    return sum(k["ms"] for k in kernels if k["kernel"] in names and k["N"] == N and k["T"] == T)
+
+
+def phase_hsmm(device):
+    """Main path 17, the ``bench_zoo.py`` HSMM arm on 256 series: the
+    Gibbs fit (``FWD`` + ``BWD_SAMPLE`` at K'=12 once a sweep), then
+    ``generated`` (each decode kernel once) and ``state_draws`` (the FFBS
+    pair once) on 32 draws a series; every fit finite. Reports the
+    posterior-mean mu and duration rows against the truth, the collapsed
+    Viterbi accuracy and the split of a sweep. Returns the path's
+    launches and its first launches at each shape against the plain
+    versions."""
+    z, x = hsmm_batch(SEED_HSMM, HSMM_SERIES, HSMM_T, HSMM_A, HSMM_DUR, device,
+                      mu=HSMM_MU, sigma=HSMM_SIGMA)
+    data = {"x": x}
+    model = GaussianHSMM(HSMM_K, HSMM_DMAX, nig_prior=NIGPrior(**G_PRIOR))
+    reset_all()
+    with LaneRecorder(decode=True) as rec:
+        qs, row = hsmm_gibbs("hsmm", model, data, HSMM_WARMUP, HSMM_SAMPLES, SEED_HSMM, device)
+        draws = thin(qs[:, 0], HSMM_DRAWS)
+        before = launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        out = model.generated(draws, data, device=device)
+        sync()
+        gen_wall = time.perf_counter() - t0
+        rose_gen = rose_since(before)
+        check_decode_once("hsmm", rose_gen)
+        gen_z = torch.Generator(device=device)
+        gen_z.manual_seed(SEED_HSMM + 1)
+        before = launch_counts()
+        zs = model.state_draws(gen_z, draws, data, device=device)
+        sync()
+        rose_sd = rose_since(before)
+    launches = launch_counts()
+    if rose_sd != {cs.FWD.name: 1, cs.BWD_SAMPLE.name: 1}:
+        raise AssertionError(f"hsmm: state_draws launched {rose_sd}")
+    dev = {k: check_probabilities("hsmm", out, k) for k in ("alpha", "gamma")}
+    if not (int(zs.min()) >= 0 and int(zs.max()) < model.n_states):
+        raise AssertionError("hsmm: a state draw outside the expanded chain")
+    cons = model.constrained_draws(qs[:, 0])
+    mu_err = (cons["mu_k"].mean(1) - torch.tensor(HSMM_MU, device=device)).abs().max(-1).values
+    dur_l1 = (cons["dur_kd"].mean(1) - torch.tensor(HSMM_DUR, device=device)).abs().sum(-1)
+    acc = (model.regime_path(out["zstar"]) == z[:, None]).float().mean(-1)  # [B, D]
+    split = sweep_split(model, qs[:, 0, -1], data, device)
+    kernels = kept_vs_plain(rec.calls, "hsmm")
+    pair = pair_ms(kernels, (cs.FWD.name, cs.BWD_SAMPLE.name), HSMM_SERIES, HSMM_T)
+    emit("hsmm", **row, draws_per_series=HSMM_DRAWS, generated_seconds=gen_wall,
+         launches=dict(fit=row.pop("fit_launches"), generated=rose_gen, state_draws=rose_sd),
+         row_sum_max_dev=dev, mu_err_max_mean=float(mu_err.mean()),
+         dur_l1_mean=[float(v) for v in dur_l1.mean(0)],
+         regime_accuracy_median=float(acc.mean(1).median()), sweep_split=split,
+         ffbs_pair_ms=pair, ffbs_share=pair / row["sweep_ms"], kernels_vs_plain=kernels)
+    return launches, kernels
+
+
+def phase_hsmm_dmax1(device):
+    """The Dmax=1 contract on the card: ``GaussianHSMM(K=3, Dmax=1)`` and
+    ``GaussianHMM(K=3)`` on the same draws (``D1_DRAWS`` random ones a
+    series) of the ``hmm/main.R`` data, 256 series x T=500: the built
+    terms, every output of ``generated`` (the four decode kernels) and the
+    ``state_draws`` paths (the FFBS pair, same generator seed) bit for
+    bit."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED_GAUSS)
+    _, x = hmm_sim(gen, G_T, G_A, np.ones(G_K) / G_K, obsmodel_gaussian(G_MU, G_SIGMA),
+                   batch=(N_SERIES,))
+    data = {"x": x}
+    hmm, hsmm = GaussianHMM(K=G_K), GaussianHSMM(G_K, 1)
+    theta = 0.5 * torch.randn((N_SERIES, D1_DRAWS, hmm.n_free), generator=gen, device=device)
+    flat = theta.reshape(-1, hmm.n_free)
+    lanes = {"x": x.repeat_interleave(D1_DRAWS, 0)}
+    terms = [m.build(m.unpack(flat)[0], lanes)[:3] for m in (hmm, hsmm)]
+    same = {"build": all(torch.equal(a, b) for a, b in zip(*terms))}
+    outs = [m.generated(theta, data, device=device) for m in (hmm, hsmm)]
+    same["generated"] = all(torch.equal(outs[0][k], outs[1][k]) for k in outs[0])
+    paths = []
+    for m in (hmm, hsmm):
+        g = torch.Generator(device=device)
+        g.manual_seed(SEED_GAUSS + 5)
+        paths.append(m.state_draws(g, theta, data, device=device))
+    sync()
+    same["state_draws"] = torch.equal(*paths)
+    launches = launch_counts()
+    if not all(same.values()):
+        raise AssertionError(f"hsmm_dmax1: not bitwise the GaussianHMM {same}")
+    emit("hsmm_dmax1", series=N_SERIES, T=G_T, K=G_K, draws_per_series=D1_DRAWS,
+         bitwise_equal=same, launches={k: v for k, v in launches.items() if v})
+    return launches
+
+
+def phase_hsmm_recovery(device):
+    """Main path 18, ``tests/test_hsmm.py``'s recovery gate on 256 series:
+    the HSMM and the geometric ``GaussianHMM`` fitted by Gibbs on the
+    first ``HR_TRAIN`` steps, every ``HR_THIN``-th draw filtered over the
+    whole series (one ``FILTER`` launch a model); the held-out one-step
+    log-likelihood ``ll(x_{1:T}) - ll(x_{1:T_train})`` averaged over
+    draws, paired per series. Gate: the pooled margin of the HSMM over
+    the HMM is positive."""
+    z, x = hsmm_batch(SEED_HSMM + 100, HR_SERIES, HR_T, HSMM_A, HR_DUR, device,
+                      mu=HR_MU, sigma=HR_SIGMA)
+    train = {"x": x[:, :HR_TRAIN].contiguous()}
+    prior = NIGPrior(**G_PRIOR)
+    rows, heldout = {}, {}
+    reset_all()
+    with LaneRecorder() as rec:
+        for tag, model in (("hsmm", GaussianHSMM(HSMM_K, HSMM_DMAX, nig_prior=prior)),
+                           ("hmm", GaussianHMM(HSMM_K, nig_prior=prior))):
+            qs, row = hsmm_gibbs(f"hsmm_recovery {tag}", model, train, HR_WARMUP, HR_SAMPLES,
+                                 SEED_HSMM + 200, device)
+            draws = qs[:, 0, ::HR_THIN]
+            B, D = draws.shape[:2]
+            log_pi, log_A, log_obs, _ = model.build(model.unpack(draws.reshape(B * D, -1))[0],
+                                                    {"x": x.repeat_interleave(D, 0)})
+            before = launch_counts()
+            log_alpha, ll_full = td.forward_filter_dispatch(
+                log_pi, log_A, log_obs, torch.ones(log_obs.shape[:2], device=device))
+            sync()
+            if rose_since(before) != {cs.FILTER.name: 1}:
+                raise AssertionError(f"hsmm_recovery {tag}: the filter launched "
+                                     f"{rose_since(before)}")
+            ll_train = torch.logsumexp(log_alpha[:, HR_TRAIN - 1], -1)
+            heldout[tag] = (ll_full - ll_train).reshape(B, D).mean(1)
+            row["filter_lanes"] = B * D
+            rows[tag] = row
+    launches = launch_counts()
+    margins = heldout["hsmm"] - heldout["hmm"]
+    pooled = float(margins.sum())
+    kernels = kept_vs_plain(rec.calls, "hsmm_recovery")
+    emit("hsmm_recovery", fits=rows, series=HR_SERIES, T=HR_T, T_train=HR_TRAIN,
+         heldout_mean={k: float(v.mean()) for k, v in heldout.items()},
+         pooled_margin=pooled, series_won_share=float((margins > 0).float().mean()),
+         launches={k: v for k, v in launches.items() if v}, kernels_vs_plain=kernels)
+    if not pooled > 0.0:
+        raise AssertionError(f"hsmm_recovery: the HSMM's pooled held-out margin {pooled:.4g} "
+                             "over the geometric HMM is not positive")
+    return launches, kernels
+
+
+def daily_dur():
+    """``[HD_K, HD_DMAX]`` duration pmfs: a Gaussian bump of sd
+    ``HD_DWELL_SD`` at each of ``HD_PEAKS``, cut to ``HD_DWELL_RANGE``."""
+    d = np.arange(1, HD_DMAX + 1)
+    lo, hi = HD_DWELL_RANGE
+    rows = [np.exp(-0.5 * ((d - p) / HD_DWELL_SD) ** 2) * ((d >= lo) & (d <= hi)) for p in HD_PEAKS]
+    return np.array([r / r.sum() for r in rows])
+
+
+def phase_hsmm_daily(device):
+    """Main path 19, the K'=180 HSMM (``HD_*``): the Gibbs fit of 64
+    series x T=1000 (``FWD`` + ``BWD_SAMPLE`` in the big layout once a
+    sweep), the decode of 20 thinned draws a series in one ``generated``
+    call (1,280 lanes: ``FILTER``, ``BETA``, ``VITERBI``, ``BACKTRACK``
+    at K=180) and two true-parameter Viterbi decodes of the same series
+    (``VITERBI`` + ``BACKTRACK`` on 64 lanes each): with the true duration
+    pmfs, and with flat ones (the true emissions and transitions, the
+    durations at what a fit of one series can learn: the Dirichlet(1)
+    prior's 60 pseudo-counts a regime outweigh the about 11 dwells a
+    regime that T=1000 holds). Gate: the median over series of the fitted
+    decode's collapsed regime accuracy (mean over its draws) within
+    ``HD_ACC_GAP`` of the flat-duration decode's; the gap to the
+    true-duration decode is reported."""
+    dur = daily_dur()
+    z, x = hsmm_batch(SEED_HSMM + 300, HD_SERIES, HD_T, HD_A, dur, device,
+                      mu=HD_MU, sigma=HD_SIGMA)
+    data = {"x": x}
+    model = GaussianHSMM(HD_K, HD_DMAX, nig_prior=NIGPrior(**G_PRIOR))
+    f32 = dict(dtype=torch.float32, device=device)
+    truth = {"p_1k": torch.full((HD_K,), 1.0 / HD_K, **f32), "A_ij": torch.tensor(HD_A, **f32),
+             "dur_kd": torch.tensor(dur, **f32), "mu_k": torch.tensor(HD_MU, **f32),
+             "sigma_k": torch.tensor(HD_SIGMA, **f32)}
+    truth = {k: v.expand((HD_SERIES,) + v.shape) for k, v in truth.items()}
+    flat = dict(truth, dur_kd=torch.full_like(truth["dur_kd"], 1.0 / HD_DMAX))
+    reset_all()
+    with LaneRecorder(decode=True) as rec:
+        qs, row = hsmm_gibbs("hsmm_daily", model, data, HD_WARMUP, HD_SAMPLES, SEED_HSMM + 300,
+                             device)
+        draws = thin(qs[:, 0], HD_DRAWS)
+        before = launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        out = model.generated(draws, data, device=device)
+        sync()
+        gen_wall = time.perf_counter() - t0
+        rose_gen = rose_since(before)
+        check_decode_once("hsmm_daily", rose_gen)
+        ones = torch.ones(HD_SERIES, HD_T, device=device)
+        acc = {}
+        for tag, params in (("truth", truth), ("truth_flat_dur", flat)):
+            z_dec, _ = td.viterbi_dispatch(*model.build(params, data)[:3], ones)
+            acc[tag] = (model.regime_path(z_dec) == z).float().mean(-1)
+        sync()
+    launches = launch_counts()
+    dev = {k: check_probabilities("hsmm_daily", out, k) for k in ("alpha", "gamma")}
+    acc_fit = (model.regime_path(out["zstar"]) == z[:, None]).float().mean(-1).mean(1)
+    med_fit, med_true = float(acc_fit.median()), float(acc["truth"].median())
+    med_flat = float(acc["truth_flat_dur"].median())
+    cons = model.constrained_draws(qs[:, 0])
+    mu_err = (cons["mu_k"].mean(1) - torch.tensor(HD_MU, device=device)).abs().max(-1).values
+    mean_dwell = (cons["dur_kd"].mean(1) * torch.arange(1, HD_DMAX + 1, device=device)).sum(-1)
+    split = sweep_split(model, qs[:, 0, -1], data, device)
+    kernels = kept_vs_plain(rec.calls, "hsmm_daily")
+    pair = pair_ms(kernels, (cs.FWD.name, cs.BWD_SAMPLE.name), HD_SERIES, HD_T)
+    decode_ms = pair_ms(kernels, [k.name for k in DECODE_KERNELS], HD_SERIES * HD_DRAWS, HD_T)
+    emit("hsmm_daily", **row, draws_per_series=HD_DRAWS, generated_seconds=gen_wall,
+         launches={k: v for k, v in launches.items() if v}, row_sum_max_dev=dev,
+         regime_accuracy_median=med_fit, true_parameter_accuracy_median=med_true,
+         accuracy_gap=med_true - med_fit, flat_duration_accuracy_median=med_flat,
+         accuracy_gap_flat=med_flat - med_fit, mu_err_max_mean=float(mu_err.mean()),
+         mean_dwell={"fit": [float(v) for v in mean_dwell.mean(0)],
+                     "truth": [float(v) for v in (dur * np.arange(1, HD_DMAX + 1)).sum(-1)]},
+         sweep_split=split, ffbs_pair_ms=pair, ffbs_share=pair / row["sweep_ms"],
+         decode_kernels_ms=decode_ms, decode_kernel_share=decode_ms / (gen_wall * 1e3),
+         kernels_vs_plain=kernels)
+    if not med_fit >= med_flat - HD_ACC_GAP:
+        raise AssertionError(f"hsmm_daily: median regime accuracy {med_fit:.4f}, the true "
+                             f"emissions and transitions' with flat durations {med_flat:.4f} "
+                             f"(gap limit {HD_ACC_GAP}; the true parameters' {med_true:.4f})")
+    return launches, kernels
+
+
+def phase_multinom_hsmm(device):
+    """Main path 20, ``MultinomialHSMM(K=3, Dmax=8, L=5)`` on 256 series x
+    T=1024 (K'=24): the Gibbs fit (``FWD`` + ``BWD_SAMPLE`` once a sweep);
+    every fit finite; the posterior-mean emission rows against the
+    simulator's after the best of the 3! relabellings a series."""
+    phi = np.random.default_rng(SEED_HSMM + 400).dirichlet(np.ones(MH_L) * 0.8, size=MH_K)
+    z, x = hsmm_batch(SEED_HSMM + 400, MH_SERIES, MH_T, MH_A, MH_DUR, device, phi=phi)
+    model = MultinomialHSMM(MH_K, MH_DMAX, MH_L)
+    reset_all()
+    with LaneRecorder() as rec:
+        qs, row = hsmm_gibbs("multinom_hsmm", model, {"x": x}, MH_WARMUP, MH_SAMPLES,
+                             SEED_HSMM + 400, device)
+    launches = launch_counts()
+    phi_hat = model.constrained_draws(qs[:, 0])["phi_k"].mean(1).cpu().numpy()  # [B, K, L]
+    perms = [list(p) for p in itertools.permutations(range(MH_K))]
+    mae = np.array([min(np.abs(ph[p] - phi).mean() for p in perms) for ph in phi_hat])
+    kernels = kept_vs_plain(rec.calls, "multinom_hsmm")
+    pair = pair_ms(kernels, (cs.FWD.name, cs.BWD_SAMPLE.name), MH_SERIES, MH_T)
+    emit("multinom_hsmm", **row, launches={k: v for k, v in launches.items() if v},
+         phi_mae_median=float(np.median(mae)), phi_mae_max=float(mae.max()),
+         ffbs_pair_ms=pair, ffbs_share=pair / row["sweep_ms"], kernels_vs_plain=kernels)
+    return launches, kernels
+
+
+def hsmm_nuts_task(name, device):
+    """Main path 21 in a spawned process: the ``hsmm`` arm's model without
+    a prior (``GaussianHSMM(2, 6)``) on ``HN_SERIES`` series by
+    ``fit_batched`` NUTS (depth ``HN_TREEDEPTH``, one chunk), ``FWD`` +
+    ``VG_BWD`` at K'=12 once a value-and-grad call. Gate: the divergent
+    share at most ``HN_DIV_MAX``. Returns the phase line's fields and
+    ``(model, data, last draws)`` for :func:`vg_ms_alone`."""
+    _, x = hsmm_batch(SEED_HSMM + 500, HN_SERIES, HSMM_T, HSMM_A, HSMM_DUR, device,
+                      mu=HSMM_MU, sigma=HSMM_SIGMA)
+    data = {"x": x}
+    model = GaussianHSMM(HSMM_K, HSMM_DMAX)
+    init = default_init(model, data, HN_SERIES, 1, seed=SEED_HSMM, device=device)
+    cfg = SamplerConfig(num_warmup=HN_WARMUP, num_samples=HN_SAMPLES, num_chains=1,
+                        max_treedepth=HN_TREEDEPTH)
+    vg = VGCounter(GaussianHSMM.make_vg)
+    before = launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    with mock.patch.object(GaussianHSMM, "make_vg", autospec=True, side_effect=vg):
+        qs, stats = fit_batched(model, data, cfg, init=init, chunk_size=HN_SERIES,
+                                seed=SEED_HSMM, device=device)
+    sync()
+    wall = time.perf_counter() - t0
+    rose = rose_since(before)
+    if rose != {cs.FWD.name: vg.calls, cs.VG_BWD.name: vg.calls}:
+        raise AssertionError(f"hsmm_nuts: launches {rose} for {vg.calls} value-and-grad calls")
+    if not bool(stats["chain_healthy"].all()) or not bool(torch.isfinite(stats["logp"]).all()):
+        raise AssertionError("hsmm_nuts: an unhealthy chain or a non-finite logp")
+    div_share = float(stats["diverging"].float().mean())
+    mu_hat = model.constrained_draws(qs[:, 0])["mu_k"].mean(1)
+    mu_err = (mu_hat - torch.tensor(HSMM_MU, device=device)).abs().max(-1).values
+    eps = stats["step_size"].reshape(-1)
+    transitions = HN_WARMUP + HN_SAMPLES
+    row = dict(model=name, K=model.K, Dmax=model.Dmax, n_states=model.n_states,
+               series=HN_SERIES, T=HSMM_T, warmup=HN_WARMUP, samples=HN_SAMPLES,
+               max_treedepth=HN_TREEDEPTH, seconds=wall, transitions_per_s=transitions / wall,
+               value_and_grad_calls=vg.calls, **lockstep(stats),
+               step_size=dict(min=float(eps.min()), median=float(eps.median()),
+                              max=float(eps.max())),
+               divergent_share=div_share, mu_err_max_mean=float(mu_err.mean()), launches=rose)
+    if not div_share <= HN_DIV_MAX:
+        raise AssertionError(f"hsmm_nuts: divergent share {div_share:.3g} (limit {HN_DIV_MAX})")
+    return row, (model, data, qs[:, :, -1].contiguous())
+
+
+# ---------------------------------------------------------------------------
 # main paths 13-16 in spawned processes
 # ---------------------------------------------------------------------------
 
 # the six tasks of main paths 13 to 16, each in a process of its own
 POOL_TASKS = (("iohmm", "reg"), ("iohmm", "hmix"), ("hassan", "SYN-A"), ("hassan", "SYN-B"),
-              ("tree_gibbs", "jangmin"), ("jangmin", "nuts"))
-POOL_PATHS = ("iohmm", "hassan", "tree_gibbs", "jangmin")
+              ("tree_gibbs", "jangmin"), ("jangmin", "nuts"), ("hsmm_nuts", "gaussian_hsmm"),
+              ("nuts", "tayal"), ("gaussian_nuts", "hmm_main"))
+POOL_PATHS = ("iohmm", "hassan", "tree_gibbs", "jangmin", "hsmm_nuts", "nuts", "gaussian_nuts")
 
 
 def _host_tensors(v):
@@ -3807,7 +4351,8 @@ def pool_worker(task):
     path, name, device = task
     device = torch.device(device)
     run = {"iohmm": iohmm_task, "hassan": hassan_task, "tree_gibbs": tree_gibbs_task,
-           "jangmin": jangmin_task}[path]
+           "jangmin": jangmin_task, "hsmm_nuts": hsmm_nuts_task, "nuts": nuts_task,
+           "gaussian_nuts": gaussian_nuts_task}[path]
     with LaneRecorder(decode=path == "jangmin") as rec:
         row, vg_in = run(name, device)
     if vg_in is not None:
@@ -3823,13 +4368,7 @@ def vg_ms_alone(model, data, q, device) -> float:
     else on the host or the card."""
     fn = model.make_vg({k: v.to(device) for k, v in data.items()})
     q = q.to(device)
-    fn(q)
-    sync()
-    t0 = time.perf_counter()
-    for _ in range(20):
-        fn(q)
-    sync()
-    return (time.perf_counter() - t0) / 20 * 1e3
+    return host_ms(lambda: fn(q), reps=20)
 
 
 def check_finite_inputs(calls, phase):
@@ -3845,14 +4384,15 @@ def check_finite_inputs(calls, phase):
                                  f"got a non-finite input")
 
 
-def phase_pool(device):
-    """Main paths 13 (``iohmm``: IOHMM-reg and the mixture), 14
-    (``hassan``: SYN-A and SYN-B), 15 (``tree_gibbs``) and 16
-    (``jangmin``), their six tasks each in a spawned process of its own,
-    all at once (each is host-bound: one process runs one sweep or one
-    NUTS leaf at a time; the reference fits its symbols in parallel
-    too). A task's seconds are taken with the six sharing the host and
-    the card (``shared_by_processes``). Each task checks its own launches
+def phase_pool(device, chees_phi):
+    """Main paths 6 (``nuts``), 7 (``gaussian_nuts``), 13 (``iohmm``:
+    IOHMM-reg and the mixture), 14 (``hassan``: SYN-A and SYN-B), 15
+    (``tree_gibbs``), 16 (``jangmin``) and 21 (``hsmm_nuts``), their
+    nine tasks each in a spawned process of its own, all at once (each is
+    host-bound: one process runs one sweep or one NUTS leaf at a time;
+    the reference fits its symbols in parallel too). A task's seconds are
+    taken with the nine sharing the host and the card
+    (``shared_by_processes``). Each task checks its own launches
     and gates; here, with the workers done, each NUTS task's
     value-and-grad call is timed alone (and the Jangmin tree's
     ``assemble``), and per path the tasks' launches are summed and the
@@ -3899,11 +4439,22 @@ def phase_pool(device):
                     r["ffbs_pair_ms"] = sum(pair)
                     r["ffbs_share"] = sum(pair) / r["sweep_ms"]
             elif path == "jangmin":
-                pair = [k["ms"] for k in kernels if k["N"] == JM_MARKETS and k["T"] == JM_T
-                        and k["kernel"] in (cs.FWD.name, cs.VG_BWD.name)]
+                pair = pair_ms(kernels, (cs.FWD.name, cs.VG_BWD.name), JM_MARKETS, JM_T)
                 vgms = row["value_and_grad_ms_alone"]
-                row.update(kernel_pair_ms=sum(pair), kernel_pair_share=sum(pair) / vgms,
+                row.update(kernel_pair_ms=pair, kernel_pair_share=pair / vgms,
                            assemble_share=row["assemble"]["ms"] / vgms)
+            elif path == "hsmm_nuts":
+                pair = pair_ms(kernels, (cs.FWD.name, cs.VG_BWD.name), HN_SERIES, HSMM_T)
+                vgms = row["value_and_grad_ms_alone"]
+                row.update(kernel_pair_ms=pair, kernel_pair_share=pair / vgms)
+            elif path == "nuts":  # the gap to the ChEES posterior, the leaf's share
+                phi_mean = row.pop("phi_mean")
+                gap = np.minimum(np.abs(phi_mean - chees_phi).mean(axis=(1, 2)),
+                                 np.abs(phi_mean[:, MIRROR] - chees_phi).mean(axis=(1, 2)))
+                vgms = row["value_and_grad_ms_alone"]
+                row.update(phi_gap_vs_chees_mean=float(gap.mean()),
+                           value_and_grad_share=row["value_and_grad_calls"] * vgms / 1e3
+                           / row["seconds"])
             emit(path, **row, shared_by_processes=len(POOL_TASKS))
         emit(f"{path}_kernels", launches=launches, kernels_vs_plain=kernels,
              processes_wall_seconds=wall)
@@ -4074,6 +4625,8 @@ def main() -> int:
     deck = phase_kernels_decode(device)
     clock.append(("kernels_wide", time.perf_counter()))
     widek = phase_kernels_wide(device)
+    clock.append(("kernels_big", time.perf_counter()))
+    bigk = phase_kernels_big(device)
     # main path 3, the zoo's generated quantities: the hard-gate Tayal
     # decode of the Gibbs draws, the same decode of the ChEES draws, and
     # the Gaussian HMM's fit, decode and state draws
@@ -4104,17 +4657,11 @@ def main() -> int:
     clock.append(("walk_forward_kernels", time.perf_counter()))
     phase_walk_forward_kernels(*wf_fits)
     del wf_fits
-    # main path 6, NUTS through fit_batched on the ChEES phase's batch
-    clock.append(("nuts", time.perf_counter()))
-    # (each NUTS phase returns its path's launches, read before its
-    # kernels are checked and timed on the kept inputs)
-    reset_all()
-    nuts, nuts_ms = phase_nuts(device, chees_phi)
-    # main path 7, the Gaussian NUTS gate through make_logp
-    clock.append(("gaussian_nuts", time.perf_counter()))
-    reset_all()
-    gnuts, gn_ms = phase_gaussian_nuts(device)
-    # main path 8, the walk-forward back-test by NUTS, and run_window
+    # main paths 6 (NUTS through fit_batched on the ChEES phase's batch)
+    # and 7 (the Gaussian NUTS gate through make_logp) run in the pool
+    # below; main path 8, the walk-forward back-test by NUTS, and
+    # run_window (each NUTS phase returns its path's launches, read before
+    # its kernels are checked and timed on the kept inputs)
     clock.append(("walk_forward_nuts", time.perf_counter()))
     reset_all()
     wf_nuts = phase_walk_forward_nuts(device, wf_task_list)
@@ -4136,14 +4683,34 @@ def main() -> int:
     clock.append(("replication", time.perf_counter()))
     reset_all()
     phase_replication(device, chees_qs)
-    # main paths 13 to 16, the IOHMMs (fits, decodes, state draws), the
+    # main paths 17 to 20, the explicit-duration HSMMs (each phase zeroes
+    # the counts after making its data and returns them read after its
+    # run, before its kept launches are checked and timed), and the
+    # Dmax=1 contract
+    clock.append(("hsmm", time.perf_counter()))
+    hm, hm_kept = phase_hsmm(device)
+    reset_all()
+    d1 = phase_hsmm_dmax1(device)
+    clock.append(("hsmm_recovery", time.perf_counter()))
+    hr, hr_kept = phase_hsmm_recovery(device)
+    clock.append(("hsmm_daily", time.perf_counter()))
+    hd, hd_kept = phase_hsmm_daily(device)
+    clock.append(("multinom_hsmm", time.perf_counter()))
+    mh, mh_kept = phase_multinom_hsmm(device)
+    # main paths 6, 7, 13 to 16 and 21: NUTS on the Tayal batch, the
+    # Gaussian NUTS gate, the IOHMMs (fits, decodes, state draws), the
     # Hassan walk-forward forecaster, the Jangmin tree's Gibbs fit and its
-    # NUTS fit with the decode, their six tasks in parallel processes
-    # (each counts its own launches from 0)
+    # NUTS fit with the decode, and the HSMM under NUTS, their nine tasks
+    # in parallel processes (each counts its own launches from 0)
     clock.append(("pool", time.perf_counter()))
-    pooled = phase_pool(device)
+    pooled = phase_pool(device, chees_phi)
     (io, io_kept), (hs, hs_kept) = pooled["iohmm"], pooled["hassan"]
     (tg, tg_kept), (jm, jm_kept) = pooled["tree_gibbs"], pooled["jangmin"]
+    hn, hn_kept = pooled["hsmm_nuts"]
+    nuts, nuts_kept = pooled["nuts"]
+    nuts_ms = {k["kernel"]: k["ms"] for k in nuts_kept}
+    gnuts, gn_kept = pooled["gaussian_nuts"]
+    gn_ms = {k["kernel"]: k["ms"] for k in gn_kept if k["N"] == GN_CHAINS}
     clock.append(("end", time.perf_counter()))
     emit("timeline", seconds={a: b - ta for (a, ta), (_, b) in zip(clock, clock[1:])},
          total_seconds=clock[-1][1] - clock[0][1])
@@ -4170,11 +4737,21 @@ def main() -> int:
     missing += [f"{n} (tree_gibbs)" for n in (cs.FWD.name, cs.BWD_SAMPLE.name) if not tg.get(n)]
     missing += [f"{k.name} (jangmin)" for k in (cs.FWD, cs.VG_BWD) + DECODE_KERNELS
                 if not jm.get(k.name)]
+    for path, counts, ks in (
+            ("hsmm", hm, (cs.FWD, cs.BWD_SAMPLE) + DECODE_KERNELS),
+            ("hsmm_dmax1", d1, (cs.FWD, cs.BWD_SAMPLE) + DECODE_KERNELS),
+            ("hsmm_recovery", hr, (cs.FWD, cs.BWD_SAMPLE, cs.FILTER)),
+            ("hsmm_daily", hd, (cs.FWD, cs.BWD_SAMPLE) + DECODE_KERNELS),
+            ("multinom_hsmm", mh, (cs.FWD, cs.BWD_SAMPLE)),
+            ("hsmm_nuts", hn, (cs.FWD, cs.VG_BWD))):
+        missing += [f"{k.name} ({path})" for k in ks if not counts.get(k.name)]
     if missing:
         raise AssertionError(f"a main path never launched {missing}")
     # the first launch of each kernel at each shape of paths 9 to 16
     kept = {"multinom": mn_kept, "heal": heal_kept, "chees_per_series": cps_kept,
-            "iohmm": io_kept, "hassan": hs_kept, "tree_gibbs": tg_kept, "jangmin": jm_kept}
+            "iohmm": io_kept, "hassan": hs_kept, "tree_gibbs": tg_kept, "jangmin": jm_kept,
+            "hsmm": hm_kept, "hsmm_dmax1": [], "hsmm_recovery": hr_kept, "hsmm_daily": hd_kept,
+            "multinom_hsmm": mh_kept, "hsmm_nuts": hn_kept}
 
     t = kern["timing"]
     vt, tt, dt = vgk["timing"], trk["timing"], deck["timing"]
@@ -4238,7 +4815,12 @@ def main() -> int:
                             shape_k64=dict(N=N_SERIES, T=G_T, K=ZW_K),
                             launches_zoo_wide=zoo_wide[k.name],
                             bitwise_equal_cases_above_16=sum(
-                                k.name in c["kernels"] for c in widek["cases"]))
+                                k.name in c["kernels"] for c in widek["cases"]),
+                            big_k={K: t[k.name] for K, t in bigk["timing"].items()},
+                            shape_big_k=dict(N=BIG_N, T=BIG_T, T_from_1024=BIG_T_HUGE),
+                            one_lane_k180=bigk["one_lane"][k.name],
+                            bitwise_equal_cases_above_128=sum(
+                                k.name in c["kernels"] for c in bigk["cases"]))
         if k in (cs.FWD, cs.BWD_SAMPLE, cs.VG_BWD):
             rows[-1]["launches_walk_forward"] = walk[k.name]
         if k in (cs.FWD, cs.VG_BWD):  # the NUTS paths
@@ -4249,7 +4831,9 @@ def main() -> int:
             rows[-1].update(launches_gaussian_nuts=gnuts[k.name], ms_gaussian_nuts=gn_ms[k.name],
                             shape_gaussian_nuts=dict(N=GN_CHAINS, T=GN_T, K=2))
         for path, counts in (("multinom", mn), ("heal", heal), ("chees_per_series", cps),
-                             ("iohmm", io), ("hassan", hs), ("tree_gibbs", tg), ("jangmin", jm)):
+                             ("iohmm", io), ("hassan", hs), ("tree_gibbs", tg), ("jangmin", jm),
+                             ("hsmm", hm), ("hsmm_dmax1", d1), ("hsmm_recovery", hr),
+                             ("hsmm_daily", hd), ("multinom_hsmm", mh), ("hsmm_nuts", hn)):
             if counts.get(k.name):
                 rows[-1][f"launches_{path}"] = counts[k.name]
                 rows[-1][f"kept_{path}"] = [

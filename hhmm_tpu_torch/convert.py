@@ -3,10 +3,11 @@
 Both packages lay out the unconstrained vector the same way (each
 bijector's free slice, in ``specs()`` order) and share constrained
 shapes, so conversion is a checked copy of numpy arrays into tensors.
-:func:`model_from_jax` builds the port's counterpart of a JAX
-multinomial, input-output or tree HMM from its public attributes (read
-by name: nothing of the JAX package is imported), so its parameters
-carry across to a model of the same configuration.
+:func:`model_from_jax` builds the port's counterpart of a JAX Gaussian,
+multinomial, input-output or tree HMM or explicit-duration HSMM from its
+public attributes (read by name: nothing of the JAX package is
+imported), so its parameters carry across to a model of the same
+configuration.
 """
 
 from __future__ import annotations
@@ -24,7 +25,10 @@ __all__ = ["params_from_jax", "constrained_from_jax", "model_from_jax"]
 
 def model_from_jax(jax_model):
     """The port's model of the same class and configuration as the JAX
-    model instance ``jax_model``: ``MultinomialHMM`` (K, L),
+    model instance ``jax_model``: ``GaussianHMM`` (K, nig_prior field by
+    field, sticky_kappa), ``GaussianHSMM`` (K, Dmax, nig_prior,
+    sticky_kappa), ``MultinomialHSMM`` (K, Dmax, L, sticky_kappa),
+    ``MultinomialHMM`` (K, L),
     ``SemisupMultinomialHMM`` (K, L, groups, gate_mode), ``IOHMMReg``
     (K, M, trans_mode), ``IOHMMMix`` (K, M, L, trans_mode), ``IOHMMHMix``
     or ``IOHMMHMixLite`` (K, M, L, hyperparams, trans_mode), ``TreeHMM``
@@ -34,6 +38,13 @@ def model_from_jax(jax_model):
 
     name = type(jax_model).__name__
     m = jax_model
+    if name == "GaussianHMM":
+        return models.GaussianHMM(int(m.K), _nig_from_jax(m.nig_prior), float(m.sticky_kappa))
+    if name == "GaussianHSMM":
+        return models.GaussianHSMM(int(m.K), int(m.Dmax), _nig_from_jax(m.nig_prior),
+                                   float(m.sticky_kappa))
+    if name == "MultinomialHSMM":
+        return models.MultinomialHSMM(int(m.K), int(m.Dmax), int(m.L), float(m.sticky_kappa))
     if name == "MultinomialHMM":
         return models.MultinomialHMM(int(m.K), int(m.L))
     if name == "SemisupMultinomialHMM":
@@ -52,6 +63,17 @@ def model_from_jax(jax_model):
             prior_sigma_scale=m.prior_sigma_scale,
         )
     raise ValueError(f"no port counterpart for the model class {name!r}")
+
+
+def _nig_from_jax(prior):
+    """The port's ``NIGPrior`` with a JAX ``NIGPrior``'s four fields, or
+    None."""
+    from hhmm_tpu_torch.models import NIGPrior
+
+    if prior is None:
+        return None
+    return NIGPrior(m0=float(prior.m0), kappa0=float(prior.kappa0), a0=float(prior.a0),
+                    b0=float(prior.b0))
 
 
 def _tree_from_jax(node):

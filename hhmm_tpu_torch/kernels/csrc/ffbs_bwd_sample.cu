@@ -22,7 +22,8 @@
 // which depends on the chain. So the kernel runs in three phases. Up to K
 // = 16 (ffbs_bwd_sample_kernel, below), a block owns kLanes lanes and all
 // T steps; above (ffbs_bwd_sample_wide_kernel, further below: K up to
-// 128), a block owns one lane and walks it a chunk at a time.
+// 128, and ffbs_bwd_sample_big_kernel above that), a block owns one lane
+// and walks it a chunk at a time.
 // - Phase A, parallel over (step, lane) and the block's threads: every
 //   candidate map_t[s] = invcdf(alpha_t + g_s * A[:, s], u_t), with
 //   g_s = (mask_{t+1} > 0) [* (gate_{t+1} == sk[s])], the arithmetic of
@@ -63,6 +64,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "big_core.cuh"
 #include "lane_group.cuh"
 #include "wide_core.cuh"
 
@@ -351,6 +353,103 @@ ffbs_bwd_sample_wide_kernel(int K, const float* __restrict__ A,
   }
 }
 
+// ---- above K = 128: the wide kernel's three phases with A in device memory
+//
+// A lane's A (K^2 floats) goes to a stream-ordered scratch, copied there
+// by the block first (A[k][s] at [k K + s], so a warp's reads of a step
+// of k are 128 consecutive bytes), as big_core.cuh does for the other
+// kernels. A chunk's candidate maps stay in shared memory with the
+// chunk's alpha rows, as above, in byte fields up to K = 256 and 16-bit
+// fields above (M), and the chunk shrinks with K: C steps such that C (K
+// + 3) floats and C K fields fit kBigBwdSmem (32 steps up to K = 510,
+// 15 at K = 1024). Thread s owns successor states
+// s, s + blockDim, ...; the draw is the same arithmetic in the same
+// order, so each candidate, and the chase, are bitwise the plain
+// version's.
+constexpr size_t kBigBwdSmem = 96 * 1024;
+
+template <class M>
+int big_bwd_chunk(int K) {
+  const size_t per = sizeof(float) * (static_cast<size_t>(K) + 3) + sizeof(M) * K;
+  const size_t c = kBigBwdSmem / per;
+  return c < 1 ? 1 : (c > kWideChunkSteps ? kWideChunkSteps : static_cast<int>(c));
+}
+
+template <class M>
+size_t big_bwd_smem_bytes(int K, int C) {
+  return sizeof(float) * static_cast<size_t>(C) * (K + 3) + sizeof(M) * static_cast<size_t>(C) * K;
+}
+
+template <bool GATED, class M>
+__global__ void __launch_bounds__(hhmm::kBigMaxThreads)
+ffbs_bwd_sample_big_kernel(int K, int C, const float* __restrict__ A,
+                           const float* __restrict__ mask,
+                           const float* __restrict__ alpha,
+                           const float* __restrict__ u,
+                           const float* __restrict__ gate,
+                           const float* __restrict__ sk, int* __restrict__ z_out,
+                           float* __restrict__ scratch, int T, int N) {
+  extern __shared__ __align__(16) float big_smem[];
+  float* sal = big_smem;   // alpha_t of the chunk's step k at sal[k K ..]
+  float* su = sal + C * K;  // u_t
+  float* sm = su + C;       // mask_{t+1} (0 at t = T - 1)
+  float* sg = sm + C;       // gate_{t+1}
+  M* maps = reinterpret_cast<M*>(sg + C);  // map_t[s] at maps[k K + s]
+  const int tid = threadIdx.x;
+  const int bd = blockDim.x;
+  const int n = blockIdx.x;
+  const size_t sN = static_cast<size_t>(N);
+  const size_t KK = static_cast<size_t>(K) * K;
+  float* gA = scratch + static_cast<size_t>(n) * KK;  // A[k][s] at gA[k K + s]
+
+  for (size_t e = tid; e < KK; e += bd) gA[e] = A[e * sN + n];
+  int z = 0;  // thread 0: the chase; the last step's candidates all agree
+  const int chunks = (T + C - 1) / C;
+  for (int c = 0; c < chunks; ++c) {
+    const int top = T - 1 - c * C;                // step of slot 0
+    const int valid = top + 1 < C ? top + 1 : C;  // slots k: steps top - k >= 0
+    for (int e = tid; e < valid * K; e += bd) {
+      const int k = e / K;
+      sal[e] = alpha[(static_cast<size_t>(top - k) * K + (e - k * K)) * sN + n];
+    }
+    for (int k = tid; k < valid; k += bd) {
+      const int t = top - k;
+      su[k] = u[static_cast<size_t>(t) * sN + n];
+      sm[k] = t + 1 < T ? mask[static_cast<size_t>(t + 1) * sN + n] : 0.0f;
+      sg[k] = (GATED && t + 1 < T) ? gate[static_cast<size_t>(t + 1) * sN + n] : 0.0f;
+    }
+    __syncthreads();  // the chunk's inputs (and A); the last chase is done
+    for (int s = tid; s < K; s += bd) {
+      const float sks = GATED ? sk[s * sN + n] : 0.0f;
+      for (int k = 0; k < valid; ++k) {
+        float g = sm[k] > 0.0f ? 1.0f : 0.0f;
+        if (GATED && !(sg[k] == sks)) g = 0.0f;
+        const float* al = sal + k * K;
+        float m = al[0] + g * gA[s];
+        for (int i = 1; i < K; ++i) m = fmaxf(m, al[i] + g * gA[static_cast<size_t>(i) * K + s]);
+        m = fmaxf(m, kClamp);
+        float sum = 0.0f;
+        for (int i = 0; i < K; ++i) sum += expf(al[i] + g * gA[static_cast<size_t>(i) * K + s] - m);
+        const float lse = m + logf(sum);
+        float cum = 0.0f;
+        int draw = 0;
+        for (int i = 0; i < K - 1; ++i) {
+          cum += expf(al[i] + g * gA[static_cast<size_t>(i) * K + s] - lse);
+          draw += (su[k] >= cum) ? 1 : 0;
+        }
+        maps[k * K + s] = static_cast<M>(draw);
+      }
+    }
+    __syncthreads();  // the chunk's maps
+    if (tid == 0) {
+      for (int k = 0; k < valid; ++k) {
+        z = maps[k * K + z];
+        z_out[static_cast<size_t>(top - k) * sN + n] = z;
+      }
+    }
+  }
+}
+
 template <int K, bool GATED>
 int launch(const float* A, const float* mask, const float* alpha,
            const float* u, const float* gate, const float* sk, int* z,
@@ -386,16 +485,41 @@ int launch_wide(int K, const float* A, const float* mask, const float* alpha,
   return 0;
 }
 
+template <bool GATED, class M>
+int launch_big_typed(int K, const float* A, const float* mask, const float* alpha,
+                     const float* u, const float* gate, const float* sk, int* z, int T, int N,
+                     cudaStream_t stream) {
+  float* scratch = nullptr;
+  int rc = hhmm::big_scratch(&scratch, static_cast<size_t>(N) * K * K, stream);
+  if (rc != 0) return rc;
+  const int C = big_bwd_chunk<M>(K);
+  const size_t smem = big_bwd_smem_bytes<M>(K, C);
+  rc = hhmm::wide_launch_setup<ffbs_bwd_sample_big_kernel<GATED, M>>(smem);
+  if (rc == 0)
+    ffbs_bwd_sample_big_kernel<GATED, M><<<N, hhmm::big_threads(K), smem, stream>>>(
+        K, C, A, mask, alpha, u, gate, sk, z, scratch, T, N);
+  return hhmm::big_free(scratch, rc, stream);
+}
+
+template <bool GATED>
+int launch_big(int K, const float* A, const float* mask, const float* alpha, const float* u,
+               const float* gate, const float* sk, int* z, int T, int N, cudaStream_t stream) {
+  if (K <= hhmm::kMaxByteK)
+    return launch_big_typed<GATED, uint8_t>(K, A, mask, alpha, u, gate, sk, z, T, N, stream);
+  return launch_big_typed<GATED, uint16_t>(K, A, mask, alpha, u, gate, sk, z, T, N, stream);
+}
+
 }  // namespace
 
 // Returns 0 on a good launch, the cudaError_t of a refused one, or -1 for
-// a K outside 2..128, an empty shape, or (K <= 16) maps over 2048 words a
-// lane without a scratch. `scratch` is null (the maps live in shared
+// a K below 2, an empty shape, or (K <= 16) maps over 2048 words a lane
+// without a scratch. `scratch` is null (the maps live in shared
 // memory) or, at K <= 16, an int32 [N, W * map_words(T)] buffer the
 // caller owns, required when W * map_words(T) > 2048 (T > 2048 at K <=
 // 8, T > 1024 at K in 9..16), with W = ceil(K / 8) and map_words(T) = T
 // rounded up to a multiple of 32; above K = 16 it is not read. Launches
-// on `stream`, does not synchronise and allocates nothing.
+// on `stream` and does not synchronise; above K = 128 the launch takes
+// and frees a stream-ordered scratch of its own for the lanes' A.
 extern "C" int hhmm_ffbs_bwd_sample(int K, int gated, const float* A,
                                     const float* mask, const float* alpha,
                                     const float* u, const float* gate,
@@ -405,7 +529,10 @@ extern "C" int hhmm_ffbs_bwd_sample(int K, int gated, const float* A,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   uint32_t* m = reinterpret_cast<uint32_t*>(scratch);
   int rc;
-  if (K > hhmm::kMaxNibbleK && K <= hhmm::kMaxK) {
+  if (K > hhmm::kMaxK) {
+    rc = gated ? launch_big<true>(K, A, mask, alpha, u, gate, sk, z, T, N, s)
+               : launch_big<false>(K, A, mask, alpha, u, gate, sk, z, T, N, s);
+  } else if (K > hhmm::kMaxNibbleK) {
     rc = gated ? launch_wide<true>(K, A, mask, alpha, u, gate, sk, z, T, N, s)
                : launch_wide<false>(K, A, mask, alpha, u, gate, sk, z, T, N, s);
   } else {

@@ -25,10 +25,12 @@
 //   gives the same value as a chain (max is exact).
 //
 // The kernel is fwd_core.cuh's forward_kernel in its clamped mode at K
-// <= 32, and wide_core.cuh's wide_forward_kernel (a block a lane) above:
-// those headers have the layout, the thread mapping, what bounds it and
-// what the design does about it.
+// <= 32, wide_core.cuh's wide_forward_kernel (a block a lane) up to 128,
+// and big_core.cuh's big_forward_kernel (a block a lane, A in a global
+// scratch) above: those headers have the layout, the thread mapping,
+// what bounds it and what the design does about it.
 
+#include "big_core.cuh"
 #include "fwd_core.cuh"
 #include "wide_core.cuh"
 
@@ -57,11 +59,23 @@ int launch_wide(int K, int gated, const float* pi, const float* A, const float* 
                                                     nullptr, nullptr, T, N, stream);
 }
 
+int launch_big(int K, int gated, const float* pi, const float* A, const float* obs,
+               const float* mask, const float* gate, const float* sk, float* ll, float* alpha,
+               int T, int N, cudaStream_t stream) {
+  using hhmm::kClamped;
+  if (gated)
+    return hhmm::launch_big_forward<kClamped, true>(K, pi, A, obs, mask, gate, sk, ll, alpha,
+                                                    nullptr, nullptr, T, N, stream);
+  return hhmm::launch_big_forward<kClamped, false>(K, pi, A, obs, mask, gate, sk, ll, alpha,
+                                                   nullptr, nullptr, T, N, stream);
+}
+
 }  // namespace
 
 // Returns 0 on a good launch, the cudaError_t of a refused one, or -1 for
-// a K outside 2..128 or an empty shape. Launches on `stream`, does not
-// synchronise and allocates nothing: the caller owns every buffer.
+// a K below 2 or an empty shape. Launches on `stream` and does not
+// synchronise; the caller owns every buffer (above K = 128 the launch
+// takes and frees a stream-ordered scratch for the lanes' A).
 extern "C" int hhmm_ffbs_fwd(int K, int gated, const float* pi,
                              const float* A, const float* obs,
                              const float* mask, const float* gate,
@@ -70,7 +84,8 @@ extern "C" int hhmm_ffbs_fwd(int K, int gated, const float* pi,
   if (T < 1 || N < 1) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rc =
-      K > hhmm::kMaxGroupK && K <= hhmm::kMaxK
+      K > hhmm::kMaxK ? launch_big(K, gated, pi, A, obs, mask, gate, sk, ll, alpha, T, N, s)
+      : K > hhmm::kMaxGroupK
           ? launch_wide(K, gated, pi, A, obs, mask, gate, sk, ll, alpha, T, N, s)
           : hhmm::for_k<hhmm::kMaxGroupK>(K, [&](auto k) {
               return launch_k<decltype(k)::value>(gated, pi, A, obs, mask, gate, sk, ll, alpha,

@@ -1,7 +1,7 @@
 // What the semiring kernels share (fwd_core.cuh for ffbs_fwd.cu,
 // semiring_filter.cu and semiring_viterbi.cu, beta_core.cuh for
-// semiring_beta.cu and vg_bwd.cu, wide_core.cuh for all five above K =
-// 32, and ffbs_bwd_sample.cu): the K range, the forward modes, the
+// semiring_beta.cu and vg_bwd.cu, wide_core.cuh for all five in K =
+// 33..128, big_core.cuh above, and ffbs_bwd_sample.cu): the K range, the forward modes, the
 // group's shape, the order-fixed log-sum-exps, the warp gather, the
 // cp.async ring's three instructions and the dispatch of a runtime K to
 // its template.
@@ -25,7 +25,7 @@ namespace hhmm {
 constexpr float kClamp = -1.0e30f;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMinK = 2;
-constexpr int kMaxK = 128;      // every semiring kernel: a lane's A (and d_A) in shared memory
+constexpr int kMaxK = 128;      // the wide layout: a lane's A (and d_A) in shared memory; big_core.cuh above
 constexpr int kMaxGroupK = 32;  // a group of threads a lane, a warp at most; a block above
 constexpr int kMaxNibbleK = 16; // packed maps of four bits a state; bytes above
 

@@ -19,23 +19,29 @@
 //   exponentials summed in index order as the plain version sums them.
 //
 // The kernel is beta_core.cuh's beta_kernel in its guarded mode at K <=
-// 32, and wide_core.cuh's wide_beta_kernel (a block a lane) above: those
-// headers have the layout, the thread mapping, what bounds it and what
-// the design does about it.
+// 32, wide_core.cuh's wide_beta_kernel (a block a lane) up to 128, and
+// big_core.cuh's big_beta_kernel above: those headers have the layout,
+// the thread mapping, what bounds it and what the design does about it.
 
 #include "beta_core.cuh"
+#include "big_core.cuh"
 #include "wide_core.cuh"
 
 // Returns 0 on a good launch, the cudaError_t of a refused one, or -1 for
-// a K outside 2..128 or an empty shape. Launches on `stream`, does not
-// synchronise and allocates nothing: the caller owns every buffer.
+// a K below 2 or an empty shape. Launches on `stream` and does not
+// synchronise; the caller owns every buffer (above K = 128 the launch
+// takes and frees a stream-ordered scratch for the lanes' A).
 extern "C" int hhmm_semiring_beta(int K, const float* A, const float* obs,
                                   const float* mask, float* beta, int T, int N,
                                   void* stream) {
   if (T < 1 || N < 1) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rc =
-      K > hhmm::kMaxGroupK && K <= hhmm::kMaxK
+      K > hhmm::kMaxK
+          ? hhmm::launch_big_beta<false, false>(K, A, obs, mask, nullptr, nullptr, nullptr,
+                                                nullptr, beta, nullptr, nullptr, nullptr, T, N,
+                                                s)
+      : K > hhmm::kMaxGroupK
           ? hhmm::launch_wide_beta<false, false>(K, A, obs, mask, nullptr, nullptr, nullptr,
                                                  nullptr, beta, nullptr, nullptr, nullptr, T, N,
                                                  s)

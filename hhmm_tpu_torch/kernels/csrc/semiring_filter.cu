@@ -21,19 +21,22 @@
 //   otherwise m + log(sum exp(x - m)), the exponentials summed in index
 //   order. On finite inputs this is the arithmetic of ffbs_fwd.cu (whose
 //   clamp at -1e30 never binds there), so the two kernels' alphas are
-//   bitwise equal. K in 2..128.
+//   bitwise equal. Any K >= 2.
 //
 // The kernel is fwd_core.cuh's forward_kernel in its guarded mode at K
-// <= 32, and wide_core.cuh's wide_forward_kernel (a block a lane) above:
-// those headers have the layout, the thread mapping, what bounds it and
-// what the design does about it.
+// <= 32, wide_core.cuh's wide_forward_kernel (a block a lane) up to 128,
+// and big_core.cuh's big_forward_kernel above: those headers have the
+// layout, the thread mapping, what bounds it and what the design does
+// about it.
 
+#include "big_core.cuh"
 #include "fwd_core.cuh"
 #include "wide_core.cuh"
 
 // Returns 0 on a good launch, the cudaError_t of a refused one, or -1 for
-// a K outside 2..128 or an empty shape. Launches on `stream`, does not
-// synchronise and allocates nothing: the caller owns every buffer.
+// a K below 2 or an empty shape. Launches on `stream` and does not
+// synchronise; the caller owns every buffer (above K = 128 the launch
+// takes and frees a stream-ordered scratch for the lanes' A).
 extern "C" int hhmm_semiring_filter(int K, const float* pi, const float* A,
                                     const float* obs, const float* mask,
                                     float* ll, float* alpha, int T, int N,
@@ -41,7 +44,10 @@ extern "C" int hhmm_semiring_filter(int K, const float* pi, const float* A,
   if (T < 1 || N < 1) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rc =
-      K > hhmm::kMaxGroupK && K <= hhmm::kMaxK
+      K > hhmm::kMaxK
+          ? hhmm::launch_big_forward<hhmm::kGuarded, false>(
+                K, pi, A, obs, mask, nullptr, nullptr, ll, alpha, nullptr, nullptr, T, N, s)
+      : K > hhmm::kMaxGroupK
           ? hhmm::launch_wide_forward<hhmm::kGuarded, false>(
                 K, pi, A, obs, mask, nullptr, nullptr, ll, alpha, nullptr, nullptr, T, N, s)
           : hhmm::for_k<hhmm::kMaxGroupK>(K, [&](auto k) {

@@ -13,9 +13,11 @@
 // time blocks in VMEM scratch. Here the forward pass is fwd_core.cuh's
 // forward_kernel in its max-plus mode at K <= 32 (a group of threads a
 // lane, delta and a column of A a thread in registers, obs and mask in a
-// shared-memory ring; that header has the design) and wide_core.cuh's
-// wide_forward_kernel above (a block a lane), and the backtrack a thread
-// a lane chasing through maps streamed into shared memory (below).
+// shared-memory ring; that header has the design), wide_core.cuh's
+// wide_forward_kernel up to 128 (a block a lane) and big_core.cuh's
+// big_forward_kernel above, and the backtrack a thread a lane chasing
+// through maps streamed into shared memory (below), or above K = 256
+// read straight from device memory.
 //
 // Math, per lane (f32; max-plus has no summation order, so the outputs
 // are identical to the plain version's, not merely close):
@@ -32,9 +34,10 @@
 //   A padded tail is a run of identity maps, so the path repeats the
 //   last valid state there.
 //
-// Backpointer maps are packed B bits a destination, B = 4 up to K = 16
-// and 8 above, into W = ceil(K / P) 32-bit words per (step, lane), P =
-// 32 / B states a word: field j % P of word j / P holds back_t[j].
+// Backpointer maps are packed B bits a destination, B = 4 up to K = 16,
+// 8 up to 256 and 16 above, into W = ceil(K / P) 32-bit words per (step,
+// lane), P = 32 / B states a word: field j % P of word j / P holds
+// back_t[j].
 // Layout: batch-minor, lane n fastest — pi/dlast [K,N], A [K,K,N], obs
 // [T,K,N], mask/path [T,N], back [T,W,N], score [N] — coalesced across a
 // warp; a map costs 4 W bytes.
@@ -65,6 +68,7 @@
 // there a lane's maps are whole in shared memory, written by phase A in
 // place, and its K <= 16 instructions stay as they are.
 
+#include "big_core.cuh"
 #include "fwd_core.cuh"
 #include "wide_core.cuh"
 
@@ -249,6 +253,37 @@ viterbi_backtrack_kernel(int K, const uint32_t* __restrict__ back,
   if (!chaser && chunks > 0) write_out(chunks - 1);
 }
 
+// Above K = 256 (16-bit fields, W = ceil(K / 2) words a step): a thread
+// a lane, z_{T-1} the first argmax of dlast, then z_{t-1} = field z % 2
+// of word z / 2 of step t read straight from device memory, one
+// dependent load a step. A simple design: the maps of a chunk of steps
+// (W words a step and lane, 2 KB at K = 1024) would crowd the ring of
+// the byte kernel above.
+__global__ void __launch_bounds__(kBtThreads)
+viterbi_backtrack_big_kernel(int K, const uint32_t* __restrict__ back,
+                             const float* __restrict__ dlast, int* __restrict__ path, int T,
+                             int N) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= N) return;
+  const size_t sN = static_cast<size_t>(N);
+  const size_t W = static_cast<size_t>((K + 1) / 2);
+  float best = dlast[n];
+  uint32_t z = 0;
+  for (int k = 1; k < K; ++k) {
+    const float d = dlast[k * sN + n];
+    if (d > best) {
+      best = d;
+      z = static_cast<uint32_t>(k);
+    }
+  }
+  path[static_cast<size_t>(T - 1) * sN + n] = static_cast<int>(z);
+  for (int t = T - 1; t > 0; --t) {
+    const uint32_t word = back[(t * W + (z >> 1)) * sN + n];
+    z = (word >> (16u * (z & 1u))) & 0xffffu;
+    path[static_cast<size_t>(t - 1) * sN + n] = static_cast<int>(z);
+  }
+}
+
 // the card's SMs, read once
 int sm_count() {
   static const int count = [] {
@@ -281,13 +316,21 @@ int launch_backtrack(int K, const uint32_t* back, const float* dlast, int* path,
   return 0;
 }
 
+int launch_backtrack_big(int K, const uint32_t* back, const float* dlast, int* path, int T,
+                         int N, cudaStream_t stream) {
+  const int grid = (N + kBtThreads - 1) / kBtThreads;
+  viterbi_backtrack_big_kernel<<<grid, kBtThreads, 0, stream>>>(K, back, dlast, path, T, N);
+  return 0;
+}
+
 }  // namespace
 
 // Both entry points return 0 on a good launch, the cudaError_t of a
-// refused one, or -1 for a K outside 2..128 or an empty shape. They
-// launch on `stream`, do not synchronise and allocate nothing: the caller
-// owns every buffer (`back` is int32 [T, W, N], one packed map of W words
-// per step).
+// refused one, or -1 for a K below 2 or an empty shape. They launch on
+// `stream` and do not synchronise; the caller owns every buffer (`back`
+// is int32 [T, W, N], one packed map of W words per step; above K = 128
+// the forward pass takes and frees a stream-ordered scratch for the
+// lanes' A).
 extern "C" int hhmm_viterbi_fwd(int K, const float* pi, const float* A,
                                 const float* obs, const float* mask,
                                 float* score, float* dlast, int* back, int T,
@@ -296,7 +339,11 @@ extern "C" int hhmm_viterbi_fwd(int K, const float* pi, const float* A,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   uint32_t* b = reinterpret_cast<uint32_t*>(back);
   const int rc =
-      K > hhmm::kMaxGroupK && K <= hhmm::kMaxK
+      K > hhmm::kMaxK
+          ? hhmm::launch_big_forward<hhmm::kMaxPlus, false>(K, pi, A, obs, mask, nullptr,
+                                                            nullptr, score, nullptr, dlast, b,
+                                                            T, N, s)
+      : K > hhmm::kMaxGroupK
           ? hhmm::launch_wide_forward<hhmm::kMaxPlus, false>(K, pi, A, obs, mask, nullptr,
                                                              nullptr, score, nullptr, dlast, b,
                                                              T, N, s)
@@ -310,11 +357,12 @@ extern "C" int hhmm_viterbi_fwd(int K, const float* pi, const float* A,
 extern "C" int hhmm_viterbi_backtrack(int K, const int* back,
                                       const float* dlast, int* path, int T,
                                       int N, void* stream) {
-  if (T < 1 || N < 1 || K < hhmm::kMinK || K > hhmm::kMaxK) return -1;
+  if (T < 1 || N < 1 || K < hhmm::kMinK) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint32_t* b = reinterpret_cast<const uint32_t*>(back);
   const int rc = K <= 8                  ? launch_backtrack<1>(K, b, dlast, path, T, N, s)
                  : K <= hhmm::kMaxNibbleK ? launch_backtrack<2>(K, b, dlast, path, T, N, s)
-                                          : launch_backtrack<0>(K, b, dlast, path, T, N, s);
+                 : K <= hhmm::kMaxByteK   ? launch_backtrack<0>(K, b, dlast, path, T, N, s)
+                                          : launch_backtrack_big(K, b, dlast, path, T, N, s);
   return rc != 0 ? rc : static_cast<int>(cudaGetLastError());
 }

@@ -29,11 +29,13 @@
 //   vg path does not clamp it (semiring_vg, unlike semiring_ffbs).
 //
 // The kernel is beta_core.cuh's beta_kernel in its value-and-grad mode at
-// K <= 32, and wide_core.cuh's wide_beta_kernel (a block a lane, A and
-// d_A in shared memory) above: those headers have the layout, the thread
-// mapping, what bounds it and what the design does about it.
+// K <= 32, wide_core.cuh's wide_beta_kernel (a block a lane, A and d_A
+// in shared memory) up to 128, and big_core.cuh's big_beta_kernel (A and
+// d_A in a global scratch) above: those headers have the layout, the
+// thread mapping, what bounds it and what the design does about it.
 
 #include "beta_core.cuh"
+#include "big_core.cuh"
 #include "wide_core.cuh"
 
 namespace {
@@ -60,11 +62,22 @@ int launch_wide(int K, int gated, const float* A, const float* obs, const float*
                                              d_pi, d_A, d_obs, T, N, stream);
 }
 
+int launch_big(int K, int gated, const float* A, const float* obs, const float* mask,
+               const float* alpha, const float* ll, const float* gate, const float* sk,
+               float* d_pi, float* d_A, float* d_obs, int T, int N, cudaStream_t stream) {
+  if (gated)
+    return hhmm::launch_big_beta<true, true>(K, A, obs, mask, gate, sk, alpha, ll, nullptr,
+                                             d_pi, d_A, d_obs, T, N, stream);
+  return hhmm::launch_big_beta<true, false>(K, A, obs, mask, gate, sk, alpha, ll, nullptr,
+                                            d_pi, d_A, d_obs, T, N, stream);
+}
+
 }  // namespace
 
 // Returns 0 on a good launch, the cudaError_t of a refused one, or -1 for
-// a K outside 2..128 or an empty shape. Launches on `stream`, does not
-// synchronise and allocates nothing: the caller owns every buffer.
+// a K below 2 or an empty shape. Launches on `stream` and does not
+// synchronise; the caller owns every buffer (above K = 128 the launch
+// takes and frees a stream-ordered scratch for the lanes' A and d_A).
 extern "C" int hhmm_vg_bwd(int K, int gated, const float* A, const float* obs,
                            const float* mask, const float* alpha,
                            const float* ll, const float* gate, const float* sk,
@@ -73,7 +86,9 @@ extern "C" int hhmm_vg_bwd(int K, int gated, const float* A, const float* obs,
   if (T < 1 || N < 1) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rc =
-      K > hhmm::kMaxGroupK && K <= hhmm::kMaxK
+      K > hhmm::kMaxK
+          ? launch_big(K, gated, A, obs, mask, alpha, ll, gate, sk, d_pi, d_A, d_obs, T, N, s)
+      : K > hhmm::kMaxGroupK
           ? launch_wide(K, gated, A, obs, mask, alpha, ll, gate, sk, d_pi, d_A, d_obs, T, N, s)
           : hhmm::for_k<hhmm::kMaxGroupK>(K, [&](auto k) {
               return launch_k<decltype(k)::value>(gated, A, obs, mask, alpha, ll, gate, sk,

@@ -28,20 +28,21 @@ kernel of that module:
   (packed four bits a state, see below), and the walk back through the
   maps.
 
-Every kernel takes K in 2..128 (``K_RANGE``: a group of threads a lane
-up to K = 32, a block a lane above, with the lane's A, and for
-``VG_BWD`` its d_A, in shared memory, ``csrc/wide_core.cuh``) and raises
-a ``ValueError`` for any other K; its plain version takes the same
-largest K, so a larger K raises on either route. A backpointer map
-(``VITERBI``'s output, and ``BWD_SAMPLE``'s candidate maps inside the
-kernel) is ``W`` int32 words a step of ``B``-bit fields, ``B = 4`` up to
-K = 16 and 8 above, ``P = 32 / B`` states a word, ``W = ceil(K / P)``:
+Every kernel takes any K >= 2 (``K_RANGE``: a group of threads a lane up
+to K = 32; a block a lane above, with the lane's A, and for ``VG_BWD``
+its d_A, in shared memory up to K = 128, ``csrc/wide_core.cuh``, and in
+a stream-ordered device scratch above, ``csrc/big_core.cuh``) and raises
+a ``ValueError`` for K = 1 on the card; its plain version takes every K.
+A backpointer map (``VITERBI``'s output, and ``BWD_SAMPLE``'s candidate
+maps inside the kernel) is ``W`` int32 words a step of ``B``-bit fields,
+``B = 4`` up to K = 16, 8 up to K = 256 (a pointer up to 255 fits a
+byte) and 16 above, ``P = 32 / B`` states a word, ``W = ceil(K / P)``:
 field ``j % P`` of word ``j // P`` holds the pointer of state j. For K <=
 8 the maps are ``[T, N]`` (one word a step); above they are ``[T, W,
-N]`` (W = 2 up to K = 16, 5 to 32 above), word-major within a step, so
-that each word row stays a run of N consecutive words (coalesced over
-the lanes, as the one-word layout) and the K <= 8 layout is its W = 1
-case with the word axis dropped.
+N]`` (W = 2 up to K = 16, ceil(K / 4) to 256, ceil(K / 2) above),
+word-major within a step, so that each word row stays a run of N
+consecutive words (coalesced over the lanes, as the one-word layout) and
+the K <= 8 layout is its W = 1 case with the word axis dropped.
 
 All work on the batch-minor lane layout (``[T, K, N]`` residual, lane
 fastest); :func:`to_lanes` makes it from the JAX package's ``[N, T, K]``
@@ -102,7 +103,7 @@ __all__ = [
 ]
 
 _CLAMP = -1.0e30
-K_RANGE = (2, 128)  # every kernel's K, both ends included
+K_RANGE = (2, None)  # every kernel's K: 2 and up, no upper end
 # BWD_SAMPLE at K <= 16 keeps its packed candidate maps in shared memory
 # up to this many words a lane (kSmemMaxWords in ffbs_bwd_sample.cu: W
 # words a step, so T <= 2048 at K <= 8 and T <= 1024 at K in 9..16),
@@ -111,6 +112,7 @@ K_RANGE = (2, 128)  # every kernel's K, both ends included
 # at a time, with no scratch
 _BWD_SMEM_MAX_WORDS = 2048
 _NIBBLE_MAX_K = 16
+_BYTE_MAX_K = 256  # byte map fields up to here, 16-bit fields above
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -241,30 +243,29 @@ def to_lanes(
 
 
 def _map_bits(K: int) -> int:
-    """Bits a state of a packed backpointer map: 4 up to K = 16, 8
-    above (a pointer to state 16 or more needs a fifth bit, and K = 128
-    a seventh)."""
-    return 4 if K <= _NIBBLE_MAX_K else 8
+    """Bits a state of a packed backpointer map: 4 up to K = 16, 8 up to
+    K = 256 and 16 above (a pointer to state 16 or more needs a fifth
+    bit, one to state 256 or more a ninth)."""
+    return 4 if K <= _NIBBLE_MAX_K else (8 if K <= _BYTE_MAX_K else 16)
 
 
 def _map_words(K: int) -> int:
     """Words a step of a packed backpointer map: ``32 / _map_bits(K)``
-    states a word."""
+    states a word (8, 4 or 2)."""
     per = 32 // _map_bits(K)
     return (K + per - 1) // per
 
 
 def _map_shape(T: int, K: int, N: int) -> tuple:
+    """The maps of ``T`` steps and ``N`` lanes: ``[T, N]`` up to K = 8
+    (one word a step), ``[T, _map_words(K), N]`` above."""
     return (T, N) if K <= 8 else (T, _map_words(K), N)
 
 
 def _check_lane_shapes(T: int, K: int, N: int, **named) -> None:
-    """K is at most ``K_RANGE[1]`` (on every route), every lane-layout
-    operand has the shape its kernel indexes it with (the kernels read
-    through raw pointers: a short operand would be read out of bounds),
-    and the gate operands come together."""
-    if K > K_RANGE[1]:
-        raise ValueError(f"the kernels take K in {K_RANGE[0]}..{K_RANGE[1]}, got K={K}")
+    """Every lane-layout operand has the shape its kernel indexes it with
+    (the kernels read through raw pointers: a short operand would be read
+    out of bounds), and the gate operands come together."""
     if (named.get("gate") is None) != (named.get("sk") is None):
         raise ValueError("gate and sk must be given together")
     want = {
@@ -280,8 +281,8 @@ def _check_lane_shapes(T: int, K: int, N: int, **named) -> None:
 
 
 def _check_cuda_operands(K: int, *tensors) -> None:
-    if not K_RANGE[0] <= K <= K_RANGE[1]:
-        raise ValueError(f"the CUDA kernels take K in {K_RANGE[0]}..{K_RANGE[1]}, got K={K}")
+    if K < K_RANGE[0]:
+        raise ValueError(f"the CUDA kernels take K >= {K_RANGE[0]}, got K={K}")
     for t in tensors:
         if t is None:
             continue

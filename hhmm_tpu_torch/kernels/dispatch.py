@@ -7,8 +7,8 @@ series (``log_pi [N, K]``, ``log_obs [N, T, K]``, ``mask [N, T]``):
 
 - a homogeneous ``[N, K, K]`` ``log_A`` on CUDA goes to the kernels and
   must be float32 (any other dtype raises); on the CPU it goes to their
-  plain versions (any float dtype); both take K in ``K_RANGE``
-  (2..128) and raise for any larger K. ``forward_filter_dispatch`` runs
+  plain versions (any float dtype); both take any K >= 2 (``K_RANGE``;
+  the plain versions K = 1 too). ``forward_filter_dispatch`` runs
   ``FILTER``, ``backward_dispatch`` ``BETA``, ``smooth_dispatch`` both
   on one lane-layout copy of the operands (the guarded normalisation
   ``filtering.smooth`` applied as plain ops outside the kernels, as the
@@ -21,7 +21,7 @@ series (``log_pi [N, K]``, ``log_obs [N, T, K]``, ``mask [N, T]``):
   stan-gate OOS Viterbi stays on the scan in both packages;
 - ``ffbs_dispatch``: homogeneous ``log_A`` only, the FFBS kernels
   (``FWD`` + ``BWD_SAMPLE``) on CUDA in float32, their plain versions on
-  the CPU; K in 2..128 as well, above raises.
+  the CPU; any K >= 2 as well.
 
 Operands on other devices, or on mixed devices, raise: no kernel ever
 falls back to its plain version. ``make_tayal_trajectory`` /
@@ -75,7 +75,7 @@ def _device_type(*tensors) -> str:
 
 def _kernel_route(log_pi, log_A, log_obs, mask) -> bool:
     """True: the homogeneous kernels (or their plain versions on the
-    CPU), which raise for a K outside ``K_RANGE``; False: the
+    CPU; the kernels raise for K = 1); False: the
     scans, for a time-varying ``log_A``. Raises for a device with no
     path and for a non-float32 operand on CUDA (``log_pi`` is None for
     the beta pass)."""

@@ -2,6 +2,7 @@
 
 from hhmm_tpu_torch.sim.hmm import (
     hmm_sim,
+    hsmm_sim,
     markov_chain_sim,
     obsmodel_categorical,
     obsmodel_gaussian,
@@ -11,6 +12,7 @@ from hhmm_tpu_torch.sim.tayal import tayal_batch
 
 __all__ = [
     "hmm_sim",
+    "hsmm_sim",
     "iohmm_sim",
     "markov_chain_sim",
     "obsmodel_categorical",

@@ -14,7 +14,7 @@ from typing import Callable, Tuple
 import numpy as np
 import torch
 
-__all__ = ["hmm_sim", "markov_chain_sim", "obsmodel_categorical", "obsmodel_gaussian"]
+__all__ = ["hmm_sim", "hsmm_sim", "markov_chain_sim", "obsmodel_categorical", "obsmodel_gaussian"]
 
 
 def _validate(A: np.ndarray, p_init: np.ndarray) -> None:
@@ -79,6 +79,53 @@ def obsmodel_categorical(phi) -> Callable:
         return _draw(cdf[z], u)
 
     return sample
+
+
+def hsmm_sim(
+    generator: torch.Generator,
+    T: int,
+    A,
+    dur,
+    p_init,
+    obs_model: Callable,
+    batch: Tuple[int, ...] = (),
+    validate: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Simulate ``(z [*batch, T], x [*batch, T])`` from an explicit-duration
+    semi-Markov chain (``models/hsmm.py``): on entering a regime a dwell d
+    in {1..Dmax} is drawn from its duration pmf ``dur[k]`` (``[K, Dmax]``
+    rows, ``dur[k, d-1]`` = P(duration = d | k)), the regime holds for
+    exactly d steps, then hands off through ``A[k]``. ``z`` is the regime
+    path (what ``kernels/duration.py::regime_path`` recovers from
+    expanded decodes). The generator is the count-down chain itself: a
+    step draws the successor regime and its dwell (two uniforms) and
+    keeps them only when the count has run out."""
+    d_np = np.asarray(dur, dtype=np.float64)
+    if validate:
+        _validate(np.asarray(A), np.asarray(p_init))
+        K = np.asarray(p_init).shape[0]
+        if d_np.ndim != 2 or d_np.shape[0] != K:
+            raise ValueError(f"dur must be [K, Dmax] with K = {K}, got {d_np.shape}")
+        if np.any(d_np < 0) or not np.allclose(d_np.sum(axis=1), 1.0, atol=1e-6):
+            raise ValueError("rows of dur must be a pmf over {1..Dmax}")
+    dev = generator.device
+    f64 = dict(dtype=torch.float64, device=dev)
+    cdf_A = torch.cumsum(torch.as_tensor(np.asarray(A), **f64), dim=-1)[:, :-1]
+    cdf_d = torch.cumsum(torch.as_tensor(d_np, **f64), dim=-1)[:, :-1]
+    cdf_p = torch.cumsum(torch.as_tensor(np.asarray(p_init), **f64), dim=-1)[:-1]
+    u = torch.rand(tuple(batch) + (T, 2), generator=generator, **f64)
+    z = torch.empty(tuple(batch) + (T,), dtype=torch.long, device=dev)
+    zt = _draw(cdf_p, u[..., 0, 0])
+    c = _draw(cdf_d[zt], u[..., 0, 1])  # steps remaining after the entry step
+    z[..., 0] = zt
+    for t in range(1, T):
+        j = _draw(cdf_A[zt], u[..., t, 0])
+        d = _draw(cdf_d[j], u[..., t, 1])
+        stay = c > 0
+        zt = torch.where(stay, zt, j)
+        c = torch.where(stay, c - 1, d)
+        z[..., t] = zt
+    return z, obs_model(generator, z)
 
 
 def hmm_sim(

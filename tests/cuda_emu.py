@@ -29,7 +29,7 @@ _ASM = {
     "cp.async.commit_group": ";",
     "cp.async.wait_group": ";",
 }
-_LAUNCH = re.compile(r"(\w+_kernel<[^>]*>)<<<(.*?), (.*?), (.*?), (?:stream|s)>>>\(", re.S)
+_LAUNCH = re.compile(r"(\w+_kernel(?:<[^>]*>)?)<<<(.*?), (.*?), (.*?), (?:stream|s)>>>\(", re.S)
 _EXTERN = re.compile(r"extern __shared__ (?:__align__\(\d+\) )?(\w+) (\w+)\[\];")
 
 

@@ -24,6 +24,7 @@
 #include <cmath>
 #include <cstdint>
 #include <cstddef>
+#include <cstdlib>
 #include <cstring>
 #include <algorithm>
 #include <memory>
@@ -91,6 +92,17 @@ inline int cudaGetDevice(int* d) { *d = 0; return 0; }
 // at 70 and 32 at 128, so small N reach each of its block shapes
 inline int cudaDeviceGetAttribute(int* v, int, int) { *v = 4; return 0; }
 template <class F> int cudaFuncSetAttribute(F, int, int) { return 0; }
+// the stream-ordered scratch of the kernels above K = 128: the emulated
+// launch runs to its end before the call returns, so a plain heap block
+inline int cudaMallocAsync(void** p, size_t bytes, cudaStream_t) {
+  *p = std::malloc(bytes);
+  return *p ? 0 : 2;
+}
+inline int cudaFreeAsync(void* p, cudaStream_t) { std::free(p); return 0; }
+typedef void* cudaMemPool_t;
+enum { cudaMemPoolAttrReleaseThreshold = 4 };
+inline int cudaDeviceGetDefaultMemPool(cudaMemPool_t* p, int) { *p = nullptr; return 0; }
+inline int cudaMemPoolSetAttribute(cudaMemPool_t, int, void*) { return 0; }
 struct Launcher {
   int grid, block; size_t bytes;
   template <class F, class... A> void operator()(F f, A... a) {

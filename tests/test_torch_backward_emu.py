@@ -188,7 +188,7 @@ def test_sources_repeat_bitwise(emu):
 def test_sources_refuse_k_outside_the_range(emu):
     pi_t, A_t, obs_t, mask_t, _, _ = _lanes(3, 2, 4, 2)
     out = torch.zeros(64)
-    for K in (1, 129):
+    for K in (0, 1):
         assert emu["semiring_beta"](K, *map(_ptr, (A_t, obs_t, mask_t, obs_t)), 4, 2, None) == -1
         assert emu["vg_bwd"](K, 0, *map(_ptr, (A_t, obs_t, mask_t, obs_t, out, None, None)),
                              *map(_ptr, (out, out, out)), 4, 2, None) == -1

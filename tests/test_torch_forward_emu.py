@@ -246,7 +246,7 @@ def test_sources_repeat_bitwise(emu, K):
 def test_sources_refuse_k_outside_the_range(emu):
     pi_t, A_t, obs_t, mask_t = _lanes(3, 2, 4, 2)
     out = torch.zeros(64)
-    for K in (1, 129):
+    for K in (0, 1):
         assert emu["semiring_filter"](K, *map(_ptr, (pi_t, A_t, obs_t, mask_t, out, out)),
                                       4, 2, None) == -1
         assert emu["viterbi_fwd"](K, *map(_ptr, (pi_t, A_t, obs_t, mask_t, out, out, out)),

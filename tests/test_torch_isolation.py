@@ -57,9 +57,11 @@ from hhmm_tpu_torch.apps.hassan import simulate_ohlc, wf_forecast
 from hhmm_tpu_torch.apps.jangmin import fit_market
 from hhmm_tpu_torch.models import (
     GaussianHMM,
+    GaussianHSMM,
     IOHMMHMixLite,
     IOHMMReg,
     MultinomialHMM,
+    MultinomialHSMM,
     SemisupMultinomialHMM,
     TayalHHMM,
     TayalHHMMLite,
@@ -136,6 +138,8 @@ def test_port_file_list_is_complete():
         "hhmm_tpu_torch/hhmm/routes.py",
         "hhmm_tpu_torch/models/tree.py",
         "hhmm_tpu_torch/apps/jangmin.py",
+        "hhmm_tpu_torch/kernels/duration.py",
+        "hhmm_tpu_torch/models/hsmm.py",
     ):
         assert must in names
 
@@ -256,6 +260,16 @@ ENTRY_POINTS = {
         torch.zeros(2, TreeHMM(hier2x2_tree()).n_free), {"x": torch.zeros(6)}
     ),
     "fit_market": lambda: fit_market(np.zeros(10), np.zeros(10, np.int64)),
+    # the HSMMs: K' = 12, and K' = 180 (the big layout) on the card too
+    "hsmm_generated": lambda: GaussianHSMM(2, 6).generated(
+        torch.zeros(2, GaussianHSMM(2, 6).n_free), {"x": torch.zeros(6)}
+    ),
+    "hsmm_big_k_state_draws": lambda: GaussianHSMM(3, 60).state_draws(
+        torch.Generator(), torch.zeros(1, GaussianHSMM(3, 60).n_free), {"x": torch.zeros(6)}
+    ),
+    "multinomial_hsmm_fit_batched": lambda: fit_batched(
+        MultinomialHSMM(2, 3, 4), {"x": np.zeros((1, 6), np.int64)}, GibbsConfig(1, 1)
+    ),
     "constrained_from_jax": lambda: constrained_from_jax(
         TayalHHMM(), {"p_11": np.float32(0.5), "A_row": np.full((2, 2), 0.5),
                       "phi_k": np.full((4, 9), 1 / 9)},
@@ -335,8 +349,8 @@ def test_cuda_vg_rejects_what_the_kernels_do_not_take(monkeypatch):
         shapes = ((2, K), (2, K, K), (2, 5, K), (2, 5))
         return [torch.zeros(s, dtype=dtype).as_subclass(_CudaLike) for s in shapes]
 
-    with pytest.raises(ValueError, match="K in 2..128"):
-        forward_value_and_grad(*args(129))
+    with pytest.raises(ValueError, match="K >= 2"):
+        forward_value_and_grad(*args(1))
     with pytest.raises(TypeError, match="float32"):
         forward_value_and_grad(*args(4, torch.float64))
 
