@@ -42,7 +42,7 @@ before it and read just after:
   transitions: 256 lanes in lockstep, ``FWD`` and ``VG_BWD`` once a
   value-and-grad call);
 - the ``hmm/main.R`` Gaussian gate under NUTS through ``make_logp``
-  (T=500, K=2, 2 chains, 100 + 100: ``FILTER`` forward and ``BETA``
+  (T=500, K=2, 2 chains, 60 + 60: ``FILTER`` forward and ``BETA``
   backward once a log-density call);
 - the walk-forward back-test by NUTS (``wf_trade`` with a
   ``SamplerConfig`` on every 8th of the ChEES arm's windows by length,
@@ -164,6 +164,20 @@ Phases, one JSON object per line:
    the decode kernels on sparse A with tie lanes and -inf evidence rows;
    each kernel timed at each K beside its bound, and at K=180 on one
    lane.
+   kernels_k1 — every semiring kernel at K=1 (a group of two threads,
+   the second idle) on 8 lanes x T=48 with masked runs at both ends,
+   the FFBS and value-and-grad kernels ungated and gated: bitwise equal
+   to its plain version, every draw and path 0, every log-likelihood
+   finite, each kernel launched; the public entries (FFBS dispatch,
+   value-and-grad, smoothing, Viterbi) on the card against the CPU.
+   obs — the obs plane on the first main path's Gibbs fit (256 x T=1024,
+   20 + 20): plane off, on, off, the draws and stats bitwise equal;
+   ``infer.gibbs.sample`` once and ``kernels.dispatch.ffbs[cuda]`` as
+   many times as the FFBS pair launched; the sampler-health counters;
+   the span split of a sweep; a manifest (device name, power limit)
+   with the span and metrics JSONL in ``chiprun_out/``, rendered by
+   ``scripts/obs_report.py`` with exit 0; ``device_time`` of ``FWD`` at
+   the kernels line's shape within a factor of 1.25 of its time there.
    decode_smooth — ``TayalHHMM(gate_mode="hard").generated`` on 32
    Gibbs draws x 256 series: shapes, probability rows, each decode
    kernel launched once, every output against the plain versions on
@@ -325,6 +339,11 @@ Phases, one JSON object per line:
    hsmm_nuts — the twenty-first (a process): ``FWD`` and ``VG_BWD``
    once a value-and-grad call and nothing else, divergent share at most
    ``HN_DIV_MAX``; value-and-grad ms alone with the kernel pair's share.
+   drivers — each ``examples_torch/`` driver ``--quick`` on the card, a
+   process each, all eight at once, started when three of the pool's
+   tasks are done and waited for before the pool's parent times
+   anything: exit 0 and its expected line printed (the output of each
+   in ``chiprun_out/drivers/``).
 9. the timeline line (host seconds a group of phases), the kernels line
    (every kernel; the semiring kernels with their K range, their time at
    K=64 and their zoo_wide launches; ``FWD``, ``BWD_SAMPLE`` and
@@ -411,6 +430,10 @@ from hhmm_tpu_torch.hhmm import jangmin2004_tree
 from hhmm_tpu_torch.models import base as zoo_base
 from hhmm_tpu_torch.models.base import broadcast_data
 from hhmm_tpu_torch.native import zigzag as native_zigzag
+from hhmm_tpu_torch.obs import manifest as obs_manifest
+from hhmm_tpu_torch.obs import metrics as obs_metrics
+from hhmm_tpu_torch.obs import trace as obs_trace
+from hhmm_tpu_torch.obs.profile import bound_ms, device_time, kernel_cost, roofline
 from hhmm_tpu_torch.robust import FaultPlan, RetryPolicy, SimulatedCrash, faults
 from hhmm_tpu_torch.sim import (
     hmm_sim,
@@ -500,10 +523,12 @@ NUTS_DIV_MAX = 0.05  # divergent share of the sampling transitions
 # H100 80GB HBM3 at 700 W, its errors 0.021, 0.015 and 0.032 against the
 # bounds 0.08, 0.05 and 0.10 (at 150 + 150, 72 s; at 100 + 100, 69 s on
 # a slower host, errors 0.020, 0.016 and 0.029: cut to make room for the
-# IOHMM and Hassan paths)
+# IOHMM and Hassan paths; 100 + 100 took 126.3 s in the pool of nine with
+# the same errors: cut to 60 + 60 when the script passed 1000 s with the
+# obs plane and the drivers)
 GN_T, GN_A, GN_P1 = 500, [[0.8, 0.2], [0.35, 0.65]], [0.9, 0.1]
 GN_MU, GN_SIGMA = [1.0, 2.0], [0.3, 0.3]
-GN_WARMUP, GN_SAMPLES, GN_CHAINS = 100, 100, 2
+GN_WARMUP, GN_SAMPLES, GN_CHAINS = 60, 60, 2
 GN_MU_ATOL, GN_SIGMA_ATOL, GN_A_ATOL, GN_DIV_MAX = 0.08, 0.05, 0.10, 0.05
 SEED_GN = 42
 # eighth: the walk-forward back-test by NUTS (stan gate, one chain),
@@ -729,10 +754,9 @@ TRAJ_EARLIER_ERR = {"logp_vs_plain": 1.5e-3, "logp_vs_f64_plain": 1.1e-2}
 
 SPIN_CYCLES = 20_000_000  # about 10 ms at the H100's 1.98 GHz (time_ms)
 
-# H100 SXM published peaks: HBM bandwidth and
-# f32 rate outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
+# the bound column's peaks: the H100 SXM's HBM rate and its f32 rate
+# outside the tensor cores (obs/profile.py's PEAKS row)
+BOUND_DEVICE = "NVIDIA H100 80GB HBM3"
 
 
 T_START = time.perf_counter()
@@ -802,71 +826,49 @@ def make_case(seed: int, N: int, T: int, K: int, gated: bool, device, both_ends:
     return lanes, u.t().contiguous()
 
 
+def _steps(mask_t) -> int:
+    """Valid steps after the first over all lanes (a masked step copies
+    its carry and does no arithmetic)."""
+    return int((mask_t[1:] > 0).sum())
+
+
 def fwd_bytes_ops(lanes):
+    """``FWD``'s counted bytes and f32 operations on these lanes
+    (``obs/profile.py::kernel_cost``, the count ``roofline`` reads)."""
     pi_t, A_t, obs_t, mask_t, gate_t, sk_t = lanes
     T, K, N = obs_t.shape
-    gated = gate_t is not None
-    floats = K * N + K * K * N + T * K * N + T * N + N + T * K * N
-    if gated:
-        floats += T * N + K * N
-    steps = int((mask_t[1:] > 0).sum())  # masked steps copy the carry
-    per_dest = 5 * K + 3 + (K if gated else 0)  # add(,mul), max, sub, exp, sum, log, 2 adds
-    ops = steps * K * per_dest + N * (4 * K + 2)
-    return 4 * floats, ops
+    c = kernel_cost("FWD", K, T, N, gate_t is not None, valid_steps=_steps(mask_t))
+    return c["bytes_accessed"], c["flops"]
 
 
 def bwd_bytes_ops(lanes):
     pi_t, A_t, obs_t, mask_t, gate_t, sk_t = lanes
     T, K, N = obs_t.shape
-    floats = K * K * N + T * N + T * K * N + T * N + T * N  # A, mask, alpha, u, z
-    if gate_t is not None:
-        floats += T * N + K * N
-    ops = T * N * (12 * K - 1)  # logits, lse0, p, running cum + count, every step
-    return 4 * floats, ops
+    c = kernel_cost("BWD_SAMPLE", K, T, N, gate_t is not None)
+    return c["bytes_accessed"], c["flops"]
 
 
 def bound(bytes_, ops):
-    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return bound_ms({"bytes_accessed": bytes_, "flops": ops}, BOUND_DEVICE)
 
 
 def vg_bytes_ops(lanes):
     """Bytes and f32 operations of ``VG_BWD`` on these lanes: inputs
     (A, obs, mask, alpha, ll, gate keys) read once, outputs (d_pi, d_A,
-    d_obs) written once; the arithmetic of the valid steps (a masked
-    step only copies beta and writes a zero row)."""
+    d_obs) written once; the arithmetic of the valid steps."""
     pi_t, A_t, obs_t, mask_t, gate_t, sk_t = lanes
     T, K, N = obs_t.shape
-    gated = gate_t is not None
-    floats = K * K * N + 2 * T * K * N + T * N + N + (T * N + K * N if gated else 0)
-    floats += K * N + K * K * N + T * K * N
-    steps = int((mask_t[1:] > 0).sum())
-    # d_obs 4K; e K; per (i, j): add, add, sub, exp, mul m, add acc, add x
-    # (+ 2 muls by c gated); per i the clamped lse: K max, K sub, K exp,
-    # K-1 adds, log, add
-    per_step = 5 * K + K * K * (7 + (2 if gated else 0)) + K * (4 * K + 1)
-    return 4 * floats, steps * per_step + N * 4 * K
+    c = kernel_cost("VG_BWD", K, T, N, gate_t is not None, valid_steps=_steps(mask_t))
+    return c["bytes_accessed"], c["flops"]
 
 
 def traj_bytes_ops(T: int, B: int, C: int, mask_t, n_steps: int):
     """Bytes and f32 operations of ``TRAJ`` for one trajectory of
-    ``n_steps`` leapfrogs: inputs (q, p, grad per lane, inverse mass and
-    data per series, eps, n) read once, outputs (q, p, grad, logp)
-    written once; per leapfrog the unpack, the forward and backward
-    passes over the valid steps, the chain rule and the updates."""
-    N, D, K, L = B * C, ct.DIM, 4, 9
-    floats = 3 * D * N + D * B + 3 * T * B + 2 + 3 * D * N + N
-    valid = int((mask_t[1:] > 0).sum()) * C  # valid steps t >= 1, all lanes
-    # forward: 16 mul-adds, 4 emission muls, 3 adds, 4 divides, log, add;
-    # backward: 4 gamma muls + 4 slab adds, e 4 muls + 4 divides, 4 dA
-    # terms of 4 ops, 16 mul-adds for beta
-    per_step = (32 + 4 + 3 + 4 + 2) + (8 + 8 + 16 + 32)
-    # unpack: 35 sigmoid / log-sigmoid chains (~12 ops) and 36 exps;
-    # chain rule ~10 ops a coordinate; leapfrog updates 6 a coordinate
-    per_lane = 12 * D + 36 + 10 * D + 6 * D
-    ops = n_steps * (valid * per_step + N * per_lane)
-    return 4 * floats, ops
+    ``n_steps`` leapfrogs on ``B`` series x ``C`` chains (``mask_t [T,
+    B]``, the series' mask)."""
+    c = kernel_cost("TRAJ", 4, T, B * C, valid_steps=_steps(mask_t) * C, series=B,
+                    leapfrogs=n_steps)
+    return c["bytes_accessed"], c["flops"]
 
 
 def phase_kernels(device):
@@ -1584,22 +1586,10 @@ def decode_bytes_ops(kernel, lanes):
     and the path are int32."""
     pi_t, A_t, obs_t, mask_t = lanes
     T, K, N = obs_t.shape
-    steps = int((mask_t[1:] > 0).sum())
-    if kernel is cs.FILTER:
-        # per destination: K adds, K-1 max, the -inf test, K subtracts,
-        # K exps, K adds, log, 2 adds
-        floats = K * N + K * K * N + T * K * N + T * N + T * K * N + N
-        return 4 * floats, steps * K * (4 * K + 3) + N * (4 * K + 2)
-    if kernel is cs.BETA:
-        floats = K * K * N + T * K * N + T * N + T * K * N
-        return 4 * floats, steps * (K + K * (4 * K + 2))
-    if kernel is cs.VITERBI:
-        # per destination: K adds, K-1 compares and selects, 1 add
-        floats = K * N + K * K * N + T * K * N + T * N + N + K * N + T * N
-        return 4 * floats, steps * K * (3 * K - 1) + N * K
-    # BACKTRACK: per step a shift and a mask on the map word
-    floats = T * N + K * N + T * N
-    return 4 * floats, 2 * (T - 1) * N + N * K
+    name = {cs.FILTER: "FILTER", cs.BETA: "BETA", cs.VITERBI: "VITERBI",
+            cs.BACKTRACK: "BACKTRACK"}[kernel]
+    c = kernel_cost(name, K, T, N, valid_steps=_steps(mask_t))
+    return c["bytes_accessed"], c["flops"]
 
 
 def phase_kernels_decode(device):
@@ -2870,7 +2860,7 @@ def gaussian_nuts_task(name, device):
     ``tests/test_models.py::test_gaussian_hmm_recovery`` on the port's
     simulator, ``sample_nuts(model.make_logp(data))`` (the target through
     ``forward_loglik``: ``FILTER`` forward and ``BETA`` backward once a
-    log-density call, and nothing else), 100 + 100 transitions on 2
+    log-density call, and nothing else), 60 + 60 transitions on 2
     chains: posterior means within the test's bounds, divergent share
     under ``GN_DIV_MAX``, Viterbi accuracy of ``generated`` above
     ``G_ACC_MIN``. Returns the phase line's fields (its ``launches``: the
@@ -4384,7 +4374,7 @@ def check_finite_inputs(calls, phase):
                                  f"got a non-finite input")
 
 
-def phase_pool(device, chees_phi):
+def phase_pool(device, chees_phi, on_task_done=None, after_workers=None):
     """Main paths 6 (``nuts``), 7 (``gaussian_nuts``), 13 (``iohmm``:
     IOHMM-reg and the mixture), 14 (``hassan``: SYN-A and SYN-B), 15
     (``tree_gibbs``), 16 (``jangmin``) and 21 (``hsmm_nuts``), their
@@ -4392,21 +4382,31 @@ def phase_pool(device, chees_phi):
     host-bound: one process runs one sweep or one NUTS leaf at a time;
     the reference fits its symbols in parallel too). A task's seconds are
     taken with the nine sharing the host and the card
-    (``shared_by_processes``). Each task checks its own launches
+    (``shared_by_processes``; since the sixteenth slice the example
+    drivers too, from the third task's end). Each task checks its own launches
     and gates; here, with the workers done, each NUTS task's
     value-and-grad call is timed alone (and the Jangmin tree's
     ``assemble``), and per path the tasks' launches are summed and the
     first launch of each kernel at each shape is held bitwise against
-    its plain version on the card and timed. Returns ``{path: (launches,
+    its plain version on the card and timed. ``on_task_done(n)`` is
+    called as the n-th task finishes; ``after_workers()`` once they all
+    have, before anything is timed here. Returns ``{path: (launches,
     kept rows)}``."""
     t0 = time.perf_counter()
+    finished = itertools.count(1)
     pool = multiprocessing.get_context("spawn").Pool(len(POOL_TASKS))
     try:
-        results = pool.map(pool_worker, [t + (str(device),) for t in POOL_TASKS], chunksize=1)
+        handles = [pool.apply_async(
+            pool_worker, (t + (str(device),),),
+            callback=None if on_task_done is None else lambda _r: on_task_done(next(finished)))
+            for t in POOL_TASKS]
+        results = [h.get() for h in handles]
     finally:
         pool.close()
         pool.join()
     wall = time.perf_counter() - t0
+    if after_workers is not None:
+        after_workers()
     out = {}
     for path in POOL_PATHS:
         launches, calls, rows = {}, {}, []
@@ -4549,6 +4549,265 @@ def kernel_resources(usage) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# K = 1, the obs plane, the example drivers (the sixteenth slice)
+# ---------------------------------------------------------------------------
+
+K1_N, K1_T = 8, 48  # kernels_k1: lanes and steps
+OBS_WARMUP, OBS_SAMPLES = 20, 20  # obs: the main-path Gibbs fit, twice
+OBS_DEVICE_TIME_RATIO = 1.25  # device_time of FWD against the kernels line's time
+OUT_DIR = Path("chiprun_out")
+ROOT = Path(__file__).resolve().parent
+# examples_torch/ drivers run --quick as subprocesses, all at once: (driver,
+# the line each must print)
+DRIVERS = (("hmm_main.py", "filtered accuracy"), ("iohmm_main.py", "filtered accuracy"),
+           ("hassan_main.py", "out-of-sample errors"), ("hassan_replication.py", "SYN-B"),
+           ("hhmm_main.py", "top-state recovery"),
+           ("jangmin_main.py", "unsupervised regime decode accuracy"),
+           ("tayal_main.py", "out-of-sample trading"), ("tayal_strategy.py", "(symbol, window) tasks"))
+DRIVER_TIMEOUT_S = 400
+DRIVERS_AFTER_TASKS = 3  # the pool's tasks done before the drivers start
+
+
+def phase_kernels_k1(device):
+    """K = 1 on the card: every semiring kernel through its lane wrapper
+    on ``K1_N`` lanes x ``K1_T`` steps (masked runs at both ends; ``FWD``,
+    ``BWD_SAMPLE`` and ``VG_BWD`` gated and not), bitwise equal to its
+    plain version on the same CUDA tensors; every draw and path 0, every
+    log-likelihood finite; each kernel launched. Then the public entries
+    (``ffbs_dispatch``, ``forward_value_and_grad``, ``smooth_dispatch``,
+    ``viterbi_dispatch``) on the card against the same calls on the CPU
+    (paths and draws exact, values within 1e-5)."""
+    before = {k.name: k.launches for k in cs.KERNELS}
+    cases = []
+    for gated in (False, True):
+        lanes, u_t = make_case(3000 + gated, K1_N, K1_T, 1, gated, device, both_ends=True)
+        pi_t, A_t, obs_t, mask_t, gate_t, sk_t = lanes
+        got = {"fwd": cs.fwd_lanes(*lanes)}
+        want = {"fwd": cs.fwd_plain(*lanes)}
+        ll, alpha = got["fwd"]
+        got["bwd_sample"] = cs.bwd_sample_lanes(A_t, mask_t, alpha, u_t, gate_t, sk_t)
+        want["bwd_sample"] = cs.bwd_sample_plain(A_t, mask_t, alpha, u_t, gate_t, sk_t)
+        got["vg_bwd"] = cs.vg_bwd_lanes(A_t, obs_t, mask_t, alpha, ll, gate_t, sk_t)
+        want["vg_bwd"] = cs.vg_bwd_plain(A_t, obs_t, mask_t, alpha, ll, gate_t, sk_t)
+        if not gated:
+            dec = (pi_t, A_t, obs_t, mask_t)
+            got["filter"], want["filter"] = cs.filter_lanes(*dec), cs.filter_plain(*dec)
+            got["beta"], want["beta"] = cs.beta_lanes(*dec[1:]), cs.beta_plain(*dec[1:])
+            got["viterbi"], want["viterbi"] = cs.viterbi_lanes(*dec), cs.viterbi_plain(*dec)
+            _, dlast, back = got["viterbi"]
+            got["backtrack"] = cs.backtrack_lanes(back, dlast)
+            want["backtrack"] = cs.backtrack_plain(back, dlast)
+        sync()
+        for name in got:
+            g = got[name] if isinstance(got[name], tuple) else (got[name],)
+            w = want[name] if isinstance(want[name], tuple) else (want[name],)
+            if not all(torch.equal(a, b) for a, b in zip(g, w)):
+                raise AssertionError(f"kernels_k1: {name} (gated={gated}) differs from its plain version")
+        zeros = [got["bwd_sample"]] + ([got["backtrack"], got["viterbi"][2]] if not gated else [])
+        if any(bool(z.any()) for z in zeros):
+            raise AssertionError("kernels_k1: a K = 1 draw, path or map is not all zero")
+        lls = [ll] + ([got["filter"][0], got["viterbi"][0]] if not gated else [])
+        if not all(bool(torch.isfinite(x).all()) for x in lls):
+            raise AssertionError("kernels_k1: a non-finite log-likelihood")
+        cases.append(dict(gated=gated, kernels=sorted(got)))
+    rose = {k.name: k.launches - before[k.name] for k in cs.KERNELS}
+    if any(v == 0 for v in rose.values()):
+        raise AssertionError(f"kernels_k1: a kernel never launched at K = 1: {rose}")
+    # the public entries, on the card and on the CPU
+    rng = np.random.default_rng(3002)
+    host = {
+        "log_pi": torch.zeros(K1_N, 1), "log_A": torch.zeros(K1_N, 1, 1),
+        "log_obs": torch.as_tensor(rng.normal(size=(K1_N, K1_T, 1)) - 1.0, dtype=torch.float32),
+        "mask": torch.as_tensor(np.arange(K1_T)[None, :] < rng.integers(K1_T // 2, K1_T + 1, (K1_N, 1)),
+                                dtype=torch.float32),
+    }
+    card = {k: v.to(device) for k, v in host.items()}
+    args_h, args_c = list(host.values()), list(card.values())
+    gen = torch.Generator(device=device).manual_seed(0)
+    z, ll_z = td.ffbs_dispatch(gen, *args_c)
+    entries = {
+        "forward_value_and_grad": (forward_value_and_grad(*args_c), forward_value_and_grad(*args_h)),
+        "smooth_dispatch": (td.smooth_dispatch(*args_c), td.smooth_dispatch(*args_h)),
+        "viterbi_dispatch": (td.viterbi_dispatch(*args_c), td.viterbi_dispatch(*args_h)),
+    }
+    entry_err = {}
+    for name, (on_card, on_cpu) in entries.items():
+        errs = []
+        for a, b in zip(on_card, on_cpu):
+            a = a.cpu()
+            if a.dtype.is_floating_point:
+                errs.append(float((a - b).abs().max()))
+            elif not torch.equal(a, b):
+                raise AssertionError(f"kernels_k1: {name}'s path differs from the CPU's")
+        entry_err[name] = max(errs)
+    if max(entry_err.values()) > 1e-5 or bool(z.any()) or not bool(torch.isfinite(ll_z).all()):
+        raise AssertionError(f"kernels_k1: the entries at K = 1: {entry_err}, draws {int(z.abs().sum())}")
+    out = dict(N=K1_N, T=K1_T, cases=cases, launches=rose, entries_max_abs_err_vs_cpu=entry_err)
+    emit("kernels_k1", bitwise_equal=True, **out)
+    return out
+
+
+def phase_obs(device, fwd_ms):
+    """The obs plane on the main path: the ``bench.py`` Gibbs fit at full
+    width (``tayal_batch``, 256 x T=1024, hard gate) for ``OBS_WARMUP`` +
+    ``OBS_SAMPLES`` sweeps, with the plane off, on, then off again, same
+    seed: the draws and stats bitwise equal; the span table holds
+    ``infer.gibbs.sample`` once and ``kernels.dispatch.ffbs[cuda]`` as
+    many times as the FFBS pair launched; the sampler-health counters are
+    there. The span split of a sweep is emitted. A manifest (device name
+    and power limit) is written to ``chiprun_out/`` with the span JSONL
+    and the metrics, and ``scripts/obs_report.py`` renders it (exit 0).
+    ``device_time`` of ``FWD`` at rows 1-2's shape is held within a factor
+    of ``OBS_DEVICE_TIME_RATIO`` of the kernels line's time."""
+    x, sign = tayal_batch(N_SERIES, T_FIT, seed=SEED_DATA, device=device)
+    data = {"x": x, "sign": sign}
+    model = TayalHHMM(gate_mode="hard")
+    init = default_init(model, data, N_SERIES, 1, seed=SEED_INIT, device=device)
+    cfg = GibbsConfig(num_warmup=OBS_WARMUP, num_samples=OBS_SAMPLES, num_chains=1)
+    sweeps = OBS_WARMUP + OBS_SAMPLES
+    # the FWD launch at rows 1-2's shape, on the canonical harness
+    lanes, _ = make_case(2000, N_SERIES, T_FIT, K_TAYAL, False, device)
+    dt = device_time(cs.fwd_lanes, *lanes, reps=21)
+    cost = kernel_cost("FWD", K_TAYAL, T_FIT, N_SERIES, valid_steps=_steps(lanes[3]))
+    name = torch.cuda.get_device_name(0)
+    path = OUT_DIR / "obs_manifest.json"
+    runs = {}
+    try:
+        for run, on in enumerate((False, True, False)):
+            if on:
+                obs_trace.reset()
+                obs_metrics.reset()
+            (obs_trace.enable if on else obs_trace.disable)()
+            before = {k.name: k.launches for k in (cs.FWD, cs.BWD_SAMPLE)}
+            sync()
+            t0 = time.perf_counter()
+            qs, stats = sample_gibbs(model, data, init, cfg, seed=SEED_SAMPLER, device=device)
+            sync()
+            wall = time.perf_counter() - t0
+            rose = {k.name: k.launches - before[k.name] for k in (cs.FWD, cs.BWD_SAMPLE)}
+            runs[run] = dict(qs=qs, stats=stats, seconds=wall, launches=rose)
+            if run == 2 and obs_trace.aggregate() != table:
+                raise AssertionError("obs: the plane recorded spans while it was off")
+            if not on:
+                continue
+            # the plane-on run's table, counters, exports and manifest
+            table = obs_trace.aggregate()
+            snap = obs_metrics.snapshot()
+            OUT_DIR.mkdir(exist_ok=True)
+            obs_trace.export_jsonl(str(OUT_DIR / "obs_spans.jsonl"))
+            obs_metrics.export_jsonl(str(OUT_DIR / "obs_metrics.jsonl"))
+            split = {n: {"count": r["count"], "ms_per_sweep": r["total_s"] * 1e3 / sweeps}
+                     for n, r in table.items()}
+            man = obs_manifest.collect_manifest(
+                config=dict(vars(cfg), series=N_SERIES, T=T_FIT), model=model, seed=SEED_SAMPLER,
+                extra={"obs_phase": {"sweep_split": split, "fwd_device_time": dt.to_json(),
+                                     "fwd_roofline": roofline(cost, dt.p50_s, name)}})
+            obs_manifest.write_manifest(str(path), man)
+    finally:
+        obs_trace.reset()
+        obs_metrics.reset()
+        obs_trace.tracer.use_env()
+        obs_metrics.use_env()
+    off, on, off2 = runs[0], runs[1], runs[2]
+    for r in (on, off2):
+        if not torch.equal(off["qs"], r["qs"]) or any(
+                not torch.equal(off["stats"][k], r["stats"][k]) for k in off["stats"]):
+            raise AssertionError("obs: the draws with the plane on differ from the draws with it off")
+    branch = "cuda" if torch.device(device).type == "cuda" else "plain"
+    ffbs_spans = table.get(f"kernels.dispatch.ffbs[{branch}]", {}).get("count")
+    if not (ffbs_spans == on["launches"][cs.FWD.name] == on["launches"][cs.BWD_SAMPLE.name] == sweeps):
+        raise AssertionError(f"obs: ffbs[{branch}] spans {ffbs_spans} against launches {on['launches']}")
+    if table.get("infer.gibbs.sample", {}).get("count") != 1:
+        raise AssertionError(f"obs: infer.gibbs.sample not in the span table {sorted(table)}")
+    want = {"infer.transitions{sampler=gibbs}": N_SERIES * OBS_SAMPLES,
+            "infer.chains{sampler=gibbs}": N_SERIES}
+    got = {k: snap.get(k, {}).get("value") for k in want}
+    if got != want:
+        raise AssertionError(f"obs: sampler-health counters {got}, expected {want}")
+    if man["device_kind"] != name or not man["power_limit"]:
+        raise AssertionError(f"obs: the manifest's device {man['device_kind']!r} / {man['power_limit']!r}")
+    rep = subprocess.run([sys.executable, str(ROOT / "scripts" / "obs_report.py"), str(path),
+                          "--metrics", str(OUT_DIR / "obs_metrics.jsonl")],
+                         capture_output=True, text=True, timeout=120)
+    (OUT_DIR / "obs_report.txt").write_text(rep.stdout + rep.stderr)
+    if rep.returncode != 0 or name not in rep.stdout or "infer.gibbs.sample" not in rep.stdout:
+        raise AssertionError(f"obs: obs_report.py exited {rep.returncode}: {rep.stderr[-500:]}")
+    ratio = dt.p50_s * 1e3 / fwd_ms
+    if not 1 / OBS_DEVICE_TIME_RATIO <= ratio <= OBS_DEVICE_TIME_RATIO:
+        raise AssertionError(f"obs: device_time of FWD {dt.p50_s * 1e3:.6f} ms against "
+                             f"{fwd_ms:.6f} ms on the kernels line")
+    # off, on, off: the first run pays the first calls' allocations, so the
+    # plane's cost is read against the third
+    out = dict(series=N_SERIES, T=T_FIT, warmup=OBS_WARMUP, samples=OBS_SAMPLES,
+               seconds_off_on_off=[off["seconds"], on["seconds"], off2["seconds"]],
+               sweep_ms_on=on["seconds"] * 1e3 / sweeps, sweep_ms_off=off2["seconds"] * 1e3 / sweeps,
+               launches=on["launches"], sweep_split=split, metrics=snap,
+               fwd_device_time_ms=dt.p50_s * 1e3, fwd_device_time_min_ms=dt.min_s * 1e3,
+               fwd_kernels_line_ms=fwd_ms, device_time_ratio=ratio,
+               fwd_roofline=roofline(cost, dt.p50_s, name), manifest=str(path),
+               power_limit=man["power_limit"], builds=man["compile"]["backend_compiles"],
+               build_seconds=man["compile"]["compile_seconds"], peak_memory=man["peak_memory"])
+    emit("obs", draws_bitwise_equal=True, **out)
+    return out
+
+
+def start_drivers():
+    """Start each ``examples_torch/`` driver ``--quick`` on the card, a
+    process of its own, all at once, each with a thread that reads its
+    output and its seconds to exit; returns ``(processes, {driver:
+    future}, the threads' executor)``."""
+    procs = {}
+    try:
+        for driver, _ in DRIVERS:
+            procs[driver] = subprocess.Popen(
+                [sys.executable, str(ROOT / "examples_torch" / driver), "--quick"], cwd=ROOT,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    except BaseException:
+        stop_processes(procs)
+        raise
+    t0 = time.perf_counter()
+
+    def wait(driver):
+        out, _ = procs[driver].communicate(timeout=DRIVER_TIMEOUT_S)
+        return out, time.perf_counter() - t0
+
+    waiters = ThreadPoolExecutor(max_workers=len(DRIVERS))
+    return procs, {driver: waiters.submit(wait, driver) for driver, _ in DRIVERS}, waiters
+
+
+def stop_processes(procs) -> None:
+    for p in procs.values():
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def phase_drivers(started):
+    """The drivers of :func:`start_drivers`, waited for: each exits 0
+    within ``DRIVER_TIMEOUT_S`` and prints its line; its output goes to
+    ``chiprun_out/drivers/``. Every process still running at the end (a
+    timeout, an error) is killed."""
+    procs, done, waiters = started
+    out_dir = OUT_DIR / "drivers"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    rows = {}
+    try:
+        for driver, line in DRIVERS:
+            out, secs = done[driver].result()
+            (out_dir / f"{Path(driver).stem}.log").write_text(out)
+            rows[driver] = dict(rc=procs[driver].returncode, seconds=secs,
+                                line=next((ln for ln in out.splitlines() if line in ln), None))
+    finally:
+        stop_processes(procs)
+        waiters.shutdown(wait=True)
+    bad = {d: r for d, r in rows.items() if r["rc"] != 0 or r["line"] is None}
+    if bad or len(rows) != len(DRIVERS):
+        raise AssertionError(f"drivers: {bad or 'not all ran'} (chiprun_out/drivers/)")
+    emit("drivers", drivers=rows, seconds=max(r["seconds"] for r in rows.values()))
+    return rows
+
+
 def reset_all() -> None:
     for k in ALL_KERNELS:
         k.launches = 0
@@ -4627,6 +4886,11 @@ def main() -> int:
     widek = phase_kernels_wide(device)
     clock.append(("kernels_big", time.perf_counter()))
     bigk = phase_kernels_big(device)
+    clock.append(("kernels_k1", time.perf_counter()))
+    k1 = phase_kernels_k1(device)
+    # the obs plane on main path 1 (plane off, then on; its own counts)
+    clock.append(("obs", time.perf_counter()))
+    obs = phase_obs(device, kern["timing"]["fwd_ms"])
     # main path 3, the zoo's generated quantities: the hard-gate Tayal
     # decode of the Gibbs draws, the same decode of the ChEES draws, and
     # the Gaussian HMM's fit, decode and state draws
@@ -4702,8 +4966,34 @@ def main() -> int:
     # Hassan walk-forward forecaster, the Jangmin tree's Gibbs fit and its
     # NUTS fit with the decode, and the HSMM under NUTS, their nine tasks
     # in parallel processes (each counts its own launches from 0)
+    # and the example drivers, eight processes of their own, started once
+    # DRIVERS_AFTER_TASKS of the pool's tasks are done (the host has idle
+    # cores from then on) and waited for before the pool's parent times
+    # anything (its workers and the drivers time nothing on the card)
     clock.append(("pool", time.perf_counter()))
-    pooled = phase_pool(device, chees_phi)
+    drivers = []
+
+    def start_on(n_done):  # in the pool's result thread: keep its error for below
+        if n_done == DRIVERS_AFTER_TASKS:
+            try:
+                drivers.append(start_drivers())
+            except BaseException as e:
+                drivers.append(e)
+
+    def finish_drivers():
+        if not drivers:
+            drivers.append(start_drivers())
+        if isinstance(drivers[0], BaseException):
+            raise drivers[0]
+        phase_drivers(drivers[0])
+
+    try:
+        pooled = phase_pool(device, chees_phi, start_on, finish_drivers)
+    finally:
+        for started in drivers:
+            if not isinstance(started, BaseException):
+                stop_processes(started[0])
+                started[2].shutdown(wait=True)
     (io, io_kept), (hs, hs_kept) = pooled["iohmm"], pooled["hassan"]
     (tg, tg_kept), (jm, jm_kept) = pooled["tree_gibbs"], pooled["jangmin"]
     hn, hn_kept = pooled["hsmm_nuts"]
@@ -4765,6 +5055,7 @@ def main() -> int:
               by_lanes={n: {k: v for k, v in r.items() if k.startswith("fwd")}
                         for n, r in t["by_lanes"].items()},
               launches_chees=chees[cs.FWD.name], launches_chees_unfused=unfused[cs.FWD.name],
+              device_time_ms=obs["fwd_device_time_ms"], launches_obs=obs["launches"][cs.FWD.name],
               bitwise_equal_cases=len(kern["cases"]),
               bytes=kern["fwd_bytes"], ops=kern["fwd_ops"])),
         (cs.BWD_SAMPLE, gibbs[cs.BWD_SAMPLE.name], t["bwd_ms"], t["bwd_plain_ms"],
@@ -4820,7 +5111,8 @@ def main() -> int:
                             shape_big_k=dict(N=BIG_N, T=BIG_T, T_from_1024=BIG_T_HUGE),
                             one_lane_k180=bigk["one_lane"][k.name],
                             bitwise_equal_cases_above_128=sum(
-                                k.name in c["kernels"] for c in bigk["cases"]))
+                                k.name in c["kernels"] for c in bigk["cases"]),
+                            bitwise_equal_k1=k1["launches"][k.name] > 0)
         if k in (cs.FWD, cs.BWD_SAMPLE, cs.VG_BWD):
             rows[-1]["launches_walk_forward"] = walk[k.name]
         if k in (cs.FWD, cs.VG_BWD):  # the NUTS paths

@@ -27,8 +27,13 @@ JAX package so each counterpart is easy to find:
 - ``apps``     the Tayal (2009) application: features, trading,
   analytics and the walk-forward back-test (``apps/tayal/wf.py``); the
   Hassan (2005) walk-forward forecaster (``apps/hassan/wf.py``); the
-  Jangmin (2004) market-regime fit (``apps/jangmin.py``)
+  Jangmin (2004) market-regime fit (``apps/jangmin.py``); the data
+  readers (``apps/data_io.py``, ``apps/rdata.py``)
+- ``obs``      spans, sampler health, run manifests, kernel-build and
+  memory telemetry, device timing on CUDA events, counted kernel costs
 - ``convert``  carries the JAX package's draws and parameters across
+
+The example drivers live beside the package, in ``examples_torch/``.
 
 Entry points take ``device=None``, meaning CUDA, and raise on a host
 without a card (see ``_device.resolve_device``).

@@ -20,9 +20,7 @@ CPU.
 
 from __future__ import annotations
 
-import time
 from collections import defaultdict
-from contextlib import contextmanager
 from dataclasses import dataclass, replace
 from typing import Dict, List, Optional, Sequence
 
@@ -37,6 +35,7 @@ from hhmm_tpu_torch.batch import ResultCache, derive_seed, digest_key, fit_batch
 from hhmm_tpu_torch.infer import SamplerConfig
 from hhmm_tpu_torch.models import TayalHHMMLite
 from hhmm_tpu_torch.native import zigzag as _nz
+from hhmm_tpu_torch.obs.profile import PhaseClock
 
 __all__ = ["WFTask", "WFResult", "build_tasks", "wf_trade", "median_states"]
 
@@ -104,39 +103,6 @@ def build_tasks(
     return tasks
 
 
-class _PhaseClock:
-    """Cumulative named phases on ``time.perf_counter``: :meth:`mark`
-    adds the time since the last mark to ``name``; :meth:`phase` adds a
-    region's own time without moving the marker."""
-
-    def __init__(self, sink: Dict[str, float], round_digits: Optional[int] = None):
-        self.sink, self._round = sink, round_digits
-        self._last = time.perf_counter()
-
-    def _acc(self, name: str, dt: float) -> None:
-        total = self.sink.get(name, 0.0) + dt
-        self.sink[name] = total if self._round is None else round(total, self._round)
-
-    def restart(self) -> None:
-        self._last = time.perf_counter()
-
-    def elapsed(self) -> float:
-        return time.perf_counter() - self._last
-
-    def mark(self, name: str) -> None:
-        now = time.perf_counter()
-        self._acc(name, now - self._last)
-        self._last = now
-
-    @contextmanager
-    def phase(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self._acc(name, time.perf_counter() - t0)
-
-
 def median_states(probs: torch.Tensor) -> torch.Tensor:
     """Hard states ``[G, T]`` from probabilities ``[G, D, T, K]``: the
     median over the ``D`` draws as ``np.median`` takes it (the mean of
@@ -197,7 +163,7 @@ def wf_trade(
     fit group); ``device=None`` is the CUDA card."""
     device = resolve_device(device)
     tm = phase_timings if phase_timings is not None else {}
-    _mark = _PhaseClock(tm, round_digits=2).mark
+    _mark = PhaseClock(tm, round_digits=2).mark
 
     model = TayalHHMMLite(gate_mode=gate_mode)
 
@@ -288,7 +254,7 @@ def wf_trade(
     # digest-cached per task ----
     dcache = ResultCache(cache_dir) if cache_dir is not None else None
     sub = defaultdict(float)  # raw floats, rounded once below
-    clock = _PhaseClock(sub)
+    clock = PhaseClock(sub)
     leg_states: List[Optional[np.ndarray]] = [None] * B
     meta = []  # per task: (n_ins, n_oos, keep, draws_t, dk, n_uniq)
     pend: Dict[tuple, List[int]] = {}

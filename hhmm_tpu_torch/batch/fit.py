@@ -55,7 +55,10 @@ from hhmm_tpu_torch.batch.cache import ResultCache, digest_key
 from hhmm_tpu_torch.batch.init import default_init
 from hhmm_tpu_torch.infer.chees import ChEESConfig, make_lp_bc, sample_chees_batched
 from hhmm_tpu_torch.infer.gibbs import GibbsConfig, sample_gibbs
+from hhmm_tpu_torch.infer.diagnostics import ess_many, split_rhat_many
 from hhmm_tpu_torch.infer.run import SamplerConfig, sample_nuts_batched
+from hhmm_tpu_torch.obs import metrics as obs_metrics
+from hhmm_tpu_torch.obs.trace import span
 from hhmm_tpu_torch.robust import faults
 from hhmm_tpu_torch.robust.retry import RetryPolicy, escalate, rejitter
 
@@ -82,6 +85,61 @@ def _model_fingerprint(model) -> Dict[str, Any]:
 
 def _host(v) -> np.ndarray:
     return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+
+# bound on the (series x parameter) rows fed to the interim per-chunk
+# convergence estimators; rows beyond it are stride-decimated
+# deterministically (the obs/trace.py sample discipline)
+_INTERIM_MAX_ROWS = 4096
+
+
+def _record_chunk_health(chunk_idx: int, n_chunks: int, qs, stats, n: int) -> None:
+    """Interim statistical health of one completed chunk, onto the
+    metrics plane (`obs/metrics.py`), as the JAX ``fit_batched`` records
+    it: the worst split-R̂ and ESS over (series x parameter) rows, the
+    chunk's divergence rate and count, and its quarantined series, each
+    per-chunk gauge labeled ``chunk=<i>``; and one stderr line. While
+    the plane is disabled it returns before touching a tensor; enabled,
+    the chunk's draws and stats come to the host once."""
+    if not obs_metrics.registry.enabled():
+        return
+    label = str(chunk_idx + 1)
+    arr = _host(qs)[:n]  # [n, C, S, dim], padding dropped
+    C, S = arr.shape[1], arr.shape[2]
+    rhat_max = ess_min = float("nan")
+    if S >= 4:  # the split-chain estimators need >= 2 draws per half
+        rows = np.moveaxis(arr, -1, 1).reshape(-1, C, S)  # [n * dim, C, S]
+        if rows.shape[0] > _INTERIM_MAX_ROWS:
+            step = -(-rows.shape[0] // _INTERIM_MAX_ROWS)
+            rows = rows[::step]
+        rhat_max = float(np.max(split_rhat_many(rows)))
+        ess_min = float(np.min(ess_many(rows)))
+        obs_metrics.gauge("fit.interim.rhat_max", chunk=label).set(rhat_max)
+        obs_metrics.gauge("fit.interim.ess_min", chunk=label).set(ess_min)
+    div = stats.get("diverging")
+    n_div = 0
+    div_rate = 0.0
+    if div is not None:
+        div = _host(div)[:n]
+        n_div = int(div.sum())
+        div_rate = float(div.mean()) if div.size else 0.0
+        obs_metrics.gauge("fit.interim.divergence_rate", chunk=label).set(div_rate)
+        obs_metrics.counter("fit.divergences").inc(n_div)
+    n_quar = 0
+    ch = stats.get("chain_healthy")
+    if ch is not None:
+        ch = _host(ch)[:n]
+        n_quar = int((~ch.reshape(ch.shape[0], -1).all(axis=1)).sum())
+        obs_metrics.gauge("fit.interim.quarantined_series", chunk=label).set(n_quar)
+        obs_metrics.counter("fit.quarantined_series").inc(n_quar)
+    obs_metrics.counter("fit.chunks").inc()
+    print(
+        f"# fit_batched chunk {label}/{n_chunks} health: "
+        f"rhat_max={rhat_max:.3f} ess_min={ess_min:.1f} "
+        f"divergences={n_div} ({div_rate:.4f}) quarantined={n_quar}",
+        file=sys.stderr,
+        flush=True,
+    )
 
 
 def fit_batched(
@@ -208,7 +266,11 @@ def fit_batched(
             stats = {k: torch.as_tensor(v, device=device) for k, v in hit.items()}
             print(f"# fit_batched {label}: cache hit", file=sys.stderr, flush=True)
         else:
-            qs, stats = run(config, chunk_data, chunk_init, chunk_w, cseed)
+            # span boundary (obs/trace.py): synced, so it covers the
+            # chunk's work on the card
+            with span("batch.fit.chunk") as sp_c:
+                sp_c.annotate(chunk=label, series=n)
+                qs, stats = sp_c.sync(run(config, chunk_data, chunk_init, chunk_w, cseed))
             qs, stats = faults.corrupt_chunk_result(qs, stats, s, n, attempt=0)
             qs, stats = _heal(run, policy, config, model, chunk_data, chunk_init, chunk_w,
                               cseed, seed, s, n, qs, stats, label)
@@ -218,6 +280,9 @@ def fit_batched(
             # fault injection: a simulated crash between chunks (the
             # cached chunks above make the rerun resume)
             faults.note_chunk_complete()
+        # interim convergence trajectory (metrics plane), cache hits
+        # included, so a resumed sweep still covers every chunk
+        _record_chunk_health(s // chunk, n_chunks, qs, stats, n)
         qs_parts.append(qs[:n])
         stats_parts.append({k: v[:n] for k, v in stats.items()})
 
@@ -256,9 +321,13 @@ def _heal(run, policy, config, model, chunk_data, chunk_init, chunk_w, cseed, se
             file=sys.stderr,
             flush=True,
         )
-        qs2, stats2 = run(cfg, chunk_data, init_r, chunk_w, rejitter(cseed, attempt))
+        with span("batch.fit.heal") as sp_h:
+            sp_h.annotate(chunk=label, attempt=attempt)
+            qs2, stats2 = sp_h.sync(run(cfg, chunk_data, init_r, chunk_w, rejitter(cseed, attempt)))
         qs2, stats2 = faults.corrupt_chunk_result(qs2, stats2, s, n, attempt=attempt)
+        obs_metrics.counter("fit.heal_attempts").inc()
         healed = sick & ~_sick_series(stats2, chunk_w)
+        obs_metrics.counter("fit.healed_series").inc(int(healed.sum()))
         if healed.any():
             hm = torch.as_tensor(healed, device=qs.device)
 
@@ -269,6 +338,7 @@ def _heal(run, policy, config, model, chunk_data, chunk_init, chunk_w, cseed, se
             stats = {k: merge(v, stats2[k]) for k, v in stats.items()}
             sick = sick & ~healed
     if sick.any():
+        obs_metrics.counter("fit.unhealed_series").inc(int(sick.sum()))
         print(
             f"# fit_batched {label}: {int(sick.sum())} series still quarantined after "
             f"{policy.max_heal_attempts} healing attempts (returned with chain_healthy=False)",

@@ -4,7 +4,7 @@ Both packages lay out the unconstrained vector the same way (each
 bijector's free slice, in ``specs()`` order) and share constrained
 shapes, so conversion is a checked copy of numpy arrays into tensors.
 :func:`model_from_jax` builds the port's counterpart of a JAX Gaussian,
-multinomial, input-output or tree HMM or explicit-duration HSMM from its
+multinomial, input-output, Tayal or tree HMM or explicit-duration HSMM from its
 public attributes (read by name: nothing of the JAX package is
 imported), so its parameters carry across to a model of the same
 configuration.
@@ -31,7 +31,8 @@ def model_from_jax(jax_model):
     ``MultinomialHMM`` (K, L),
     ``SemisupMultinomialHMM`` (K, L, groups, gate_mode), ``IOHMMReg``
     (K, M, trans_mode), ``IOHMMMix`` (K, M, L, trans_mode), ``IOHMMHMix``
-    or ``IOHMMHMixLite`` (K, M, L, hyperparams, trans_mode), ``TreeHMM``
+    or ``IOHMMHMixLite`` (K, M, L, hyperparams, trans_mode), ``TayalHHMM``
+    or ``TayalHHMMLite`` (L, gate_mode), ``TreeHMM``
     (the tree rebuilt node by node, semisup, gate_mode, order_mu and the
     two prior scales)."""
     from hhmm_tpu_torch import models
@@ -56,6 +57,8 @@ def model_from_jax(jax_model):
     if name in ("IOHMMHMix", "IOHMMHMixLite"):
         cls = getattr(models, name)
         return cls(int(m.K), int(m.M), int(m.L), np.asarray(m.hyperparams), m.trans_mode)
+    if name in ("TayalHHMM", "TayalHHMMLite"):
+        return getattr(models, name)(int(m.L), m.gate_mode)
     if name == "TreeHMM":
         return models.TreeHMM(
             finalize(_tree_from_jax(m.root)), semisup=bool(m.semisup), gate_mode=m.gate_mode,

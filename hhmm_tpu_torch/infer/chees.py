@@ -41,8 +41,9 @@ host sync when it runs through a ``trajectory_fn``; the unfused
 leapfrog loop reads its step count on the host); ``jax.random`` is one
 ``torch.Generator`` seeded with ``seed``. An active in-scan fault plan
 (``robust/faults.py``) corrupts its chain after the transition, as in
-the JAX loop; ``record_sampler_health``, the ``span`` trace and the
-``jit`` argument are not ported.
+the JAX loop. The sampler is one host-boundary span (``obs/trace.py``)
+and reports its health (``obs/metrics.py::record_sampler_health``), as
+the JAX one does; the ``jit`` argument is not ported.
 """
 
 from __future__ import annotations
@@ -68,6 +69,8 @@ from hhmm_tpu_torch.infer.run import (
     vg_from_logp,
     warmup_schedule,
 )
+from hhmm_tpu_torch.obs.metrics import record_sampler_health
+from hhmm_tpu_torch.obs.trace import span
 from hhmm_tpu_torch.robust import faults
 from hhmm_tpu_torch.robust.guards import finite_mask, guard_update, guard_where
 
@@ -169,6 +172,27 @@ def sample_chees_batched(
     ``lockstep_leapfrogs [B, W + S]`` (the leapfrogs the batch ran a
     transition: its longest series') and ``lockstep_efficiency [B]``
     (the mean leapfrogs a series needed over those the batch ran)."""
+    with span("infer.chees.sample") as sp:
+        sp.annotate(warmup=config.num_warmup, samples=config.num_samples)
+        qs, stats = sp.sync(_sample_chees_batched(lp_bc, init_q, config, seed, device,
+                                                  series_weight, probe_vg, trajectory_fn))
+    # metrics plane (obs/metrics.py): divergence and quarantine counters;
+    # returns before touching a tensor while the plane is off
+    record_sampler_health("chees", stats)
+    return qs, stats
+
+
+def _sample_chees_batched(
+    lp_bc: Callable,
+    init_q: torch.Tensor,
+    config: ChEESConfig,
+    seed: int,
+    device: DeviceLike,
+    series_weight: Optional[torch.Tensor],
+    probe_vg: Optional[Callable],
+    trajectory_fn: Optional[Callable],
+):
+    """The body of :func:`sample_chees_batched`."""
     device = resolve_device(device)
     init_q = torch.as_tensor(init_q, dtype=torch.float32, device=device)
     B, C, dim = init_q.shape

@@ -25,6 +25,8 @@ from hhmm_tpu_torch._device import DeviceLike, resolve_device
 from hhmm_tpu_torch.kernels.dispatch import ffbs_dispatch
 from hhmm_tpu_torch.kernels.ffbs import backward_sample
 from hhmm_tpu_torch.kernels.filtering import forward_filter, time_varying
+from hhmm_tpu_torch.obs.metrics import record_sampler_health
+from hhmm_tpu_torch.obs.trace import span
 from hhmm_tpu_torch.robust import faults
 from hhmm_tpu_torch.robust.guards import all_finite, guard_where
 
@@ -161,31 +163,42 @@ def sample_gibbs(
     if fault is not None:
         fault = tuple(a.reshape(N) for a in fault)
 
-    for t in range(config.num_warmup + S):
-        log_pi, log_A, log_obs, mask = build(params, lanes)
-        if gk is None and time_varying(log_A, log_obs):
-            # a time-varying log_A without gate keys: the scan filter and
-            # the Gumbel-max backward draw, as the JAX sweep runs it
-            log_alpha, ll = forward_filter(log_pi, log_A, log_obs, mask)
-            z = backward_sample(gen, log_alpha, log_A, mask)
-        else:
-            z, ll = ffbs_dispatch(gen, log_pi, log_A, log_obs, mask, *gate_args)
-        new = model.gibbs_update(gen, z, lanes, params)
-        if fault is not None:
-            ll, _, _ = faults.corrupt(t, *fault, logp=ll)
-            new = faults.corrupt_tree(t, *fault, new)
-        ok = healthy & all_finite(new, ll)
-        new = guard_where(ok, new, params)
-        q_step = torch.where(healthy & ~ok, torch.full_like(q_step, t), q_step)
-        ll_rec = torch.where(torch.isfinite(ll), ll, ll_prev)
-        s = t - config.num_warmup
-        if s >= 0:
-            for k, v in params.items():
-                rec[k][s] = v
-            lls[s] = ll_rec
-        params, healthy, ll_prev = new, ok, ll_rec
+    # host-boundary span (obs/trace.py): the sweeps and the card's work
+    # they queued, attributed to the Gibbs sampler while tracing is on
+    with span("infer.gibbs.sample") as sp:
+        sp.annotate(chains=C, warmup=config.num_warmup, samples=S)
+        # a sweep's stages are spans of their own (host time: the card
+        # runs behind the host, so they split where a sweep's host time
+        # goes); the FFBS is kernels/dispatch.py's span
+        for t in range(config.num_warmup + S):
+            with span("infer.gibbs.build"):
+                log_pi, log_A, log_obs, mask = build(params, lanes)
+            if gk is None and time_varying(log_A, log_obs):
+                # a time-varying log_A without gate keys: the scan filter and
+                # the Gumbel-max backward draw, as the JAX sweep runs it
+                log_alpha, ll = forward_filter(log_pi, log_A, log_obs, mask)
+                z = backward_sample(gen, log_alpha, log_A, mask)
+            else:
+                z, ll = ffbs_dispatch(gen, log_pi, log_A, log_obs, mask, *gate_args)
+            with span("infer.gibbs.update"):
+                new = model.gibbs_update(gen, z, lanes, params)
+            with span("infer.gibbs.guard"):
+                if fault is not None:
+                    ll, _, _ = faults.corrupt(t, *fault, logp=ll)
+                    new = faults.corrupt_tree(t, *fault, new)
+                ok = healthy & all_finite(new, ll)
+                new = guard_where(ok, new, params)
+                q_step = torch.where(healthy & ~ok, torch.full_like(q_step, t), q_step)
+                ll_rec = torch.where(torch.isfinite(ll), ll, ll_prev)
+                s = t - config.num_warmup
+                if s >= 0:
+                    for k, v in params.items():
+                        rec[k][s] = v
+                    lls[s] = ll_rec
+            params, healthy, ll_prev = new, ok, ll_rec
 
-    qs = model.pack(rec)  # [S, N, D]
+        qs = model.pack(rec)  # [S, N, D]
+        sp.sync(qs)
     qs = qs.permute(1, 0, 2).reshape(B, C, S, D)
     logp = lls.t().reshape(B, C, S)
     stats = {
@@ -194,4 +207,8 @@ def sample_gibbs(
         "chain_healthy": healthy.reshape(B, C),
         "quarantine_step": q_step.reshape(B, C),
     }
+    # metrics plane (obs/metrics.py): quarantine counters (Gibbs never
+    # diverges; its all-False array keeps the rate honest); returns
+    # before touching a tensor while the plane is off
+    record_sampler_health("gibbs", stats)
     return qs, stats

@@ -23,8 +23,9 @@ single-posterior form (``B = 1``). What changes from the JAX module:
 device (the tree reads one flag a leaf on the host); ``jax.random`` is
 one ``torch.Generator`` seeded with ``seed``. An active in-scan fault
 plan (``robust/faults.py``) corrupts its chain after the transition, as
-in the JAX loop; ``record_sampler_health``, the ``span`` trace and the
-``jit`` argument are not ported.
+in the JAX loop. The sampler is one host-boundary span (``obs/trace.py``)
+and reports its health (``obs/metrics.py::record_sampler_health``), as
+the JAX one does; the ``jit`` argument is not ported.
 """
 
 from __future__ import annotations
@@ -37,6 +38,8 @@ import torch
 
 from hhmm_tpu_torch._device import DeviceLike, resolve_device
 from hhmm_tpu_torch.infer.nuts import GeneratorDraws, find_reasonable_step_size_batched, nuts_step
+from hhmm_tpu_torch.obs.metrics import record_sampler_health
+from hhmm_tpu_torch.obs.trace import span
 from hhmm_tpu_torch.robust import faults
 from hhmm_tpu_torch.robust.guards import finite_mask, guard_update, guard_where
 
@@ -181,6 +184,24 @@ def sample_nuts_batched(
     and the lockstep's own: ``warmup_num_leaves`` ``[B, C, W]``, and
     per transition (warmup, then sampling) ``lockstep_leapfrogs`` (the
     log-density calls the batch made) and ``host_syncs`` ``[B, W + S]``."""
+    with span("infer.nuts.sample") as sp:
+        sp.annotate(chains=config.num_chains, warmup=config.num_warmup, samples=config.num_samples)
+        qs, stats = sp.sync(_sample_nuts_batched(lp_bc, init_q, config, seed, device, draws))
+    # metrics plane (obs/metrics.py): divergence and quarantine counters;
+    # returns before touching a tensor while the plane is off
+    record_sampler_health("nuts", stats)
+    return qs, stats
+
+
+def _sample_nuts_batched(
+    lp_bc: Callable,
+    init_q: torch.Tensor,
+    config: SamplerConfig,
+    seed: int,
+    device: DeviceLike,
+    draws,
+):
+    """The body of :func:`sample_nuts_batched`."""
     device = resolve_device(device)
     init_q = torch.as_tensor(init_q, dtype=torch.float32, device=device)
     B, C, dim = init_q.shape

@@ -20,6 +20,7 @@ from hhmm_tpu_torch.kernels.dispatch import (
     viterbi_dispatch,
 )
 from hhmm_tpu_torch.kernels.ffbs import backward_sample, ffbs_fused, ffbs_invcdf_reference, ffbs_sample
+from hhmm_tpu_torch.kernels.grad import forward_loglik
 from hhmm_tpu_torch.kernels.filtering import (
     backward_pass,
     filter_step,
@@ -46,6 +47,7 @@ __all__ = [
     "ffbs_invcdf_reference",
     "ffbs_sample",
     "forward_filter",
+    "forward_loglik",
     "forward_value_and_grad",
     "ForwardLoglik",
     "make_tayal_trajectory",

@@ -512,7 +512,7 @@ int launch_big(int K, const float* A, const float* mask, const float* alpha, con
 }  // namespace
 
 // Returns 0 on a good launch, the cudaError_t of a refused one, or -1 for
-// a K below 2, an empty shape, or (K <= 16) maps over 2048 words a lane
+// a K below 1, an empty shape, or (K <= 16) maps over 2048 words a lane
 // without a scratch. `scratch` is null (the maps live in shared
 // memory) or, at K <= 16, an int32 [N, W * map_words(T)] buffer the
 // caller owns, required when W * map_words(T) > 2048 (T > 2048 at K <=

@@ -73,7 +73,7 @@ int launch_big(int K, int gated, const float* pi, const float* A, const float* o
 }  // namespace
 
 // Returns 0 on a good launch, the cudaError_t of a refused one, or -1 for
-// a K below 2 or an empty shape. Launches on `stream` and does not
+// a K below 1 or an empty shape. Launches on `stream` and does not
 // synchronise; the caller owns every buffer (above K = 128 the launch
 // takes and frees a stream-ordered scratch for the lanes' A).
 extern "C" int hhmm_ffbs_fwd(int K, int gated, const float* pi,

@@ -8,7 +8,7 @@
 //
 // A group of G threads (the next power of two >= K, at least 2, at most
 // a warp) owns one lane; thread j of the group owns state j (threads K ..
-// G-1 idle, as the fourth does at K = 3). A warp holds 32 / G lanes,
+// G-1 idle, as the fourth does at K = 3 and the second at K = 1). A warp holds 32 / G lanes,
 // lane index fastest, so at one step the warp's accesses to a [.., K, N]
 // array are, per state, 32 / G consecutive floats.
 
@@ -24,7 +24,7 @@ namespace hhmm {
 
 constexpr float kClamp = -1.0e30f;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kMinK = 2;
+constexpr int kMinK = 1;
 constexpr int kMaxK = 128;      // the wide layout: a lane's A (and d_A) in shared memory; big_core.cuh above
 constexpr int kMaxGroupK = 32;  // a group of threads a lane, a warp at most; a block above
 constexpr int kMaxNibbleK = 16; // packed maps of four bits a state; bytes above
@@ -36,13 +36,14 @@ constexpr int kMaxPlus = 2;  // VITERBI
 
 template <int K>
 struct Group {
-  static_assert(kMinK <= K && K <= kMaxGroupK, "K in 2..32");
+  static_assert(kMinK <= K && K <= kMaxGroupK, "K in 1..32");
   // threads a lane
   static constexpr int G = K <= 2 ? 2 : (K <= 4 ? 4 : (K <= 8 ? 8 : (K <= 16 ? 16 : 32)));
   static constexpr int kLanesPerWarp = 32 / G;
 };
 
-// the largest power of two below n (n >= 2)
+// the largest power of two below n (n >= 2; max_range never splits a
+// range of one)
 __host__ __device__ constexpr int split_point(int n) {
   int h = 1;
   while (2 * h < n) h *= 2;
@@ -130,7 +131,7 @@ __device__ __forceinline__ void cp_async4(uint32_t* smem, const uint32_t* gmem) 
   cp_async4(reinterpret_cast<float*>(smem), reinterpret_cast<const float*>(gmem));
 }
 
-// f(std::integral_constant<int, K>{}) for the runtime k in 2..KMAX, -1
+// f(std::integral_constant<int, K>{}) for the runtime k in 1..KMAX, -1
 // for any other k
 template <int KMAX, int K = kMinK, class F>
 int for_k(int k, F&& f) {

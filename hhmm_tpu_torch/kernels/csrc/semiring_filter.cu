@@ -21,7 +21,7 @@
 //   otherwise m + log(sum exp(x - m)), the exponentials summed in index
 //   order. On finite inputs this is the arithmetic of ffbs_fwd.cu (whose
 //   clamp at -1e30 never binds there), so the two kernels' alphas are
-//   bitwise equal. Any K >= 2.
+//   bitwise equal. Any K >= 1.
 //
 // The kernel is fwd_core.cuh's forward_kernel in its guarded mode at K
 // <= 32, wide_core.cuh's wide_forward_kernel (a block a lane) up to 128,
@@ -34,7 +34,7 @@
 #include "wide_core.cuh"
 
 // Returns 0 on a good launch, the cudaError_t of a refused one, or -1 for
-// a K below 2 or an empty shape. Launches on `stream` and does not
+// a K below 1 or an empty shape. Launches on `stream` and does not
 // synchronise; the caller owns every buffer (above K = 128 the launch
 // takes and frees a stream-ordered scratch for the lanes' A).
 extern "C" int hhmm_semiring_filter(int K, const float* pi, const float* A,

@@ -326,7 +326,7 @@ int launch_backtrack_big(int K, const uint32_t* back, const float* dlast, int* p
 }  // namespace
 
 // Both entry points return 0 on a good launch, the cudaError_t of a
-// refused one, or -1 for a K below 2 or an empty shape. They launch on
+// refused one, or -1 for a K below 1 or an empty shape. They launch on
 // `stream` and do not synchronise; the caller owns every buffer (`back`
 // is int32 [T, W, N], one packed map of W words per step; above K = 128
 // the forward pass takes and frees a stream-ordered scratch for the

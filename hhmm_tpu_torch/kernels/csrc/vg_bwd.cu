@@ -75,7 +75,7 @@ int launch_big(int K, int gated, const float* A, const float* obs, const float* 
 }  // namespace
 
 // Returns 0 on a good launch, the cudaError_t of a refused one, or -1 for
-// a K below 2 or an empty shape. Launches on `stream` and does not
+// a K below 1 or an empty shape. Launches on `stream` and does not
 // synchronise; the caller owns every buffer (above K = 128 the launch
 // takes and frees a stream-ordered scratch for the lanes' A and d_A).
 extern "C" int hhmm_vg_bwd(int K, int gated, const float* A, const float* obs,

@@ -8,7 +8,9 @@ parallel), from the sources in the checkout, into ``kernels/_build/``
 (listed in ``.gitignore``). Library names carry a digest of the source,
 of every header it includes with a quoted ``#include`` (found next to
 it, as ``nvcc`` finds them) and of the flags, so an edited source or
-header is rebuilt and never mixed with a stale binary.
+header is rebuilt and never mixed with a stale binary. Every build and
+every library load reports its seconds to ``obs/telemetry.py`` (the
+run manifest's ``compile`` stanza).
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ from pathlib import Path
 from typing import Dict, Iterable, Optional, Sequence
 
 import torch
+
+from hhmm_tpu_torch.obs import telemetry
 
 __all__ = ["CudaKernel", "build", "build_and_load", "NVCC_FLAGS", "BUILD_DIR", "CSRC_DIR"]
 
@@ -97,9 +101,9 @@ def build(sources: Iterable[Path]) -> Dict[str, dict]:
                 errors.append(f"{src.name} (rc={proc.returncode}):\n{log}")
                 continue
             os.replace(tmp, out)
-            report[src.name] = {
-                "seconds": time.perf_counter() - t0, "log": log, "cached": False,
-            }
+            seconds = time.perf_counter() - t0
+            telemetry.note_build(src.name, seconds)
+            report[src.name] = {"seconds": seconds, "log": log, "cached": False}
         if errors:
             raise RuntimeError("nvcc failed for " + "\n".join(errors))
     finally:
@@ -138,7 +142,9 @@ class CudaKernel:
         """The bound C entry point, building the library on first use."""
         if self._fn is None:
             build([self.source])
+            t0 = time.perf_counter()
             lib = ctypes.CDLL(str(_lib_path(self.source)))
+            telemetry.note_load(self.source.name, time.perf_counter() - t0)
             fn = getattr(lib, self.symbol)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int

@@ -28,11 +28,13 @@ kernel of that module:
   (packed four bits a state, see below), and the walk back through the
   maps.
 
-Every kernel takes any K >= 2 (``K_RANGE``: a group of threads a lane up
-to K = 32; a block a lane above, with the lane's A, and for ``VG_BWD``
-its d_A, in shared memory up to K = 128, ``csrc/wide_core.cuh``, and in
-a stream-ordered device scratch above, ``csrc/big_core.cuh``) and raises
-a ``ValueError`` for K = 1 on the card; its plain version takes every K.
+Every kernel takes any K >= 1 (``K_RANGE``: a group of threads a lane up
+to K = 32, two threads a lane at K = 1 and 2; a block a lane above, with
+the lane's A, and for ``VG_BWD`` its d_A, in shared memory up to K = 128,
+``csrc/wide_core.cuh``, and in a stream-ordered device scratch above,
+``csrc/big_core.cuh``), as its plain version does: at K = 1 the filters carry ``alpha_t = alpha_{t-1} +
+A + obs_t``, every draw and path is 0 (the inverse-CDF draw counts over
+no boundary) and every map is the identity.
 A backpointer map (``VITERBI``'s output, and ``BWD_SAMPLE``'s candidate
 maps inside the kernel) is ``W`` int32 words a step of ``B``-bit fields,
 ``B = 4`` up to K = 16, 8 up to K = 256 (a pointer up to 255 fits a
@@ -103,7 +105,7 @@ __all__ = [
 ]
 
 _CLAMP = -1.0e30
-K_RANGE = (2, None)  # every kernel's K: 2 and up, no upper end
+K_RANGE = (1, None)  # every kernel's K: 1 and up, no upper end
 # BWD_SAMPLE at K <= 16 keeps its packed candidate maps in shared memory
 # up to this many words a lane (kSmemMaxWords in ffbs_bwd_sample.cu: W
 # words a step, so T <= 2048 at K <= 8 and T <= 1024 at K in 9..16),

@@ -7,8 +7,8 @@ series (``log_pi [N, K]``, ``log_obs [N, T, K]``, ``mask [N, T]``):
 
 - a homogeneous ``[N, K, K]`` ``log_A`` on CUDA goes to the kernels and
   must be float32 (any other dtype raises); on the CPU it goes to their
-  plain versions (any float dtype); both take any K >= 2 (``K_RANGE``;
-  the plain versions K = 1 too). ``forward_filter_dispatch`` runs
+  plain versions (any float dtype); both take any K >= 1
+  (``K_RANGE``). ``forward_filter_dispatch`` runs
   ``FILTER``, ``backward_dispatch`` ``BETA``, ``smooth_dispatch`` both
   on one lane-layout copy of the operands (the guarded normalisation
   ``filtering.smooth`` applied as plain ops outside the kernels, as the
@@ -21,10 +21,14 @@ series (``log_pi [N, K]``, ``log_obs [N, T, K]``, ``mask [N, T]``):
   stan-gate OOS Viterbi stays on the scan in both packages;
 - ``ffbs_dispatch``: homogeneous ``log_A`` only, the FFBS kernels
   (``FWD`` + ``BWD_SAMPLE``) on CUDA in float32, their plain versions on
-  the CPU; any K >= 2 as well.
+  the CPU; any K >= 1 as well.
 
 Operands on other devices, or on mixed devices, raise: no kernel ever
-falls back to its plain version. ``make_tayal_trajectory`` /
+falls back to its plain version. Each call is one span of the obs plane
+(``obs/trace.py``, a shared no-op while tracing is off) named with the
+branch that ran, as in the JAX module: ``kernels.dispatch.<entry>[cuda]``
+for the kernels, ``[plain]`` for their plain versions on the CPU,
+``[seq]`` for the time-varying scans. ``make_tayal_trajectory`` /
 ``tayal_trajectory`` are the sanctioned entries of the fused trajectory
 kernel (``kernels/cuda_traj.py``), re-exported here as the JAX module
 re-exports ``pallas_traj``'s.
@@ -54,6 +58,7 @@ from hhmm_tpu_torch.kernels.filtering import (
     time_varying,
 )
 from hhmm_tpu_torch.kernels.viterbi import viterbi
+from hhmm_tpu_torch.obs.trace import span
 
 __all__ = [
     "ffbs_dispatch",
@@ -73,9 +78,22 @@ def _device_type(*tensors) -> str:
     return types.pop()
 
 
+def _branch_span(name: str, branch: str, K: int, T: int):
+    """One span a dispatch with the branch that ran in its name —
+    ``kernels.dispatch.ffbs[cuda]`` — annotated with (K, T); the shared
+    no-op singleton while tracing is off (the JAX ``_branch_span``)."""
+    sp = span(f"kernels.dispatch.{name}[{branch}]")
+    sp.annotate(K=K, T=T)
+    return sp
+
+
+def _kernel_branch(log_obs: torch.Tensor) -> str:
+    return "cuda" if log_obs.device.type == "cuda" else "plain"
+
+
 def _kernel_route(log_pi, log_A, log_obs, mask) -> bool:
     """True: the homogeneous kernels (or their plain versions on the
-    CPU; the kernels raise for K = 1); False: the
+    CPU; any K >= 1); False: the
     scans, for a time-varying ``log_A``. Raises for a device with no
     path and for a non-float32 operand on CUDA (``log_pi`` is None for
     the beta pass)."""
@@ -111,9 +129,12 @@ def forward_filter_dispatch(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(log_alpha [N, T, K], loglik [N])``, the
     ``filtering.forward_filter`` contract."""
+    T, K = log_obs.shape[-2:]
     if _kernel_route(log_pi, log_A, log_obs, mask):
-        return semiring_filter(log_pi, log_A, log_obs, _ones_mask(log_obs, mask))
-    return forward_filter(log_pi, log_A, log_obs, mask)
+        with _branch_span("forward_filter", _kernel_branch(log_obs), K, T):
+            return semiring_filter(log_pi, log_A, log_obs, _ones_mask(log_obs, mask))
+    with _branch_span("forward_filter", "seq", K, T):
+        return forward_filter(log_pi, log_A, log_obs, mask)
 
 
 def backward_dispatch(
@@ -123,9 +144,12 @@ def backward_dispatch(
 ) -> torch.Tensor:
     """``log_beta [N, T, K]``, the ``filtering.backward_pass``
     contract."""
+    T, K = log_obs.shape[-2:]
     if _kernel_route(None, log_A, log_obs, mask):
-        return semiring_beta(log_A, log_obs, _ones_mask(log_obs, mask))
-    return backward_pass(log_A, log_obs, mask)
+        with _branch_span("backward", _kernel_branch(log_obs), K, T):
+            return semiring_beta(log_A, log_obs, _ones_mask(log_obs, mask))
+    with _branch_span("backward", "seq", K, T):
+        return backward_pass(log_A, log_obs, mask)
 
 
 def smooth_dispatch(
@@ -138,15 +162,18 @@ def smooth_dispatch(
     ``filtering.forward_backward`` contract; both passes take the same
     route, and on the kernels' one the two passes share one lane-layout
     copy of the operands."""
+    T, K = log_obs.shape[-2:]
     if _kernel_route(log_pi, log_A, log_obs, mask):
-        m = _ones_mask(log_obs, mask)
-        pi_t, A_t, obs_t, mask_t, _, _ = to_lanes(log_pi, log_A, log_obs, m)
-        ll, alpha_t = filter_lanes(pi_t, A_t, obs_t, mask_t)
-        beta_t = beta_lanes(A_t, obs_t, mask_t)
-        del pi_t, A_t, obs_t, mask_t
-        log_alpha, log_beta = alpha_t.permute(2, 0, 1), beta_t.permute(2, 0, 1)
-        return log_alpha, log_beta, smooth(log_alpha, log_beta), ll
-    return forward_backward(log_pi, log_A, log_obs, mask)
+        with _branch_span("smooth", _kernel_branch(log_obs), K, T):
+            m = _ones_mask(log_obs, mask)
+            pi_t, A_t, obs_t, mask_t, _, _ = to_lanes(log_pi, log_A, log_obs, m)
+            ll, alpha_t = filter_lanes(pi_t, A_t, obs_t, mask_t)
+            beta_t = beta_lanes(A_t, obs_t, mask_t)
+            del pi_t, A_t, obs_t, mask_t
+            log_alpha, log_beta = alpha_t.permute(2, 0, 1), beta_t.permute(2, 0, 1)
+            return log_alpha, log_beta, smooth(log_alpha, log_beta), ll
+    with _branch_span("smooth", "seq", K, T):
+        return forward_backward(log_pi, log_A, log_obs, mask)
 
 
 def viterbi_dispatch(
@@ -157,9 +184,12 @@ def viterbi_dispatch(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(path [N, T] int64, log_prob [N])``, the ``viterbi.viterbi``
     contract and tie-breaking."""
+    T, K = log_obs.shape[-2:]
     if _kernel_route(log_pi, log_A, log_obs, mask):
-        return semiring_viterbi(log_pi, log_A, log_obs, _ones_mask(log_obs, mask))
-    return viterbi(log_pi, log_A, log_obs, mask)
+        with _branch_span("viterbi", _kernel_branch(log_obs), K, T):
+            return semiring_viterbi(log_pi, log_A, log_obs, _ones_mask(log_obs, mask))
+    with _branch_span("viterbi", "seq", K, T):
+        return viterbi(log_pi, log_A, log_obs, mask)
 
 
 def ffbs_dispatch(
@@ -185,4 +215,6 @@ def ffbs_dispatch(
             raise TypeError("the CUDA FFBS kernels take float32 log_pi/log_A/log_obs")
     elif kind != "cpu":
         raise ValueError(f"no FFBS path for device type {kind!r}")
-    return ffbs_fused(generator, log_pi, log_A, log_obs, mask, gate_key, state_key)
+    T, K = log_obs.shape[-2:]
+    with _branch_span("ffbs", _kernel_branch(log_obs), K, T):
+        return ffbs_fused(generator, log_pi, log_A, log_obs, mask, gate_key, state_key)

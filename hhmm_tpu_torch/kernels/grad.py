@@ -18,7 +18,7 @@ PyTorch idiom. It is the target of ``models/base.py::make_logp``.
 
 Routing (``kernels/dispatch.py``): a homogeneous ``log_A`` on CUDA runs
 the ``FILTER`` kernel forward and the ``BETA`` kernel backward (float32,
-any K >= 2), their plain versions on the CPU; a time-varying ``log_A``
+any K >= 1), their plain versions on the CPU; a time-varying ``log_A``
 runs the plain scans of ``kernels/filtering.py`` on either device (the
 JAX function is a ``lax.scan`` on every backend).
 """

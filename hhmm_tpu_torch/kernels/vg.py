@@ -23,7 +23,7 @@ into one flat batch; here the caller hands the flat batch over directly
 (``models/base.py::make_vg`` flattens its leading axes). Its TPU
 eligibility gates (backend, VMEM-sized ``T*K``) have no counterpart:
 routing is by device, a CUDA operand always launches the kernel pair
-(float32, any ``K >= 2``, ``K_RANGE``; anything else raises) and a CPU operand
+(float32, any ``K >= 1``, ``K_RANGE``; anything else raises) and a CPU operand
 runs the kernels' plain versions.
 
 :class:`ForwardLoglik` is the ``jax.custom_vjp`` of the JAX package in

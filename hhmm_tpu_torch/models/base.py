@@ -272,7 +272,7 @@ class BaseHMMModel:
         ``theta_draws [..., n_free]``; data arrays are ``[T]`` (one
         series, every draw) or ``[B, T]`` with ``theta_draws [B, ...,
         n_free]``. Every draw of every series goes into one flat batch
-        of lanes: on the card a homogeneous model (any K >= 2) launches
+        of lanes: on the card a homogeneous model (any K >= 1) launches
         ``FILTER``, ``BETA``, ``VITERBI`` and ``BACKTRACK`` once each
         (``kernels/dispatch.py``); a time-varying ``log_A`` runs the
         scans. Outputs carry the draws' leading axes."""

@@ -2,7 +2,7 @@
 policy of ``fit_batched``."""
 
 from hhmm_tpu_torch.robust import faults
-from hhmm_tpu_torch.robust.faults import FaultPlan, SimulatedCrash
+from hhmm_tpu_torch.robust.faults import FaultPlan, SimulatedCrash, inject
 from hhmm_tpu_torch.robust.guards import all_finite, finite_mask, guard_update, guard_where
 from hhmm_tpu_torch.robust.retry import RetryPolicy, escalate, rejitter
 
@@ -16,5 +16,6 @@ __all__ = [
     "finite_mask",
     "guard_update",
     "guard_where",
+    "inject",
     "rejitter",
 ]

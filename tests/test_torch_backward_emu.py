@@ -38,7 +38,7 @@ from test_torch_kernels import _lane_uniforms_off_edges
 from hhmm_tpu_torch.core.lmath import MASK_NEG
 from hhmm_tpu_torch.kernels import cuda_semiring as cs
 
-KS = (2, 3, 4, 5, 8, 12, 16, 17, 20, 32, 33, 64)
+KS = (1, 2, 3, 4, 5, 8, 12, 16, 17, 20, 32, 33, 64)
 LOG_ATOL = 1e-4  # log beta: a few ulps of |log beta| <= a few hundred
 GRAD_ATOL, GRAD_RTOL = 1e-5, 1e-4  # d_pi / d_obs (probabilities) and d_A (a sum of T terms)
 
@@ -146,7 +146,7 @@ def _run_bwd_sample(fn, A_t, mask_t, alpha_t, u_t, gate_t, sk_t):
     return z
 
 
-BWD_SAMPLE_CASES = [(3, (5, 75)), (3, (2, 2100)), (16, (5, 75)), (16, (2, 1100)),
+BWD_SAMPLE_CASES = [(1, (5, 75)), (1, (2, 2100)), (3, (5, 75)), (3, (2, 2100)), (16, (5, 75)), (16, (2, 1100)),
                     (20, (5, 75)), (33, (3, 75)), (64, (2, 40))]
 
 
@@ -188,7 +188,7 @@ def test_sources_repeat_bitwise(emu):
 def test_sources_refuse_k_outside_the_range(emu):
     pi_t, A_t, obs_t, mask_t, _, _ = _lanes(3, 2, 4, 2)
     out = torch.zeros(64)
-    for K in (0, 1):
+    for K in (0, -1):
         assert emu["semiring_beta"](K, *map(_ptr, (A_t, obs_t, mask_t, obs_t)), 4, 2, None) == -1
         assert emu["vg_bwd"](K, 0, *map(_ptr, (A_t, obs_t, mask_t, obs_t, out, None, None)),
                              *map(_ptr, (out, out, out)), 4, 2, None) == -1

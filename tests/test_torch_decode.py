@@ -50,6 +50,8 @@ JAX package on the same numpy inputs.
 
 import jax
 import jax.numpy as jnp
+import contextlib
+
 import numpy as np
 import oracle
 import pytest
@@ -64,6 +66,7 @@ from hhmm_tpu.kernels.viterbi import viterbi as j_viterbi
 from hhmm_tpu.models import GaussianHMM as JGaussianHMM
 from hhmm_tpu.models import TayalHHMM as JTayalHHMM
 from hhmm_tpu_torch.core.lmath import MASK_NEG
+from hhmm_tpu_torch.kernels import cuda_build
 from hhmm_tpu_torch.kernels import cuda_semiring as cs
 from hhmm_tpu_torch.kernels import dispatch as td
 from hhmm_tpu_torch.kernels import filtering as tf
@@ -547,8 +550,9 @@ def test_k_above_16_raises_on_every_route(rng):
     value-and-grad and decode entries, their plain versions and the
     models' ``generated`` / ``state_draws`` give finite values on the CPU
     route here (``tests/test_torch_big_k.py`` holds them to the JAX
-    package). What raises, for float32 operands on a CUDA device and
-    before any launch, is K = 1, which no kernel takes."""
+    package). At K = 1, float32 operands on a CUDA device reach the
+    kernel of every route (its library is loaded to launch it), never a
+    plain version."""
     args = _t(_case(rng, 1, 4, 129))
     u = torch.rand(1, 4)
     runs = [lambda a: cs.semiring_ffbs(*a, u), lambda a: cs.fwd_lanes(*cs.to_lanes(*a)),
@@ -560,9 +564,12 @@ def test_k_above_16_raises_on_every_route(rng):
         for out in run(args):
             assert out.shape[0] in (1, 4) and not torch.isnan(out.double()).any()
     one = _cudalike(_case(rng, 1, 4, 1))
-    for run in runs:
-        with pytest.raises(ValueError, match="K >= 2"):
-            run(one)
+    with _kernels_reached() as reached:
+        for run in runs:
+            with pytest.raises(_Launched):
+                run(one)
+    assert reached == ["ffbs_fwd", "ffbs_fwd", "ffbs_fwd", "viterbi_fwd", "viterbi_fwd",
+                       "semiring_filter", "semiring_beta", "semiring_filter", "semiring_filter"]
     model = GaussianHMM(K=129)
     theta = torch.from_numpy(_theta(rng, model, (1,)))
     z = model.state_draws(torch.Generator(), theta, {"x": torch.zeros(4)}, device="cpu")
@@ -608,13 +615,52 @@ def test_smooth_dispatch_one_layout_copy_equals_two_entries(rng):
     assert torch.equal(lg, tf.smooth(want_la, want_lb))
 
 
+class _Launched(Exception):
+    """Raised in place of loading a kernel's library: the wrapper got as
+    far as launching it."""
+
+
+@contextlib.contextmanager
+def _kernels_reached():
+    """Every ``CudaKernel.load`` records its kernel's name and raises
+    :class:`_Launched`, so a test on CUDA-like operands sees which kernel a
+    wrapper would launch (no plain version runs: they are not loaded)."""
+    reached = []
+
+    def load(self):
+        reached.append(self.name)
+        raise _Launched(self.name)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(cuda_build.CudaKernel, "load", load)
+        yield reached
+
+
 def test_k_1_runs_on_the_cpu_and_raises_on_the_card():
+    """K = 1 answers on the CPU (a zero path, the sum of the steps) and, on
+    the card, goes to the kernel like every other K: the lane wrappers
+    check the operands and load ``VITERBI``, ``BACKTRACK``, ``FILTER``,
+    ``BETA``, ``FWD``, ``BWD_SAMPLE`` and ``VG_BWD`` (K = 0 still raises)."""
     z = torch.zeros
     path, score = cs.semiring_viterbi(z(2, 1), z(2, 1, 1), z(2, 5, 1), torch.ones(2, 5))
     assert int(path.abs().sum()) == 0 and score.tolist() == [0.0, 0.0]
     lanes = _cudalike([np.zeros(s) for s in ((1, 2), (1, 1, 2), (5, 1, 2), (5, 2))])
-    with pytest.raises(ValueError, match="K >= 2"):
-        cs.viterbi_lanes(*lanes)
+    pi_t, A_t, obs_t, mask_t = lanes
+    back = torch.zeros(5, 2, dtype=torch.int32).as_subclass(_CudaLike)
+    runs = [lambda: cs.viterbi_lanes(*lanes), lambda: cs.backtrack_lanes(back, pi_t),
+            lambda: cs.filter_lanes(*lanes), lambda: cs.beta_lanes(A_t, obs_t, mask_t),
+            lambda: cs.fwd_lanes(*lanes),
+            lambda: cs.bwd_sample_lanes(A_t, mask_t, obs_t, mask_t),
+            lambda: cs.vg_bwd_lanes(A_t, obs_t, mask_t, obs_t, pi_t[0])]
+    with _kernels_reached() as reached:
+        for run in runs:
+            with pytest.raises(_Launched):
+                run()
+    assert reached == [k.name for k in (cs.VITERBI, cs.BACKTRACK, cs.FILTER, cs.BETA, cs.FWD,
+                                        cs.BWD_SAMPLE, cs.VG_BWD)]
+    none = _cudalike([np.zeros(s) for s in ((0, 2), (0, 0, 2), (5, 0, 2), (5, 2))])
+    with pytest.raises(ValueError, match="K >= 1"):
+        cs.viterbi_lanes(*none)
 
 
 # ---------------------------------------------------------------------------
@@ -712,9 +758,9 @@ def test_cuda_wrappers_check_k_and_layout():
     K, N, T = 5, 3, 4
     shapes = ((K, N), (K, K, N), (T, K, N), (T, N))
     lanes = _cudalike([np.zeros(s) for s in shapes])
-    one = _cudalike([np.zeros(s) for s in ((1, N), (1, 1, N), (T, 1, N), (T, N))])
-    with pytest.raises(ValueError, match="K >= 2"):
-        cs.filter_lanes(*one)
+    none = _cudalike([np.zeros(s) for s in ((0, N), (0, 0, N), (T, 0, N), (T, N))])
+    with pytest.raises(ValueError, match="K >= 1"):
+        cs.filter_lanes(*none)
     with pytest.raises(TypeError, match="int32"):
         cs.backtrack_lanes(torch.zeros(T, N).as_subclass(_CudaLike), lanes[0])
     with pytest.raises(ValueError, match="lane layout"):

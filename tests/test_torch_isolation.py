@@ -1,7 +1,8 @@
 """Isolation of the PyTorch port from the JAX package, and its device
 rules:
 
-- no module of ``hhmm_tpu_torch/``, not ``chip_smoke.py`` and not
+- no module of ``hhmm_tpu_torch/`` (its obs plane included), no driver
+  of ``examples_torch/``, not ``chip_smoke.py`` and not
   ``bench_kernel_pair.py`` imports ``jax`` or ``hhmm_tpu`` (an AST scan of
   every import statement);
 - entry points default to CUDA and raise on a host without it, rather
@@ -47,6 +48,7 @@ from hhmm_tpu_torch.kernels import cuda_semiring as cs
 from hhmm_tpu_torch.kernels import cuda_traj as ct
 from hhmm_tpu_torch.kernels import (
     ffbs_dispatch,
+    forward_loglik,
     forward_value_and_grad,
     make_tayal_trajectory,
     viterbi_dispatch,
@@ -68,12 +70,15 @@ from hhmm_tpu_torch.models import (
     TreeHMM,
 )
 from hhmm_tpu_torch.hhmm import hier2x2_tree
+from hhmm_tpu_torch.obs.profile import dirichlet_hmm_inputs
+from hhmm_tpu_torch.robust import inject
 from hhmm_tpu_torch.sim import tayal_batch
 
 torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((REPO / "hhmm_tpu_torch").rglob("*.py")) + [
+PORT_FILES = sorted((REPO / "hhmm_tpu_torch").rglob("*.py")) + sorted(
+    (REPO / "examples_torch").glob("*.py")) + [
     REPO / "chip_smoke.py",
     REPO / "bench_kernel_pair.py",
 ]
@@ -140,8 +145,41 @@ def test_port_file_list_is_complete():
         "hhmm_tpu_torch/apps/jangmin.py",
         "hhmm_tpu_torch/kernels/duration.py",
         "hhmm_tpu_torch/models/hsmm.py",
+        "hhmm_tpu_torch/apps/rdata.py",
+        "hhmm_tpu_torch/apps/data_io.py",
+        "hhmm_tpu_torch/obs/__init__.py",
+        "hhmm_tpu_torch/obs/trace.py",
+        "hhmm_tpu_torch/obs/metrics.py",
+        "hhmm_tpu_torch/obs/telemetry.py",
+        "hhmm_tpu_torch/obs/manifest.py",
+        "hhmm_tpu_torch/obs/profile.py",
+        "examples_torch/_common.py",
+        "examples_torch/hmm_main.py",
+        "examples_torch/iohmm_main.py",
+        "examples_torch/hassan_main.py",
+        "examples_torch/hassan_replication.py",
+        "examples_torch/hhmm_main.py",
+        "examples_torch/jangmin_main.py",
+        "examples_torch/tayal_main.py",
+        "examples_torch/tayal_strategy.py",
     ):
         assert must in names
+
+
+@pytest.mark.parametrize("package,name,module", [
+    ("hhmm_tpu_torch.robust", "inject", "hhmm_tpu_torch.robust.faults"),
+    ("hhmm_tpu_torch.kernels", "forward_loglik", "hhmm_tpu_torch.kernels.grad"),
+])
+def test_package_exports_what_the_jax_package_exports(package, name, module):
+    """The names the JAX package exports from a subpackage
+    (``hhmm_tpu/robust/__init__.py``, ``hhmm_tpu/kernels/__init__.py``)
+    are exported from the port's, and are the port's own functions."""
+    import importlib
+
+    pkg = importlib.import_module(package)
+    assert name in pkg.__all__
+    assert getattr(pkg, name) is getattr(importlib.import_module(module), name)
+    assert {"inject": inject, "forward_loglik": forward_loglik}[name] is getattr(pkg, name)
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(REPO).as_posix())
@@ -153,6 +191,17 @@ def test_no_jax_or_reference_imports(path):
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _run_driver(driver, *args):
+    import runpy
+    import sys
+
+    argv, sys.argv = sys.argv, [str(REPO / "examples_torch" / driver), *args]
+    try:
+        runpy.run_path(sys.argv[0], run_name="__main__")
+    finally:
+        sys.argv = argv
 
 
 def _tiny():
@@ -270,6 +319,8 @@ ENTRY_POINTS = {
     "multinomial_hsmm_fit_batched": lambda: fit_batched(
         MultinomialHSMM(2, 3, 4), {"x": np.zeros((1, 6), np.int64)}, GibbsConfig(1, 1)
     ),
+    "dirichlet_hmm_inputs": lambda: dirichlet_hmm_inputs(np.random.default_rng(0), 3, 8, 2),
+    "example_driver": lambda: _run_driver("hmm_main.py", "--quick", "--T", "20"),
     "constrained_from_jax": lambda: constrained_from_jax(
         TayalHHMM(), {"p_11": np.float32(0.5), "A_row": np.full((2, 2), 0.5),
                       "phi_k": np.full((4, 9), 1 / 9)},
@@ -349,8 +400,8 @@ def test_cuda_vg_rejects_what_the_kernels_do_not_take(monkeypatch):
         shapes = ((2, K), (2, K, K), (2, 5, K), (2, 5))
         return [torch.zeros(s, dtype=dtype).as_subclass(_CudaLike) for s in shapes]
 
-    with pytest.raises(ValueError, match="K >= 2"):
-        forward_value_and_grad(*args(1))
+    with pytest.raises(ValueError, match="K >= 1"):
+        forward_value_and_grad(*args(0))
     with pytest.raises(TypeError, match="float32"):
         forward_value_and_grad(*args(4, torch.float64))
 

@@ -268,6 +268,8 @@ def _lane_uniforms_off_edges(rng, A_t, mask_t, alpha_t, gate_t, sk_t):
     T, K, N = alpha_t.shape
     lane = torch.arange(N)
     u = torch.from_numpy(rng.random((T, N)).astype(np.float32))
+    if K == 1:  # one state: the draw counts over no edge
+        return u
     for _ in range(100):
         z = cs.bwd_sample_plain(A_t, mask_t, alpha_t, u, gate_t, sk_t).long()
         logits = alpha_t.double().clone()

@@ -24,7 +24,7 @@ from hhmm_tpu.infer.gibbs import transition_counts as j_transition_counts
 from hhmm_tpu.models import TayalHHMM as JTayal
 from hhmm_tpu.models import TayalHHMMLite as JTayalLite
 from hhmm_tpu_torch.batch import default_init
-from hhmm_tpu_torch.convert import constrained_from_jax, params_from_jax
+from hhmm_tpu_torch.convert import constrained_from_jax, model_from_jax, params_from_jax
 from hhmm_tpu_torch.infer import (
     GibbsConfig,
     emission_counts,
@@ -66,6 +66,26 @@ class TestParams:
         jp, _ = jm.unpack(jnp.asarray(_theta(rng, 1)[0]))
         tp = constrained_from_jax(tm, {k: np.asarray(v) for k, v in jp.items()}, device="cpu")
         np.testing.assert_allclose(tm.pack(tp).numpy(), np.asarray(jm.pack(jp)), rtol=1e-4, atol=1e-4)
+
+    @pytest.mark.parametrize("cls", ["TayalHHMM", "TayalHHMMLite"])
+    @pytest.mark.parametrize("L,gate", [(9, "stan"), (5, "hard")])
+    def test_model_from_jax(self, rng, cls, L, gate):
+        """``convert.model_from_jax`` gives the port's class of the same
+        name with the JAX model's fields, and the same unconstrained layout
+        (a draw unpacks to the same parameters)."""
+        jm = {"TayalHHMM": JTayal, "TayalHHMMLite": JTayalLite}[cls](L=L, gate_mode=gate)
+        tm = model_from_jax(jm)
+        assert type(tm).__name__ == cls and type(tm).__module__.startswith("hhmm_tpu_torch")
+        assert (tm.K, tm.L, tm.gate_mode, tm.n_free) == (jm.K, jm.L, jm.gate_mode, jm.n_free)
+        assert [(n, tuple(b.shape)) for n, b in tm.specs()] == [
+            (n, tuple(b.shape)) for n, b in jm.specs()]
+        theta = (rng.normal(size=(2, jm.n_free)) * 0.8).astype(np.float32)
+        params, _ = tm.unpack(params_from_jax(tm, theta, device="cpu"))
+        for i in range(2):
+            jp, _ = jm.unpack(jnp.asarray(theta[i]))
+            for k in jp:
+                np.testing.assert_allclose(params[k][i].numpy(), np.asarray(jp[k]), rtol=TOL,
+                                           atol=TOL)
 
     def test_conversion_checks_shapes(self, rng):
         tm = TayalHHMM()
