@@ -4,7 +4,7 @@ its hand-written CUDA kernels against its plain PyTorch version there.
 
     python3 chip_smoke.py
 
-Twenty-one main paths, each driven with the kernel counts set to 0 just
+Twenty-two main paths, each driven with the kernel counts set to 0 just
 before it and read just after:
 
 - the batched Tayal Gibbs fit that ``bench.py`` runs by default (256
@@ -88,7 +88,10 @@ before it and read just after:
   three regimes of daily returns with dwells up to Dmax=60 (K'=180, the
   kernels' big layout: 64 series x T=1000, Gibbs, the decode of 1,280
   lanes); ``MultinomialHSMM(K=3, Dmax=8, L=5)`` (K'=24, 256 x T=1024);
-  and the K'=12 model under NUTS (64 series, depth 6).
+  and the K'=12 model under NUTS (64 series, depth 6);
+- the placement planner (``plan/``): ``bench.py``'s Gibbs fit (256 x
+  T=1024, hard gate, 20 + 20) through ``fit_batched(plan=make_plan(...,
+  devices=[cuda:0]))`` (``FWD`` and ``BWD_SAMPLE`` once a sweep).
 The two NUTS paths of the Tayal batch and the Gaussian gate, and the
 IOHMM, Hassan, tree and HSMM-NUTS paths run as nine tasks (NUTS, the
 Gaussian gate, two IOHMMs, two benchmarks, the two tree paths, the
@@ -178,6 +181,37 @@ Phases, one JSON object per line:
    with the span and metrics JSONL in ``chiprun_out/``, rendered by
    ``scripts/obs_report.py`` with exit 0; ``device_time`` of ``FWD`` at
    the kernels line's shape within a factor of 1.25 of its time there.
+   assoc — the time-parallel scans (``kernels/assoc.py``) at the main
+   path's shape (256 x T=1024, K=4, ragged), each dispatch entry forced
+   onto ``assoc`` against the ``cuda`` branch on the same operands and
+   uniforms: probabilities within ``AS_RTOL`` + ``AS_ATOL``, log-
+   likelihoods within ``AS_RTOL``, Viterbi paths and FFBS draws (ungated
+   and gated) equal except on lanes where the reference's own margin
+   (the top-two score gap, or |u - cum_k|, at the step where the two
+   part) is under ``AS_MARGIN`` (those lanes counted); the stan gate's
+   time-varying OOS decode (``TayalHHMMLite.generated`` on 8 Gibbs
+   draws a series, and its Viterbi pass alone) and an IOHMM-reg decode
+   (64 series x T=300, 4 draws a series), ``seq`` against ``assoc``;
+   ``forward_filter_seqshard`` over ``AS_SHARDS`` chunks on cuda:0
+   against ``forward_filter_assoc``; ms of every branch.
+   dispatch_db — ``obs/profile.py``'s ``decode_kernel_fns`` (the
+   ``cuda``, ``assoc`` and ``seq`` branches of the filter, Viterbi and
+   FFBS) timed by ``device_time`` at K in ``DB_KS`` x T in ``DB_TS`` on
+   256 lanes into a kernel cost DB in ``chiprun_out/`` (never
+   ``results_torch/``); with it active, ``resolve_auto`` returns its
+   measured winner (``cuda`` against ``assoc`` for a homogeneous call,
+   ``seq`` against ``assoc`` for a time-varying one; never ``seq`` for a
+   homogeneous call) and the spans name the branch that ran; with an
+   empty DB every route is the default one; the grid is printed.
+   plan — ``make_plan`` on ``[cuda:0]`` at 256 x T=1024: a Gibbs
+   ``fit_batched(plan=)`` of 20 + 20 sweeps bitwise equal to the
+   unplanned fit (``FWD`` and ``BWD_SAMPLE`` once a sweep in each), the
+   manifest's ``plan`` stanza printed; the same fit with
+   ``GibbsConfig(time_parallel=True)`` (no kernel launched): the folded
+   posterior means, averaged over the 256 series, within ``PLAN_MCSE``
+   MCSE of the ``cuda`` route's for every parameter (the share of
+   (series, parameter) pairs within it reported: 20 draws make a
+   series' MCSE rough), and the sweep ms of both routes.
    decode_smooth — ``TayalHHMM(gate_mode="hard").generated`` on 32
    Gibbs draws x 256 series: shapes, probability rows, each decode
    kernel launched once, every output against the plain versions on
@@ -237,6 +271,16 @@ Phases, one JSON object per line:
    group, its inputs kept as the path made them, bitwise equal to the
    plain version on the same inputs and timed on them; the ``FWD`` +
    ``BWD_SAMPLE`` pair as a share of a Gibbs group's sweep.
+   walk_forward_assoc — the Gibbs arm's decode again with
+   ``time_parallel=True``, its fits replayed from the walk_forward run
+   (no refit, no kernel launched): every median-alpha leg state equal to
+   the ``FWD`` decode's except where that decode's top-two median gap is
+   under the margin (``AS_MARGIN`` at T=1024, growing linearly with the
+   bucket's T as the f32 rounding of the unnormalised log-alpha does:
+   ``wf_margin``; counted), the median probabilities within twice the
+   margin, trade summaries equal on every task whose leg states are
+   equal (the others counted), the resolved branch stamped in
+   ``phase_timings``.
    nuts — the sixth main path (see above; a process of the pool, with
    the paths from the thirteenth on): every chain healthy, ``FWD``
    and ``VG_BWD`` launched once a value-and-grad call and nothing else,
@@ -408,10 +452,11 @@ from hhmm_tpu_torch.core.lmath import MASK_NEG
 from hhmm_tpu_torch.kernels import cuda_semiring as cs
 from hhmm_tpu_torch.kernels import cuda_traj as ct
 from hhmm_tpu_torch.kernels import dispatch as td
+from hhmm_tpu_torch.kernels import assoc as tassoc
 from hhmm_tpu_torch.kernels import forward_value_and_grad
 from hhmm_tpu_torch.kernels.cuda_build import build_and_load
 from hhmm_tpu_torch.kernels.ffbs import gumbel
-from hhmm_tpu_torch.kernels.filtering import smooth
+from hhmm_tpu_torch.kernels.filtering import forward_filter, smooth
 from hhmm_tpu_torch.models import (
     GaussianHMM,
     GaussianHSMM,
@@ -433,7 +478,9 @@ from hhmm_tpu_torch.native import zigzag as native_zigzag
 from hhmm_tpu_torch.obs import manifest as obs_manifest
 from hhmm_tpu_torch.obs import metrics as obs_metrics
 from hhmm_tpu_torch.obs import trace as obs_trace
+from hhmm_tpu_torch.obs import profile as obs_profile
 from hhmm_tpu_torch.obs.profile import bound_ms, device_time, kernel_cost, roofline
+from hhmm_tpu_torch.plan import WorkloadShape, make_plan
 from hhmm_tpu_torch.robust import FaultPlan, RetryPolicy, SimulatedCrash, faults
 from hhmm_tpu_torch.sim import (
     hmm_sim,
@@ -2472,7 +2519,7 @@ class FitRecorder:
     ``lanes`` the kernel launches each group made (:class:`LaneRecorder`)."""
 
     def __init__(self, fit):
-        self.fit, self.groups, self.lanes = fit, [], []
+        self.fit, self.groups, self.lanes, self.kept = fit, [], [], []
 
     def __call__(self, model, data, config, **kw):
         sync()
@@ -2490,6 +2537,7 @@ class FitRecorder:
             **(lockstep(stats) if "lockstep_leapfrogs" in stats else {}),
         })
         self.lanes.append(rec.calls)
+        self.kept.append((dict(data), qs, stats))  # for a replay of the same fits
         return qs, stats
 
 
@@ -2510,8 +2558,8 @@ class KeptDecode:
     def wrap(self, path):
         fn = getattr(TayalHHMMLite, path)
 
-        def recorded(model, theta, data, device=None):
-            out = fn(model, theta, data, device=device)
+        def recorded(model, theta, data, device=None, **kw):
+            out = fn(model, theta, data, device=device, **kw)
             self.calls[path] += 1
             kept = (path, model, theta, dict(data), out)
             self.first.setdefault(path, kept)
@@ -2606,8 +2654,9 @@ def wf_decode_vs_plain(kept, arm):
             "max_abs_err": errs}
 
 
-def wf_run(tasks, config, gate_mode, chunk, device):
-    """``wf_trade`` with the recorders in place: ``(results,
+def wf_run(tasks, config, gate_mode, chunk, device, medians=None):
+    """``wf_trade`` with the recorders in place (``medians``: a
+    :class:`MedianRecorder` for ``median_states``): ``(results,
     phase_timings, wall seconds, fit recorder, decode recorder,
     value-and-grad calls, launches, native series)``."""
     rec = FitRecorder(wf_module.fit_batched)
@@ -2623,7 +2672,8 @@ def wf_run(tasks, config, gate_mode, chunk, device):
                               side_effect=dec.wrap("filtered")), \
             mock.patch.object(TayalHHMMLite, "generated", autospec=True,
                               side_effect=dec.wrap("generated")), \
-            mock.patch.object(TayalHHMMLite, "make_vg", autospec=True, side_effect=vg):
+            mock.patch.object(TayalHHMMLite, "make_vg", autospec=True, side_effect=vg), \
+            mock.patch.object(wf_module, "median_states", medians or median_states):
         res = wf_trade(tasks, config, gate_mode=gate_mode, chunk_size=chunk,
                        phase_timings=phases, seed=SEED_WF, device=device)
     sync()
@@ -2655,7 +2705,9 @@ def phase_walk_forward(device, tasks, data_s):
         raise AssertionError(f"walk_forward: {len(tasks)} tasks, expected {WF_TASKS}")
     lags = (0, 1, 2, 3, 4, 5)
     cfg = GibbsConfig(num_warmup=WF_WARMUP, num_samples=WF_SAMPLES, num_chains=1)
-    res, phases, wall, fits, filt, _, rose, native = wf_run(tasks, cfg, "hard", WF_CHUNK, device)
+    medians = MedianRecorder()
+    res, phases, wall, fits, filt, _, rose, native = wf_run(tasks, cfg, "hard", WF_CHUNK, device,
+                                                            medians)
     groups = fits.groups
     if native != len(tasks):
         raise AssertionError(f"walk_forward: the native extractor took {native} of {len(tasks)} "
@@ -2726,7 +2778,7 @@ def phase_walk_forward(device, tasks, data_s):
          divergent_share_max_task=float(max(r.diverged for r in res_c)),
          chains_pooled_mean=float(np.mean([r.chains_pooled for r in res_c])),
          oos_return_pct_mean=wf_returns(res_c, lags))
-    return fits, fits_c
+    return (fits, fits_c), (fits, medians, res)
 
 
 def kept_vs_plain(calls, phase):
@@ -4554,6 +4606,17 @@ def kernel_resources(usage) -> dict:
 # ---------------------------------------------------------------------------
 
 K1_N, K1_T = 8, 48  # kernels_k1: lanes and steps
+# assoc, dispatch_db, plan, walk_forward_assoc: the time-parallel scans,
+# the measured dispatch and the planner
+AS_RTOL, AS_ATOL = 1e-5, 1e-4  # the scans' probabilities against the kernels'
+AS_MARGIN = 1e-4  # a path or draw may differ where the reference's own margin is under it
+AS_SHARDS = 4  # forward_filter_seqshard's chunks, all on cuda:0
+AS_IO_DRAWS = 4  # IOHMM-reg draws a series for the time-varying decode
+SEED_AS = 1717
+DB_KS, DB_TS = (2, 4, 8), (256, 1024, 4096)  # the probe's grid, 256 lanes
+DB_REPS = {"cuda": 3, "assoc": 3, "seq": 1}  # seq: a host loop 30 to 1000 times the others
+PLAN_WARMUP, PLAN_SAMPLES = 20, 20
+PLAN_MCSE = 4.0  # the time_parallel=True fit's series-averaged means against cuda's
 OBS_WARMUP, OBS_SAMPLES = 20, 20  # obs: the main-path Gibbs fit, twice
 OBS_DEVICE_TIME_RATIO = 1.25  # device_time of FWD against the kernels line's time
 OUT_DIR = Path("chiprun_out")
@@ -4808,6 +4871,458 @@ def phase_drivers(started):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the time-parallel scans, the measured dispatch and the placement planner
+# ---------------------------------------------------------------------------
+
+
+def scan_case(seed: int, N: int, T: int, K: int, device):
+    """``(log_pi, log_A, log_obs, mask, u, gate_key, state_key)`` in the
+    dispatch layout ``[N, T, K]``: normalized (pi, A), N(-1, 1)
+    emissions, ragged mask (lengths in [T/2, T]), uniforms, a sign gate
+    on a Tayal-like state key."""
+    rng = np.random.default_rng(seed)
+
+    def log_norm(a):
+        return a - np.log(np.exp(a).sum(-1, keepdims=True))
+
+    f32 = dict(dtype=torch.float32, device=device)
+    lengths = rng.integers(T // 2, T + 1, size=N)
+    return (torch.as_tensor(log_norm(rng.normal(size=(N, K))), **f32),
+            torch.as_tensor(log_norm(rng.normal(size=(N, K, K))), **f32),
+            torch.as_tensor(rng.normal(size=(N, T, K)) - 1.0, **f32),
+            torch.as_tensor(np.arange(T)[None, :] < lengths[:, None], **f32),
+            torch.as_tensor(rng.random((N, T)), **f32),
+            torch.as_tensor(rng.integers(0, 2, size=(N, T)), **f32),
+            torch.as_tensor(np.resize([1.0, 0.0, 0.0, 1.0], (N, K)), **f32))
+
+
+def parted(a, b):
+    """``{lane: t*}`` of the lanes where two ``[N, T]`` paths differ, t*
+    the last step where they do."""
+    diff = (a != b).float()
+    lanes = (diff.sum(1) > 0).nonzero()[:, 0].tolist()
+    last = (a.shape[1] - 1 - diff.flip(1).argmax(1)).tolist()
+    return {n: last[n] for n in lanes}
+
+
+def top_gap(v):
+    s = torch.sort(v, descending=True).values
+    return float(s[0] - s[1]) if v.numel() > 1 else float("inf")
+
+
+def viterbi_margins(log_pi, log_A, log_obs, mask, path, parts):
+    """For each parting lane, the reference's own margin at its parting
+    step t*: the top-two gap of delta at T-1, or of ``delta[t*] +
+    A[:, path[t*+1]]`` (the plain max-plus recursion of that lane)."""
+    out = {}
+    for n, ts in parts.items():
+        tv = log_A.ndim == 4
+        d = log_pi[n] + log_obs[n, 0]
+        deltas = [d]
+        for t in range(1, ts + 1):
+            lA = log_A[n, t - 1] if tv else log_A[n]
+            new = (d[:, None] + lA).amax(0) + log_obs[n, t]
+            d = torch.where(mask[n, t] > 0, new, d) if mask is not None else new
+            deltas.append(d)
+        if ts == log_obs.shape[1] - 1:
+            out[n] = top_gap(deltas[ts])
+        else:
+            lA = log_A[n, ts] if tv else log_A[n]
+            out[n] = top_gap(deltas[ts] + lA[:, path[n, ts + 1]])
+    return out
+
+
+def ffbs_margins(log_pi, log_A, log_obs, mask, u, z, parts, gk=None, sk=None):
+    """For each parting lane, min_k |u - cum_k| of the reference's draw at
+    its parting step (the gated filter of that lane, the draw rule of
+    ``ffbs_invcdf_reference``)."""
+    out = {}
+    for n, ts in parts.items():
+        # a padded tail repeats the last valid draw: the parting is there
+        ts = min(ts, int(mask[n].sum()) - 1)
+        if gk is None:
+            la, _ = forward_filter(log_pi[n], log_A[n], log_obs[n], mask[n])
+        else:
+            c = gk[n][:, None] == sk[n][None, :]
+            la, _ = forward_filter(log_pi[n], torch.where(c[1:, None, :], log_A[n], 0.0),
+                                   log_obs[n], mask[n])
+        logits = la[ts]
+        if ts < log_obs.shape[1] - 1:
+            j = int(z[n, ts + 1])
+            g = bool(mask[n, ts + 1] > 0) and (gk is None or bool(gk[n, ts + 1] == sk[n, j]))
+            if g:
+                logits = logits + log_A[n][:, j]
+        cum = torch.cumsum(torch.softmax(logits, -1)[:-1], 0)
+        out[n] = float((u[n, ts] - cum).abs().min()) if cum.numel() else float("inf")
+    return out
+
+
+def gate_parted(name, parts, margins):
+    """Every parting lane's margin under ``AS_MARGIN``; returns the counts."""
+    wide = {n: m for n, m in margins.items() if not m < AS_MARGIN}
+    if wide:
+        raise AssertionError(f"{name}: {len(wide)} lanes part from the reference with a margin "
+                             f"of at least {AS_MARGIN}: {dict(list(wide.items())[:5])}")
+    return {"lanes_differing": len(parts), "lanes_under_margin": len(margins)}
+
+
+def close(name, got, want, rtol=AS_RTOL, atol=AS_ATOL):
+    """Finite where ``want`` is, within ``rtol`` + ``atol``; returns the
+    largest absolute difference."""
+    fin = torch.isfinite(want)
+    if not torch.equal(fin, torch.isfinite(got)):
+        raise AssertionError(f"{name}: finite entries differ")
+    diff = (got[fin] - want[fin]).abs()
+    bad = diff > atol + rtol * want[fin].abs()
+    if bool(bad.any()):
+        raise AssertionError(f"{name}: {int(bad.sum())} entries beyond rtol {rtol} + atol {atol}, "
+                             f"max abs {float(diff.max()):.3g}")
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def branch_ms(fn, branches, reps):
+    return {b: time_ms(lambda b=b: fn(b), reps=reps, warmup=1) for b in branches}
+
+
+def phase_assoc(device, qs):
+    """The time-parallel scans on the card (see the module docstring):
+    each dispatch entry's ``assoc`` branch against its ``cuda`` branch at
+    the main path's shape, the two time-varying decodes ``seq`` against
+    ``assoc``, the sequence-sharded filter; ms of every branch."""
+    N, T, K = N_SERIES, T_FIT, K_TAYAL
+    lp, lA, lo, m, u, gk, sk = scan_case(SEED_AS, N, T, K, device)
+    before = launch_counts()
+    rows, counts, errs = {}, {}, {}
+    gen = lambda: torch.Generator(device=device).manual_seed(SEED_AS)  # noqa: E731
+    out = {b: {"filter": td.forward_filter_dispatch(lp, lA, lo, m, time_parallel=b),
+               "backward": td.backward_dispatch(lA, lo, m, time_parallel=b),
+               "smooth": td.smooth_dispatch(lp, lA, lo, m, time_parallel=b),
+               "viterbi": td.viterbi_dispatch(lp, lA, lo, m, time_parallel=b),
+               "ffbs": td.ffbs_dispatch(gen(), lp, lA, lo, m, time_parallel=b),
+               "ffbs_gated": td.ffbs_dispatch(gen(), lp, lA, lo, m, gk, sk, time_parallel=b)}
+           for b in ("cuda", "assoc")}
+    c, a = out["cuda"], out["assoc"]
+    errs["alpha_probs"] = close("assoc filter", torch.softmax(a["filter"][0], -1),
+                                torch.softmax(c["filter"][0], -1))
+    errs["loglik"] = close("assoc loglik", a["filter"][1], c["filter"][1], atol=0.0)
+    errs["beta"] = close("assoc beta", a["backward"], c["backward"])
+    errs["gamma"] = close("assoc gamma", a["smooth"][2].exp(), c["smooth"][2].exp())
+    errs["smooth_loglik"] = close("assoc smooth loglik", a["smooth"][3], c["smooth"][3], atol=0.0)
+    errs["viterbi_score"] = close("assoc viterbi score", a["viterbi"][1], c["viterbi"][1], atol=0.0)
+    p = parted(a["viterbi"][0], c["viterbi"][0])
+    counts["viterbi"] = gate_parted("assoc viterbi", p,
+                                    viterbi_margins(lp, lA, lo, m, c["viterbi"][0], p))
+    uf = torch.rand((N, T), generator=gen(), device=device)  # the uniforms both routes drew
+    for key, gate in (("ffbs", (None, None)), ("ffbs_gated", (gk, sk))):
+        errs[f"{key}_loglik"] = close(f"assoc {key} loglik", a[key][1], c[key][1], atol=0.0)
+        p = parted(a[key][0], c[key][0])
+        counts[key] = gate_parted(f"assoc {key}", p,
+                                  ffbs_margins(lp, lA, lo, m, uf, c[key][0], p, *gate))
+    want = {cs.FWD.name: 2, cs.BWD_SAMPLE.name: 2, cs.FILTER.name: 2, cs.BETA.name: 2,
+            cs.VITERBI.name: 1, cs.BACKTRACK.name: 1}
+    if rose_since(before) != want:  # the cuda branch's, and nothing from assoc
+        raise AssertionError(f"assoc: launches {rose_since(before)}, expected {want}")
+    # ms of every branch at this shape
+    ms = {
+        "filter": branch_ms(lambda b: td.forward_filter_dispatch(lp, lA, lo, m, time_parallel=b),
+                            ("cuda", "assoc", "seq"), 3),
+        "smooth": branch_ms(lambda b: td.smooth_dispatch(lp, lA, lo, m, time_parallel=b),
+                            ("cuda", "assoc", "seq"), 3),
+        "viterbi": branch_ms(lambda b: td.viterbi_dispatch(lp, lA, lo, m, time_parallel=b),
+                             ("cuda", "assoc", "seq"), 3),
+        "ffbs": branch_ms(lambda b: td.ffbs_dispatch(gen(), lp, lA, lo, m, time_parallel=b),
+                          ("cuda", "assoc", "seq"), 3),
+        "ffbs_gated": branch_ms(
+            lambda b: td.ffbs_dispatch(gen(), lp, lA, lo, m, gk, sk, time_parallel=b),
+            ("cuda", "assoc", "seq"), 3),
+    }
+    # the sequence-sharded filter: AS_SHARDS chunks, all on this card
+    sa, sl = tassoc.forward_filter_seqshard(lp, lA, lo, m, devices=[device] * AS_SHARDS)
+    fa, fl = a["filter"]
+    errs["seqshard_probs"] = close("seqshard", torch.softmax(sa, -1), torch.softmax(fa, -1))
+    errs["seqshard_loglik"] = close("seqshard loglik", sl, fl, atol=0.0)
+    ms["seqshard"] = time_ms(lambda: tassoc.forward_filter_seqshard(
+        lp, lA, lo, m, devices=[device] * AS_SHARDS), reps=3, warmup=1)
+
+    # the stan gate's OOS decode: time-varying operators
+    xs, ss = tayal_batch(N_SERIES, T_FIT + T_OOS, seed=SEED_DATA, device=device)
+    data = {"x": xs[:, :T_FIT], "sign": ss[:, :T_FIT], "x_oos": xs[:, T_FIT:],
+            "sign_oos": ss[:, T_FIT:]}
+    draws = qs[:, 0, :: SAMPLES // N_DRAWS][:, :N_DRAWS]
+    lite = TayalHHMMLite(gate_mode="stan")
+    gs = {b: lite.generated(draws, data, device=device, time_parallel=b) for b in ("seq", "assoc")}
+    errs["tayal_alpha"] = close("tayal alpha", gs["assoc"]["alpha"], gs["seq"]["alpha"])
+    errs["tayal_alpha_oos"] = close("tayal alpha_oos", gs["assoc"]["alpha_oos"],
+                                    gs["seq"]["alpha_oos"])
+    n = N_SERIES * N_DRAWS
+    params, _ = lite.unpack(draws.reshape(n, -1))
+    ops = lite._gated(params, data["x_oos"].repeat_interleave(N_DRAWS, 0),
+                      data["sign_oos"].repeat_interleave(N_DRAWS, 0))
+    za, zs_ = (gs[b]["zstar_oos"].reshape(n, T_OOS) for b in ("assoc", "seq"))
+    p = parted(za, zs_)
+    counts["tayal_oos_viterbi"] = gate_parted("tayal oos viterbi", p,
+                                              viterbi_margins(*ops, None, zs_, p))
+    ms["tayal_generated"] = branch_ms(
+        lambda b: lite.generated(draws, data, device=device, time_parallel=b), ("seq", "assoc"), 2)
+    ms["tayal_oos_viterbi"] = branch_ms(
+        lambda b: td.viterbi_dispatch(*ops, time_parallel=b), ("seq", "assoc"), 3)
+
+    # an IOHMM-reg decode: the rank-1 time-varying log_A
+    io_data, _, _ = io_batch("reg", device)
+    io = IOHMMReg(K=IO_K_REG, M=IO_M)
+    io_draws = default_init(io, io_data, IO_SERIES, AS_IO_DRAWS, seed=SEED_AS, device=device)
+    go = {b: io.generated(io_draws, io_data, device=device, time_parallel=b) for b in ("seq", "assoc")}
+    for key in ("alpha", "gamma"):
+        errs[f"iohmm_{key}"] = close(f"iohmm {key}", go["assoc"][key], go["seq"][key])
+    errs["iohmm_loglik"] = close("iohmm loglik", go["assoc"]["loglik"], go["seq"]["loglik"], atol=0.0)
+    _, flat, lanes = zoo_base.draw_lanes(io_draws, io_data, device, io.event_ndim)
+    io_ops = io.build(io.unpack(flat)[0], lanes)
+    ni = IO_SERIES * AS_IO_DRAWS
+    za, zs_ = (go[b]["zstar"].reshape(ni, IO_T) for b in ("assoc", "seq"))
+    p = parted(za, zs_)
+    counts["iohmm_viterbi"] = gate_parted("iohmm viterbi", p, viterbi_margins(*io_ops, zs_, p))
+    ms["iohmm_generated"] = branch_ms(
+        lambda b: io.generated(io_draws, io_data, device=device, time_parallel=b), ("seq", "assoc"), 2)
+    row = dict(shape=dict(N=N, T=T, K=K), max_abs_err=errs, parted=counts, ms=ms,
+               tayal=dict(lanes=n, T_oos=T_OOS), iohmm=dict(lanes=ni, T=IO_T, K=IO_K_REG),
+               seqshard_shards=AS_SHARDS, margin=AS_MARGIN)
+    emit("assoc", **row)
+    return row
+
+
+def phase_dispatch_db(device):
+    """The measured dispatch: ``decode_kernel_fns`` timed at the probe's
+    grid into a DB in ``chiprun_out/``; with it active, ``"auto"``
+    resolves to the measured winner and the spans say so; with an empty
+    DB, the default routes."""
+    OUT_DIR.mkdir(exist_ok=True)
+    path = OUT_DIR / "kernel_costs_probe.json"
+    if path.exists():
+        path.unlink()
+    db = obs_profile.KernelCostDB(str(path))
+    fns = obs_profile.decode_kernel_fns()
+    rng = np.random.default_rng(SEED_AS)
+    name = torch.cuda.get_device_name(0)
+    grid = {}
+    for K in DB_KS:
+        for T in DB_TS:
+            inputs = obs_profile.dirichlet_hmm_inputs(rng, K, T, batch=N_SERIES, device=device)
+            for kernel, branches in fns.items():
+                cell = grid.setdefault((kernel, K, T), {})
+                for b, fn in branches.items():
+                    t = device_time(fn, *inputs, reps=DB_REPS[b])
+                    db.put_row(kernel=kernel, branch=b, K=K, T=T, B=N_SERIES, dtype="float32",
+                               timing=t, source="chip_smoke.py dispatch_db")
+                    cell[b] = t.p50_s * 1e3
+    db.save()
+    hom, tv = ("cuda", "assoc"), ("seq", "assoc")
+    try:
+        obs_profile.set_db(str(path))
+        for key, cell in grid.items():
+            kernel, K, T = key
+            for allowed in (hom, tv):
+                want = min(allowed, key=lambda b: (cell[b], {"seq": 0, "assoc": 1}.get(b, 2)))
+                got = td.resolve_auto(K, T, kernel=kernel, device_type="cuda", allowed=allowed)
+                if got != (want, "db"):
+                    raise AssertionError(f"dispatch_db: {key} {allowed} resolved {got}, "
+                                         f"measured winner {want}")
+                cell[f"winner_{'homogeneous' if allowed == hom else 'time_varying'}"] = want
+            if td.resolve_routed(K, T, kernel=kernel, cuda_ok=True, device_type="cuda") == "seq":
+                raise AssertionError(f"dispatch_db: {key} routed a homogeneous call to seq")
+        # a dispatch under the DB names the branch that ran
+        obs_trace.reset()
+        obs_trace.enable()
+        lp, lA, lo, m = obs_profile.dirichlet_hmm_inputs(rng, 4, 1024, batch=N_SERIES,
+                                                         device=device)
+        td.forward_filter_dispatch(lp, lA, lo, m)
+        td.viterbi_dispatch(lp, lA, lo, m)
+        spans = sorted(obs_trace.aggregate())
+        want = sorted(f"kernels.dispatch.{e}[{grid[(k, 4, 1024)]['winner_homogeneous']}]"
+                      for e, k in (("forward_filter", "filter"), ("viterbi", "viterbi")))
+        if spans != want:
+            raise AssertionError(f"dispatch_db: spans {spans}, expected {want}")
+        # an empty DB: every route the default one
+        obs_profile.set_db(obs_profile.KernelCostDB(str(OUT_DIR / "kernel_costs_empty.json")))
+        for K in DB_KS:
+            for T in DB_TS:
+                for kernel in fns:
+                    got = (td.resolve_auto(K, T, kernel=kernel, device_type="cuda", allowed=hom),
+                           td.resolve_auto(K, T, kernel=kernel, device_type="cuda", allowed=tv))
+                    if got != (("cuda", "default"), ("seq", "default")):
+                        raise AssertionError(f"dispatch_db: empty DB resolved {got}")
+    finally:
+        obs_trace.reset()
+        obs_trace.tracer.use_env()
+        obs_profile.set_db(None)
+    emit("dispatch_db", device_kind=name, lanes=N_SERIES, reps=DB_REPS, db=str(path),
+         rows=len(db.rows()), spans=spans,
+         ms={f"{k} K={K} T={T}": cell for (k, K, T), cell in grid.items()})
+    return grid
+
+
+def phase_plan(device):
+    """The planner on one card: a planned Gibbs fit bitwise equal to the
+    unplanned one, the manifest's stanza, and the time_parallel=True
+    fit against the kernels' route (see the module docstring). Returns
+    the planned fit's launches."""
+    x, sign = tayal_batch(N_SERIES, T_FIT, seed=SEED_DATA, device=device)
+    data = {"x": x, "sign": sign}
+    model = TayalHHMM(gate_mode="hard")
+    init = default_init(model, data, N_SERIES, 1, seed=SEED_INIT, device=device)
+    sweeps = PLAN_WARMUP + PLAN_SAMPLES
+    plan = make_plan(WorkloadShape(B=N_SERIES, T=T_FIT, C=1, K=K_TAYAL), devices=[device],
+                     chunk_size=N_SERIES)
+    runs = {}
+    for key, cfg, kw in (
+            ("planned", GibbsConfig(PLAN_WARMUP, PLAN_SAMPLES, 1), dict(plan=plan)),
+            ("unplanned", GibbsConfig(PLAN_WARMUP, PLAN_SAMPLES, 1), dict(chunk_size=N_SERIES)),
+            ("assoc", GibbsConfig(PLAN_WARMUP, PLAN_SAMPLES, 1, time_parallel=True),
+             dict(chunk_size=N_SERIES))):
+        before = launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        qs, stats = fit_batched(model, data, cfg, init=init, seed=SEED_SAMPLER, device=device, **kw)
+        sync()
+        runs[key] = dict(qs=qs, stats=stats, seconds=time.perf_counter() - t0,
+                         launches=rose_since(before))
+        if key == "planned":
+            stanza = obs_manifest.noted_stanza("plan")
+    pl, un, asc = runs["planned"], runs["unplanned"], runs["assoc"]
+    if stanza != plan.stanza():
+        raise AssertionError(f"plan: the manifest's stanza {stanza} is not the plan's")
+    if not torch.equal(pl["qs"], un["qs"]) or any(
+            not torch.equal(pl["stats"][k], un["stats"][k]) for k in pl["stats"]):
+        raise AssertionError("plan: the planned fit is not bitwise the unplanned fit")
+    want = {cs.FWD.name: sweeps, cs.BWD_SAMPLE.name: sweeps}
+    if pl["launches"] != want or un["launches"] != want or asc["launches"]:
+        raise AssertionError(f"plan: launches {pl['launches']}, {un['launches']}, "
+                             f"{asc['launches']} (assoc), expected {want}, {want}, none")
+    if not bool(asc["stats"]["chain_healthy"].all()):
+        raise AssertionError("plan: a time_parallel=True chain was quarantined")
+    # folded posterior means, averaged over the series, in MCSE
+    mats = {k: canonical_draws(model.constrained_draws(runs[k]["qs"]))[0] for k in ("unplanned", "assoc")}
+    B, C, S, P = mats["assoc"].shape
+    mean = {k: v.mean(axis=(1, 2)) for k, v in mats.items()}  # [B, P]
+    ess = {k: ess_many(np.moveaxis(v, -1, 1).reshape(B * P, C, S)).reshape(B, P)
+           for k, v in mats.items()}
+    mcse2 = {k: v.var(axis=(1, 2), ddof=1) / np.maximum(ess[k], 1.0) for k, v in mats.items()}
+    pooled = np.sqrt((mcse2["assoc"] + mcse2["unplanned"]).sum(0)) / B  # MCSE of the mean over B
+    z = np.abs((mean["assoc"] - mean["unplanned"]).mean(0)) / np.maximum(pooled, 1e-12)
+    # per series and parameter (reported: 20 draws make each MCSE a rough estimate)
+    z_each = np.abs(mean["assoc"] - mean["unplanned"]) / np.maximum(
+        np.sqrt(mcse2["assoc"] + mcse2["unplanned"]), 1e-12)
+    if not z.max() <= PLAN_MCSE:
+        raise AssertionError(f"plan: series-averaged posterior means {z.max():.3g} MCSE from the "
+                             f"cuda route's (limit {PLAN_MCSE})")
+    same = int(sum(torch.equal(asc["qs"][b], un["qs"][b]) for b in range(B)))
+    emit("plan", stanza=stanza, planned_bitwise_equal=True, launches=pl["launches"],
+         sweeps=sweeps, series=N_SERIES, T=T_FIT,
+         sweep_ms={k: runs[k]["seconds"] * 1e3 / sweeps for k in runs},
+         assoc_mean_gap_mcse_max=float(z.max()), assoc_series_bitwise_equal=same,
+         assoc_series_param_within_mcse_share=float((z_each <= PLAN_MCSE).mean()),
+         assoc_launches=asc["launches"])
+    return pl["launches"]
+
+
+def wf_margin(T: int) -> float:
+    """The margin rule of a decode bucket of ``T`` steps: ``AS_MARGIN`` at
+    the main path's T, growing with T as the f32 rounding of the
+    unnormalised log-alpha does (its magnitude, so its ulp, grows
+    linearly in T)."""
+    return AS_MARGIN * max(1.0, T / T_FIT)
+
+
+class MedianRecorder:
+    """Side effect of ``wf.py``'s ``median_states``: each call's states,
+    median probabilities and the top-two gap of the medians, in call
+    order, on the host."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __call__(self, probs):
+        states = median_states(probs)
+        D = probs.shape[1]
+        srt = torch.sort(probs, dim=1).values
+        med = srt[:, D // 2] if D % 2 else (srt[:, D // 2 - 1] + srt[:, D // 2]) / 2
+        top = torch.topk(med, 2, dim=-1).values
+        self.calls.append((states.cpu(), med.cpu(), (top[..., 0] - top[..., 1]).cpu()))
+        return states
+
+
+class ReplayFit:
+    """``wf.py``'s ``fit_batched`` replayed: each call returns the kept
+    result of the same call of an earlier run, its data checked equal."""
+
+    def __init__(self, kept):
+        self.kept, self.i = kept, 0
+
+    def __call__(self, model, data, config, **kw):
+        want, qs, stats = self.kept[self.i]
+        self.i += 1
+        if set(want) != set(data) or not all(np.array_equal(want[k], data[k]) for k in data):
+            raise AssertionError("walk_forward_assoc: a fit group's data differ from the run's")
+        return qs, stats
+
+
+def phase_walk_forward_assoc(device, tasks, fits, medians, res):
+    """The Gibbs arm's decode with ``time_parallel=True`` on the
+    walk_forward run's draws (see the module docstring)."""
+    rec = MedianRecorder()
+    phases = {}
+    before = launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    with mock.patch.object(wf_module, "fit_batched", ReplayFit(fits.kept)), \
+            mock.patch.object(wf_module, "median_states", rec):
+        res_a = wf_trade(tasks, GibbsConfig(num_warmup=WF_WARMUP, num_samples=WF_SAMPLES,
+                                            num_chains=1),
+                         gate_mode="hard", chunk_size=WF_CHUNK, phase_timings=phases,
+                         seed=SEED_WF, device=device, time_parallel=True)
+    sync()
+    wall = time.perf_counter() - t0
+    rose = rose_since(before)
+    if rose:
+        raise AssertionError(f"walk_forward_assoc: the assoc decode launched {rose}")
+    stamps = sorted(k for k in phases if k.startswith("decode.time_parallel["))
+    if not stamps or any("a1v:assoc" not in k for k in stamps):
+        raise AssertionError(f"walk_forward_assoc: stamps {stamps}")
+    if len(rec.calls) != len(medians.calls):
+        raise AssertionError(f"walk_forward_assoc: {len(rec.calls)} median calls against "
+                             f"{len(medians.calls)}")
+    legs = under = 0
+    gaps, dmed = [], {}
+    for (sa, ma, _), (sk_, mk, gap) in zip(rec.calls, medians.calls):
+        T_b = int(ma.shape[1])
+        margin = wf_margin(T_b)
+        diff = sa != sk_
+        legs += int(diff.sum())
+        under += int((diff & (gap < margin)).sum())
+        gaps += gap[diff].tolist()
+        dmed[T_b] = max(dmed.get(T_b, 0.0), float((ma - mk).abs().max()))
+        if not dmed[T_b] <= 2 * margin:
+            raise AssertionError(f"walk_forward_assoc: median probabilities {dmed[T_b]:.3g} apart "
+                                 f"at T={T_b} (limit {2 * margin:.3g})")
+    if legs != under:
+        raise AssertionError(f"walk_forward_assoc: {legs - under} leg states differ from the FWD "
+                             "decode's where its top-two median gap is at least the margin")
+    same_legs = [bool(np.array_equal(a.leg_topstate, b.leg_topstate)) for a, b in zip(res_a, res)]
+    def summary(r):  # NaN-aware: a NaN statistic equals itself
+        return json.dumps(r.summary, sort_keys=True, default=float)
+
+    for a, b, same in zip(res_a, res, same_legs):
+        if same and summary(a) != summary(b):
+            raise AssertionError(f"walk_forward_assoc: task {a.symbol}/{a.window}: equal leg "
+                                 "states, different trade summaries")
+    emit("walk_forward_assoc", tasks=len(tasks), seconds=wall, phase_timings=phases,
+         decode_seconds=phases["decode"], legs_differing=legs, legs_under_margin=under,
+         gaps_of_differing_legs=sorted(gaps), median_max_abs_diff_by_T=dmed,
+         tasks_with_other_leg_states=int(len(tasks) - sum(same_legs)),
+         tasks_summaries_equal=int(sum(summary(a) == summary(b) for a, b in zip(res_a, res))),
+         margin_by_T={T_b: wf_margin(T_b) for T_b in dmed})
+
+
 def reset_all() -> None:
     for k in ALL_KERNELS:
         k.launches = 0
@@ -4891,6 +5406,15 @@ def main() -> int:
     # the obs plane on main path 1 (plane off, then on; its own counts)
     clock.append(("obs", time.perf_counter()))
     obs = phase_obs(device, kern["timing"]["fwd_ms"])
+    # the time-parallel scans against the kernels, the measured dispatch,
+    # and the planner (main path 22: the planned Gibbs fit, its own counts)
+    clock.append(("assoc", time.perf_counter()))
+    phase_assoc(device, qs)
+    clock.append(("dispatch_db", time.perf_counter()))
+    phase_dispatch_db(device)
+    clock.append(("plan", time.perf_counter()))
+    reset_all()
+    planned = phase_plan(device)
     # main path 3, the zoo's generated quantities: the hard-gate Tayal
     # decode of the Gibbs draws, the same decode of the ChEES draws, and
     # the Gaussian HMM's fit, decode and state draws
@@ -4916,11 +5440,13 @@ def main() -> int:
     clock.append(("walk_forward", time.perf_counter()))
     wf_task_list, wf_data_s = sim.result()
     reset_all()
-    wf_fits = phase_walk_forward(device, wf_task_list, wf_data_s)
+    wf_fits, wf_gibbs = phase_walk_forward(device, wf_task_list, wf_data_s)
     walk = {k.name: k.launches for k in ALL_KERNELS}
+    clock.append(("walk_forward_assoc", time.perf_counter()))
+    phase_walk_forward_assoc(device, wf_task_list, *wf_gibbs)
     clock.append(("walk_forward_kernels", time.perf_counter()))
     phase_walk_forward_kernels(*wf_fits)
-    del wf_fits
+    del wf_fits, wf_gibbs
     # main paths 6 (NUTS through fit_batched on the ChEES phase's batch)
     # and 7 (the Gaussian NUTS gate through make_logp) run in the pool
     # below; main path 8, the walk-forward back-test by NUTS, and
@@ -5005,6 +5531,7 @@ def main() -> int:
     emit("timeline", seconds={a: b - ta for (a, ta), (_, b) in zip(clock, clock[1:])},
          total_seconds=clock[-1][1] - clock[0][1])
     missing = [n for n in (cs.FWD.name, cs.BWD_SAMPLE.name) if gibbs[n] == 0]
+    missing += [f"{n} (plan)" for n in (cs.FWD.name, cs.BWD_SAMPLE.name) if not planned.get(n)]
     missing += [n for n in (cs.FWD.name, cs.VG_BWD.name, ct.TRAJ.name) if chees[n] == 0]
     missing += [n for n in (cs.FWD.name, cs.VG_BWD.name) if unfused[n] == 0]
     missing += [k.name for k in (cs.FWD, cs.BWD_SAMPLE) + DECODE_KERNELS if zoo[k.name] == 0]
@@ -5115,6 +5642,8 @@ def main() -> int:
                             bitwise_equal_k1=k1["launches"][k.name] > 0)
         if k in (cs.FWD, cs.BWD_SAMPLE, cs.VG_BWD):
             rows[-1]["launches_walk_forward"] = walk[k.name]
+        if k in (cs.FWD, cs.BWD_SAMPLE):
+            rows[-1]["launches_plan"] = planned[k.name]
         if k in (cs.FWD, cs.VG_BWD):  # the NUTS paths
             rows[-1].update(launches_nuts=nuts[k.name], ms_nuts=nuts_ms[k.name],
                             shape_nuts=dict(N=N_SERIES, T=T_FIT, K=K_TAYAL, gated=True),

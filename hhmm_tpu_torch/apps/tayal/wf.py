@@ -12,10 +12,11 @@ cached by digest, the reference's crash-recovery semantics
 states to the host; labeling, trading and analytics stay on the host
 per task.
 
-The JAX harness's ``mesh`` (placement, ``ROADMAP.md`` A9) and
-``time_parallel`` (the associative scans, A7) are not ported; ``key``
-becomes ``seed``, and ``device`` picks the card (the default) or the
-CPU.
+``mesh`` is a sequence of devices (the fit groups are repeat-padded to
+a multiple of its length and ``fit_batched`` places a shard a device,
+``plan/``) and ``time_parallel`` routes the decode's filters and Viterbi
+pass (``kernels/dispatch.py``), as in the JAX harness; ``key`` becomes
+``seed``, and ``device`` picks the card (the default) or the CPU.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from hhmm_tpu_torch.apps.tayal.pipeline import label_and_trade
 from hhmm_tpu_torch.apps.tayal.trading import Trades
 from hhmm_tpu_torch.batch import ResultCache, derive_seed, digest_key, fit_batched, pad_datasets
 from hhmm_tpu_torch.infer import SamplerConfig
+from hhmm_tpu_torch.kernels.dispatch import resolve_branch
 from hhmm_tpu_torch.models import TayalHHMMLite
 from hhmm_tpu_torch.native import zigzag as _nz
 from hhmm_tpu_torch.obs.profile import PhaseClock
@@ -122,11 +124,13 @@ def wf_trade(
     gate_mode: str = "stan",
     lags: Sequence[int] = (0, 1, 2, 3, 4, 5),
     chunk_size: int = 64,
+    mesh=None,
     cache_dir: Optional[str] = None,
     expansion: str = "xts",
     basin_nats: float = 10.0,
     warm_start: bool = False,
     phase_timings: Optional[Dict[str, float]] = None,
+    time_parallel="auto",
     seed: int = 0,
     device: DeviceLike = None,
 ) -> List[WFResult]:
@@ -157,7 +161,19 @@ def wf_trade(
     ``decode.first_call`` (the first dispatch of each shape),
     ``decode.steady``, ``decode.host_reduce``, ``decode.cache_io``,
     with the counts ``decode.dispatches`` and ``decode.shapes_pending``.
-    Cache hits show as near-zero phases.
+    Cache hits show as near-zero phases. ``decode.time_parallel[<a,v>]``
+    counts the decode dispatches by resolved branch: ``a1`` where the
+    filters ran the time-parallel scans (``a0``: the ``FWD`` kernel),
+    ``v:<branch>`` the Viterbi pass's branch; the same stamp keys the
+    decode cache, so a resumed run never mixes decodes of two routes.
+
+    ``mesh``: a sequence of devices, treated as a 1-D ``series`` mesh by
+    ``fit_batched`` (``plan.plan_for_mesh``); each fit group is
+    repeat-padded to a multiple of its length, the padding dropped.
+    ``time_parallel``: the decode's route (``"auto"``, ``True`` /
+    ``"assoc"``, ``False`` / ``"seq"``, ``"cuda"``; see
+    ``kernels/dispatch.py``). ``"auto"`` on the card keeps the ``FWD``
+    kernel for the filters.
 
     ``seed`` seeds the chain inits and the samplers (one derived seed a
     fit group); ``device=None`` is the CUDA card."""
@@ -204,18 +220,24 @@ def wf_trade(
         out: Dict[int, tuple] = {}
         for gi in range(0, len(order), chunk_size):
             g = order[gi : gi + chunk_size]
-            padded = pad_datasets([datasets[j] for j in g], time_keys=["x", "sign"])
+            # a device-divisible batch for the mesh's shards: repeat-pad
+            # the group (the extras dropped on scatter)
+            g_fit = g
+            if mesh is not None and len(g) % len(mesh):
+                g_fit = np.concatenate([g, np.repeat(g[-1:], len(mesh) - len(g) % len(mesh))])
+            padded = pad_datasets([datasets[j] for j in g_fit], time_keys=["x", "sign"])
             T_g = padded["x"].shape[1]
             bucket = max(1024, -(-T_g // 1024) * 1024)
             if bucket > T_g:
                 padded = {k: np.pad(v, ((0, 0), (0, bucket - T_g))) for k, v in padded.items()}
-            init_g = None if init_by_idx is None else np.stack([init_by_idx[j] for j in g])
+            init_g = None if init_by_idx is None else np.stack([init_by_idx[j] for j in g_fit])
             qs_g, stats_g = fit_batched(
                 model,
                 padded,
                 cfg_g,
                 init=init_g,
-                chunk_size=len(g),
+                chunk_size=len(g_fit),
+                mesh=mesh,
                 cache_dir=cache_dir,
                 seed=derive_seed(seed, salt, gi),
                 device=device,
@@ -253,6 +275,16 @@ def wf_trade(
     # D_DEC thinned draws a dispatch, hard states reduced on the card;
     # digest-cached per task ----
     dcache = ResultCache(cache_dir) if cache_dir is not None else None
+    # the resolved branches of a bucket's decode, as the decode runs them:
+    # the filters' fork and the Viterbi pass's branch (the stan gate's
+    # operators are time-varying)
+    v_allowed = ("cuda", "assoc") if gate_mode == "hard" else ("seq", "assoc")
+
+    def _tp_resolved(b_t: int) -> str:
+        a = model.seg_alpha_assoc(b_t, time_parallel, device.type)
+        v = resolve_branch(model.K, b_t, time_parallel, device.type, "viterbi", v_allowed)
+        return f"a{int(a)}v:{v}"
+
     sub = defaultdict(float)  # raw floats, rounded once below
     clock = PhaseClock(sub)
     leg_states: List[Optional[np.ndarray]] = [None] * B
@@ -272,10 +304,12 @@ def wf_trade(
         n_uniq = len(draws_t)
         if n_uniq < D_DEC:  # repeat-pad to D_DEC; the median uses n_uniq rows
             draws_t = draws_t[np.arange(D_DEC) % n_uniq]
+        b_ins, b_oos = _bucket(n_ins), _bucket(n_oos)
         dk = None
         if dcache is not None:
             dk = digest_key(
-                {"stage": "wf-decode-torch-v1", "gate_mode": gate_mode, "device": device.type},
+                {"stage": "wf-decode-torch-v1", "gate_mode": gate_mode, "device": device.type,
+                 "time_parallel": _tp_resolved(b_ins) + _tp_resolved(b_oos)},
                 {"x": x, "sign": sign},
                 {"n_ins": n_ins, "n_uniq": n_uniq},
                 draws_t,
@@ -286,7 +320,7 @@ def wf_trade(
                 leg_states[i] = np.asarray(hit["leg_state"])
         meta.append((n_ins, n_oos, keep, draws_t, dk, n_uniq))
         if leg_states[i] is None:
-            pend.setdefault((_bucket(n_ins), _bucket(n_oos)), []).append(i)
+            pend.setdefault((b_ins, b_oos), []).append(i)
     sub["decode.select"] = clock.elapsed() - sub["decode.cache_read"]
 
     seen_shapes: set = set()
@@ -315,9 +349,11 @@ def wf_trade(
             first = shape_key not in seen_shapes
             seen_shapes.add(shape_key)
             tm["decode.dispatches"] += 1
+            stamp = f"decode.time_parallel[{_tp_resolved(b_ins)},{_tp_resolved(b_oos)}]"
+            tm[stamp] = tm.get(stamp, 0) + 1
             run = "decode.first_call" if first else "decode.steady"
             if full:
-                out = model.filtered(samples_g, data_dev, device=device)
+                out = model.filtered(samples_g, data_dev, device=device, time_parallel=time_parallel)
                 ins_s = median_states(out["alpha"]).cpu().numpy()
                 oos_s = median_states(out["alpha_oos"]).cpu().numpy()
                 clock.mark(run)
@@ -328,7 +364,7 @@ def wf_trade(
                 # under-filled tasks (basin selection kept fewer than
                 # D_DEC draws): the median over the n_uniq distinct rows,
                 # on the host, as decode_states takes it
-                out = model.generated(samples_g, data_dev, device=device)
+                out = model.generated(samples_g, data_dev, device=device, time_parallel=time_parallel)
                 alpha_i = out["alpha"].cpu().numpy()  # [G, D, b_ins, K]
                 alpha_o = out["alpha_oos"].cpu().numpy()
                 clock.mark(run)

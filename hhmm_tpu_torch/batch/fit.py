@@ -34,18 +34,30 @@ kernel launch.
   are merged: a healthy series keeps its first dispatch's draws bit for
   bit. A series still quarantined after the ladder comes back with its
   mask down. Each dispatch runs once: a CUDA error raises (see
-  ``robust/retry.py``). The placement planner is not ported yet.
+  ``robust/retry.py``).
+- **Placement.** ``plan=`` (``hhmm_tpu_torch.plan.make_plan``) or
+  ``mesh=`` (a sequence of devices, a 1-D ``series`` mesh through
+  ``plan.plan_for_mesh``) sets the chunk (a multiple of the plan's
+  series ways) and splits each chunk into ``series_ways`` shards, one a
+  device (``Plan.place``), run one after another; without either, a
+  one-device plan on ``device`` is recorded. A shard is dispatched,
+  seeded, cached and healed as a chunk of its own, so a planned fit
+  equals, bit for bit, the unplanned fit at ``chunk_size`` equal to the
+  shard size. The plan's branch scopes ``"auto"`` kernel dispatch
+  (``Plan.dispatch_scope``). Results come back on ``device``.
 - **Seeds.** The JAX package splits one PRNG key per series. The port's
-  samplers draw a whole chunk from one ``torch.Generator``, seeded with
-  :func:`derive_seed` of ``(seed, first series index of the chunk)``:
-  a series' draws depend on the chunk layout, and parity with the JAX
-  package is distributional.
+  samplers draw a whole chunk (a shard under a plan) from one
+  ``torch.Generator``, seeded with :func:`derive_seed` of ``(seed,
+  first series index of the shard)``: a series' draws depend on the
+  chunk layout, and parity with the JAX package is distributional.
 """
 
 from __future__ import annotations
 
+import functools
 import sys
-from typing import Any, Dict, Optional, Tuple
+import threading
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -59,6 +71,7 @@ from hhmm_tpu_torch.infer.diagnostics import ess_many, split_rhat_many
 from hhmm_tpu_torch.infer.run import SamplerConfig, sample_nuts_batched
 from hhmm_tpu_torch.obs import metrics as obs_metrics
 from hhmm_tpu_torch.obs.trace import span
+from hhmm_tpu_torch.plan import Plan, WorkloadShape, make_plan, plan_for_mesh
 from hhmm_tpu_torch.robust import faults
 from hhmm_tpu_torch.robust.retry import RetryPolicy, escalate, rejitter
 
@@ -86,6 +99,10 @@ def _model_fingerprint(model) -> Dict[str, Any]:
 def _host(v) -> np.ndarray:
     return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
 
+
+# one stderr line a process for each (requested, rounded) chunk pair
+_CHUNK_ROUND_WARNED: set = set()
+_WARN_LOCK = threading.Lock()
 
 # bound on the (series x parameter) rows fed to the interim per-chunk
 # convergence estimators; rows beyond it are stride-decimated
@@ -152,6 +169,8 @@ def fit_batched(
     seed: int = 0,
     device: DeviceLike = None,
     retry: Optional[RetryPolicy] = None,
+    mesh: Optional[Sequence[Any]] = None,
+    plan: Optional[Plan] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Fit ``model`` independently to every series in ``data``.
 
@@ -173,7 +192,10 @@ def fit_batched(
     ``init``: ``[B, C, n_free]`` chain inits, else
     :func:`~hhmm_tpu_torch.batch.default_init` seeded from ``seed``.
     ``retry``: the healing policy (default ``RetryPolicy()``; see the
-    module docstring).
+    module docstring). ``plan`` / ``mesh``: the placement (module
+    docstring; not both). An explicit plan governs chunking
+    (``chunk_size`` is then unused) and must divide the chains when it
+    has a chain axis.
 
     Returns ``(samples [B, C, S, n_free], stats)`` on ``device``, every
     stats entry with a leading series axis."""
@@ -182,6 +204,8 @@ def fit_batched(
             "fit_batched runs SamplerConfig, GibbsConfig or ChEESConfig, got "
             f"{type(config).__name__}"
         )
+    if plan is not None and mesh is not None:
+        raise ValueError("pass plan= or mesh=, not both")
     device = resolve_device(device)
     policy = retry if retry is not None else RetryPolicy()
     data = {k: torch.as_tensor(v, device=device) for k, v in data.items() if v is not None}
@@ -213,43 +237,92 @@ def fit_batched(
     if tuple(init.shape[:2]) != (B, C):
         raise ValueError(f"init must be [B={B}, chains={C}, dim], got {tuple(init.shape)}")
 
-    def run(cfg, chunk_data, chunk_init, chunk_w, cseed):
-        """One dispatch of a chunk."""
-        if chees:
-            # the step-size probe: the first series (shared) or each series
-            probe = {k: v[0] for k, v in chunk_data.items()} if cfg.shared_adaptation else chunk_data
-            return sample_chees_batched(
-                make_lp_bc(model, chunk_data, device=device),
-                chunk_init,
-                cfg,
-                seed=cseed,
-                device=device,
-                series_weight=chunk_w,
-                probe_vg=model.make_vg(probe),
+    # ---- placement (hhmm_tpu_torch/plan): chunk, shards and branch ----
+    if plan is None:
+        T_guess = max([int(v.shape[1]) for v in data.values() if v.ndim >= 2] or [1])
+        shape_w = WorkloadShape(B=B, T=T_guess, C=C, K=int(getattr(model, "K", 0) or 0))
+        if mesh is not None:
+            plan = plan_for_mesh(mesh, shape_w, chunk_size=chunk_size)
+        else:
+            plan = make_plan(shape_w, devices=[device], chunk_size=chunk_size)
+    else:
+        cw = plan.ways("chain")
+        if cw > 1 and C % cw != 0:
+            raise ValueError(
+                f"plan shards chains {cw}-ways but config.num_chains={C} is not divisible "
+                f"by it — build the plan with WorkloadShape(C={C}) (got plan for "
+                f"{plan.shape.as_dict()})"
             )
-        if nuts:
-            return sample_nuts_batched(
-                model.make_vg(chunk_data), chunk_init, cfg, seed=cseed, device=device
+        if int(plan.shape.B) != B:
+            print(
+                f"# fit_batched: plan was built for B={plan.shape.B} series, fitting B={B} "
+                f"(the plan's chunk {plan.chunk} governs; chunk_size= is ignored when plan= "
+                "is given)",
+                file=sys.stderr,
+                flush=True,
             )
-        return sample_gibbs(model, chunk_data, chunk_init, cfg, seed=cseed, device=device)
+        plan.note()
+    chunk, ways = plan.chunk, plan.series_ways
+    if chunk != plan.chunk_requested:
+        with _WARN_LOCK:
+            first = (plan.chunk_requested, chunk) not in _CHUNK_ROUND_WARNED
+            _CHUNK_ROUND_WARNED.add((plan.chunk_requested, chunk))
+        if first:
+            print(
+                f"# fit_batched: chunk_size {plan.chunk_requested} rounded up to {chunk} "
+                f"(multiple of mesh series axis {ways}; ragged tails pad by lane repeat "
+                "with weight 0)",
+                file=sys.stderr,
+                flush=True,
+            )
 
-    chunk = max(1, min(int(chunk_size), B))  # as the JAX planner clamps it
-    n_chunks = -(-B // chunk)
+    def run(cfg, chunk_data, chunk_init, chunk_w, cseed, dev):
+        """One dispatch of a shard on ``dev``, under the plan's branch."""
+        with plan.dispatch_scope():
+            if chees:
+                # the step-size probe: the first series (shared) or each series
+                probe = (
+                    {k: v[0] for k, v in chunk_data.items()} if cfg.shared_adaptation else chunk_data
+                )
+                return sample_chees_batched(
+                    make_lp_bc(model, chunk_data, device=dev),
+                    chunk_init,
+                    cfg,
+                    seed=cseed,
+                    device=dev,
+                    series_weight=chunk_w,
+                    probe_vg=model.make_vg(probe),
+                )
+            if nuts:
+                return sample_nuts_batched(
+                    model.make_vg(chunk_data), chunk_init, cfg, seed=cseed, device=dev
+                )
+            return sample_gibbs(model, chunk_data, chunk_init, cfg, seed=cseed, device=dev)
+
+    # a chunk is `ways` shards of `shard` series, shard d on the plan's
+    # device d: the units, in their order, of an unplanned fit at
+    # chunk_size=shard
+    shard = chunk // ways
+    n_chunks = -(-B // shard)
     qs_parts, stats_parts = [], []
-    for s in range(0, B, chunk):
-        n = min(chunk, B - s)
+    for s in range(0, B, shard):
+        d = (s // shard) % ways
+        n = min(shard, B - s)
         chunk_data = {k: v[s : s + n] for k, v in data.items()}
         chunk_init = init[s : s + n]
-        chunk_w = torch.ones((chunk,), dtype=torch.float32, device=device)
-        if n < chunk:  # ragged final chunk: repeat the last series, weight 0
-            reps = chunk - n
+        chunk_w = torch.ones((shard,), dtype=torch.float32, device=device)
+        if n < shard:  # ragged final shard: repeat the last series, weight 0
+            reps = shard - n
             chunk_data = {
                 k: torch.cat([v, v[-1:].expand((reps,) + v.shape[1:])]) for k, v in chunk_data.items()
             }
             chunk_init = torch.cat([chunk_init, chunk_init[-1:].expand((reps,) + chunk_init.shape[1:])])
             chunk_w[n:] = 0.0
+        chunk_data = {k: plan.place(v, d) for k, v in chunk_data.items()}
+        chunk_init, chunk_w = plan.place(chunk_init, d), plan.place(chunk_w, d)
+        run_d = functools.partial(run, dev=chunk_init.device)
         cseed = derive_seed(seed, s)
-        label = f"chunk {s // chunk + 1}/{n_chunks}"
+        label = f"chunk {s // shard + 1}/{n_chunks}" + (f" (device {d + 1}/{ways})" if ways > 1 else "")
         ck = None
         if cache_dir:
             ck = digest_key(
@@ -270,10 +343,11 @@ def fit_batched(
             # chunk's work on the card
             with span("batch.fit.chunk") as sp_c:
                 sp_c.annotate(chunk=label, series=n)
-                qs, stats = sp_c.sync(run(config, chunk_data, chunk_init, chunk_w, cseed))
+                qs, stats = sp_c.sync(run_d(config, chunk_data, chunk_init, chunk_w, cseed))
             qs, stats = faults.corrupt_chunk_result(qs, stats, s, n, attempt=0)
-            qs, stats = _heal(run, policy, config, model, chunk_data, chunk_init, chunk_w,
+            qs, stats = _heal(run_d, policy, config, model, chunk_data, chunk_init, chunk_w,
                               cseed, seed, s, n, qs, stats, label)
+            qs, stats = qs.to(device), {k: v.to(device) for k, v in stats.items()}
             if ck is not None:
                 cache.put(ck, {"samples": _host(qs), **{k: _host(v) for k, v in stats.items()}})
             print(f"# fit_batched {label}: computed + cached", file=sys.stderr, flush=True)
@@ -282,7 +356,7 @@ def fit_batched(
             faults.note_chunk_complete()
         # interim convergence trajectory (metrics plane), cache hits
         # included, so a resumed sweep still covers every chunk
-        _record_chunk_health(s // chunk, n_chunks, qs, stats, n)
+        _record_chunk_health(s // shard, n_chunks, qs, stats, n)
         qs_parts.append(qs[:n])
         stats_parts.append({k: v[:n] for k, v in stats.items()})
 

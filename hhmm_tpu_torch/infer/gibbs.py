@@ -43,11 +43,20 @@ __all__ = [
 @dataclass(frozen=True)
 class GibbsConfig:
     """Budget for :func:`sample_gibbs`; blocked Gibbs has nothing to
-    adapt."""
+    adapt.
+
+    ``time_parallel`` routes the z-update's FFBS through
+    ``kernels/dispatch.py``: ``"auto"`` (the default; the kernels unless
+    a plan scope or a measured row says otherwise), ``True`` /
+    ``"assoc"`` (the time-parallel scans), ``False`` / ``"seq"`` (the
+    sequential scan), ``"cuda"``. Every route draws from the same
+    pre-drawn uniforms by the same inverse-CDF rule, so the choice is a
+    scheduling decision, not a statistical one."""
 
     num_warmup: int = 100
     num_samples: int = 250
     num_chains: int = 1
+    time_parallel: object = "auto"
 
 
 def transition_counts(
@@ -179,7 +188,8 @@ def sample_gibbs(
                 log_alpha, ll = forward_filter(log_pi, log_A, log_obs, mask)
                 z = backward_sample(gen, log_alpha, log_A, mask)
             else:
-                z, ll = ffbs_dispatch(gen, log_pi, log_A, log_obs, mask, *gate_args)
+                z, ll = ffbs_dispatch(gen, log_pi, log_A, log_obs, mask, *gate_args,
+                                      time_parallel=config.time_parallel)
             with span("infer.gibbs.update"):
                 new = model.gibbs_update(gen, z, lanes, params)
             with span("infer.gibbs.guard"):

@@ -11,10 +11,11 @@ Generic step interface, batch-native (any leading batch axes ``...``):
 - ``mask``    [..., T] optional               1 valid, 0 padding; a
   masked step copies the carry.
 
-These are the recursions the decode runs for a time-varying ``log_A``
-on any device; a homogeneous ``log_A`` goes to the ``FILTER`` / ``BETA``
-kernels on the card and to their plain versions on the CPU
-(``kernels/dispatch.py``).
+These are the dispatch's ``seq`` branch (``kernels/dispatch.py``), by
+default the decode of a time-varying ``log_A`` on any device; a
+homogeneous ``log_A`` goes by default to the ``FILTER`` / ``BETA``
+kernels on the card and to their plain versions on the CPU, and
+``time_parallel=True`` to the scans of ``kernels/assoc.py``.
 """
 
 from __future__ import annotations

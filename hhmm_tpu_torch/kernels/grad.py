@@ -16,11 +16,13 @@ whose forward runs the guarded filter and whose backward runs the
 guarded beta pass and forms these sums, the JAX ``custom_vjp`` in
 PyTorch idiom. It is the target of ``models/base.py::make_logp``.
 
-Routing (``kernels/dispatch.py``): a homogeneous ``log_A`` on CUDA runs
-the ``FILTER`` kernel forward and the ``BETA`` kernel backward (float32,
-any K >= 1), their plain versions on the CPU; a time-varying ``log_A``
-runs the plain scans of ``kernels/filtering.py`` on either device (the
-JAX function is a ``lax.scan`` on every backend).
+Routing (``kernels/dispatch.py``, its ``"auto"`` default routes): a
+homogeneous ``log_A`` on CUDA runs the ``FILTER`` kernel forward and
+the ``BETA`` kernel backward (float32, any K >= 1), their plain versions
+on the CPU; a time-varying ``log_A`` runs the plain scans of
+``kernels/filtering.py`` on either device (the JAX function is a
+``lax.scan`` on every backend). A plan scope or a measured row may
+route either to the scans of ``kernels/assoc.py``.
 """
 
 from __future__ import annotations

@@ -262,6 +262,7 @@ class BaseHMMModel:
         theta_draws: torch.Tensor,
         data: Dict[str, torch.Tensor],
         device: DeviceLike = None,
+        time_parallel="auto",
     ) -> Dict[str, torch.Tensor]:
         """Per-draw generated quantities: ``alpha`` (filtered
         probabilities, softmax of log-alpha per step), ``gamma``
@@ -275,12 +276,19 @@ class BaseHMMModel:
         of lanes: on the card a homogeneous model (any K >= 1) launches
         ``FILTER``, ``BETA``, ``VITERBI`` and ``BACKTRACK`` once each
         (``kernels/dispatch.py``); a time-varying ``log_A`` runs the
-        scans. Outputs carry the draws' leading axes."""
+        scans. ``time_parallel`` routes the smoothing and the Viterbi
+        pass (``"auto"``, ``True`` / ``"assoc"`` for the time-parallel
+        scans, ``False`` / ``"seq"``, ``"cuda"``; see the dispatch).
+        Outputs carry the draws' leading axes."""
         lead, flat, lanes = draw_lanes(theta_draws, data, device, self.event_ndim)
         params, _ = self.unpack(flat)
         log_pi, log_A, log_obs, mask = self.build(params, lanes)
-        log_alpha, _, log_gamma, ll = smooth_dispatch(log_pi, log_A, log_obs, mask)
-        zstar, logp_zstar = viterbi_dispatch(log_pi, log_A, log_obs, mask)
+        log_alpha, _, log_gamma, ll = smooth_dispatch(
+            log_pi, log_A, log_obs, mask, time_parallel=time_parallel
+        )
+        zstar, logp_zstar = viterbi_dispatch(
+            log_pi, log_A, log_obs, mask, time_parallel=time_parallel
+        )
         out = {
             "alpha": torch.softmax(log_alpha, dim=-1),
             "gamma": torch.exp(log_gamma),
@@ -296,18 +304,21 @@ class BaseHMMModel:
         theta_draws: torch.Tensor,
         data: Dict[str, torch.Tensor],
         device: DeviceLike = None,
+        time_parallel="auto",
     ) -> torch.Tensor:
         """Exact joint posterior draws of the state path, one FFBS path
         per posterior draw: ``z [..., T]`` int64 for ``theta_draws [...,
         n_free]`` (data as in :meth:`generated`). All draws are one
         flat batch through ``ffbs_dispatch`` — one ``FWD`` and one
-        ``BWD_SAMPLE`` launch on the card — with uniforms from
+        ``BWD_SAMPLE`` launch on the card, or with ``time_parallel`` the
+        scans (the same uniforms, the same draws) — with uniforms from
         ``generator``, which must live on ``device``. A model that
         expresses its gate by keys (:meth:`gate_keys`) keeps ``log_A``
         homogeneous through :meth:`build_vg`, as the Gibbs sweep does.
         A time-varying ``log_A [n, T-1, K, K]`` from :meth:`build` takes
         the Gumbel-max FFBS (:func:`~hhmm_tpu_torch.kernels.ffbs.
-        ffbs_sample`, the JAX package's route for it): the same target."""
+        ffbs_sample`, the JAX package's route for it, whatever
+        ``time_parallel``): the same target."""
         lead, flat, lanes = draw_lanes(theta_draws, data, device, self.event_ndim)
         params, _ = self.unpack(flat)
         gk = self.gate_keys(lanes)
@@ -316,7 +327,8 @@ class BaseHMMModel:
         if gk is None and time_varying(log_A, log_obs):
             z = ffbs_sample(generator, log_pi, log_A, log_obs, mask)
         else:
-            z, _ = ffbs_dispatch(generator, log_pi, log_A, log_obs, mask, *(gk or (None, None)))
+            z, _ = ffbs_dispatch(generator, log_pi, log_A, log_obs, mask, *(gk or (None, None)),
+                                 time_parallel=time_parallel)
         return z.reshape(lead + z.shape[1:])
 
     def constrained_draws(self, theta_draws: torch.Tensor) -> Params:

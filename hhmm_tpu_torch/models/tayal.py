@@ -32,7 +32,8 @@ from hhmm_tpu_torch.core.bijectors import Bijector, Simplex, UnitInterval
 from hhmm_tpu_torch.core.lmath import MASK_NEG, safe_log
 from hhmm_tpu_torch.infer.gibbs import beta, dirichlet, emission_counts, transition_counts
 from hhmm_tpu_torch.kernels.alpha_fused import forward_alpha
-from hhmm_tpu_torch.kernels.dispatch import viterbi_dispatch
+from hhmm_tpu_torch.kernels.assoc import forward_filter_assoc
+from hhmm_tpu_torch.kernels.dispatch import use_assoc, viterbi_dispatch
 from hhmm_tpu_torch.models.base import BaseHMMModel, Params, draw_lanes, broadcast_data
 
 __all__ = ["TayalHHMM", "TayalHHMMLite", "UP", "DOWN"]
@@ -240,22 +241,38 @@ class TayalHHMMLite(TayalHHMM):
     segment restarted from π. ``data`` carries ``x``, ``sign`` and
     ``x_oos``, ``sign_oos`` (optionally ``mask``, ``mask_oos``)."""
 
-    def _seg_alpha(self, params: Params, x, sign, mask):
+    def seg_alpha_assoc(self, T: int, time_parallel, device_type: str) -> bool:
+        """Whether a segment of ``T`` steps is filtered by the time-parallel
+        scans: ``time_parallel`` resolved for the filter; ``"auto"`` on
+        the card keeps ``forward_alpha``, as ``"auto"`` on the TPU keeps
+        the fused forward in the JAX package."""
+        if time_parallel == "auto" and device_type == "cuda":
+            time_parallel = "cuda"
+        return use_assoc(self.K, T, time_parallel, device_type)
+
+    def _seg_alpha(self, params: Params, x, sign, mask, time_parallel="auto"):
         """Filtered log-alpha for one segment through the hot-loop
         contract (build_vg + gate_keys): one ``FWD`` kernel launch over
-        every lane on the card."""
+        every lane on the card; where :meth:`seg_alpha_assoc` says so, the
+        associative filter on the materialised gate (:meth:`_gated`,
+        ``[..., T-1, K, K]`` in the stan gate)."""
+        if self.seg_alpha_assoc(int(x.shape[-1]), time_parallel, x.device.type):
+            log_pi, log_A, log_obs = self._gated(params, x, sign)
+            return forward_filter_assoc(log_pi, log_A, log_obs, mask)[0]
         seg = {"x": x, "sign": sign}
         log_pi, log_A, log_obs, _ = self.build_vg(params, seg)
         gk = self.gate_keys(seg)
         la, _ = forward_alpha(log_pi, log_A, log_obs, mask, *(gk if gk is not None else ()))
         return la
 
-    def _filtered(self, params: Params, lanes: Dict[str, torch.Tensor]):
+    def _filtered(self, params: Params, lanes: Dict[str, torch.Tensor], time_parallel="auto"):
         """Softmax-normalized filtered probabilities of both segments, one
         ``FWD`` launch each."""
-        log_alpha = self._seg_alpha(params, lanes["x"], lanes["sign"], lanes.get("mask"))
+        log_alpha = self._seg_alpha(
+            params, lanes["x"], lanes["sign"], lanes.get("mask"), time_parallel
+        )
         log_alpha_o = self._seg_alpha(
-            params, lanes["x_oos"], lanes["sign_oos"], lanes.get("mask_oos")
+            params, lanes["x_oos"], lanes["sign_oos"], lanes.get("mask_oos"), time_parallel
         )
         return {
             "alpha": torch.softmax(log_alpha, dim=-1),
@@ -267,12 +284,13 @@ class TayalHHMMLite(TayalHHMM):
         theta_draws: torch.Tensor,
         data: Dict[str, torch.Tensor],
         device: DeviceLike = None,
+        time_parallel="auto",
     ) -> Dict[str, torch.Tensor]:
         """``alpha`` and ``alpha_oos`` of :meth:`generated` without the OOS
         Viterbi path: what the walk-forward median-alpha decode reads."""
         lead, flat, lanes = draw_lanes(theta_draws, data, device)
         params, _ = self.unpack(flat)
-        out = self._filtered(params, lanes)
+        out = self._filtered(params, lanes, time_parallel)
         return {k: v.reshape(lead + v.shape[1:]) for k, v in out.items()}
 
     def generated(
@@ -280,15 +298,21 @@ class TayalHHMMLite(TayalHHMM):
         theta_draws: torch.Tensor,
         data: Dict[str, torch.Tensor],
         device: DeviceLike = None,
+        time_parallel="auto",
     ) -> Dict[str, torch.Tensor]:
         """Per-draw ``alpha [..., T, K]``, ``alpha_oos [..., T_oos, K]``
         (softmax-normalized filtered probabilities) and ``zstar_oos
         [..., T_oos]`` (the OOS Viterbi path) for ``theta_draws [...,
         n_free]``. Data arrays are ``[T]`` (one series, every draw) or
-        ``[B, T]`` with ``theta_draws [B, ..., n_free]``."""
+        ``[B, T]`` with ``theta_draws [B, ..., n_free]``.
+        ``time_parallel`` routes both filters (:meth:`_seg_alpha`) and
+        the Viterbi pass (``kernels/dispatch.py``: the stan gate's
+        time-varying operators take the scans, ``seq`` by default)."""
         lead, flat, lanes = draw_lanes(theta_draws, data, device)
         params, _ = self.unpack(flat)
-        out = self._filtered(params, lanes)
+        out = self._filtered(params, lanes, time_parallel)
         log_pi_o, log_A_o, log_obs_o = self._gated(params, lanes["x_oos"], lanes["sign_oos"])
-        out["zstar_oos"], _ = viterbi_dispatch(log_pi_o, log_A_o, log_obs_o, lanes.get("mask_oos"))
+        out["zstar_oos"], _ = viterbi_dispatch(
+            log_pi_o, log_A_o, log_obs_o, lanes.get("mask_oos"), time_parallel=time_parallel
+        )
         return {k: v.reshape(lead + v.shape[1:]) for k, v in out.items()}

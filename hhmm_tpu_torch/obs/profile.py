@@ -33,8 +33,9 @@ costs with a roofline, and the persistent kernel cost database
    quarantined aside as ``.corrupt`` and reads as empty). Its default
    file is the port's own (:func:`default_db_path`), never the JAX
    package's ``results/kernel_costs.json``. ``kernels/dispatch.py``
-   does not read it yet: on the card the port has one branch a kernel,
-   so there is no race to arbitrate until the time-parallel scans come.
+   reads it through :func:`dispatch_winner` for ``"auto"`` (a
+   homogeneous call races ``cuda`` against ``assoc``, a time-varying
+   one ``seq`` against ``assoc``).
 
 Importing this module touches no CUDA; only :func:`device_time` (on a
 CUDA callable), :func:`decode_kernel_fns`' entries and
@@ -425,13 +426,14 @@ def _single(fn):
 
 def decode_kernel_fns() -> Dict[str, Dict[str, Any]]:
     """``{kernel_name: {branch: fn}}``: the decode entries every cost-DB
-    writer times, defined once. The port has one branch on the card,
-    ``cuda`` (the kernels, through `kernels/dispatch.py`, the sanctioned
-    entries; their plain versions answer the same call on CPU tensors).
-    Each fn takes ``(log_pi, log_A, log_obs, mask)``, a flat batch or one
-    series, and returns the output a writer blocks on: the
-    log-likelihood of the filter, the Viterbi path, the FFBS draw (from a
-    generator seeded 0 on the operands' device). Lazy kernel imports:
+    writer times, defined once, each branch forced through
+    `kernels/dispatch.py` (the sanctioned entries): ``cuda`` (the
+    kernels; their plain versions answer the same call on CPU tensors),
+    ``assoc`` (the time-parallel scans) and ``seq`` (the sequential
+    scans). Each fn takes ``(log_pi, log_A, log_obs, mask)``, a flat
+    batch or one series, and returns the output a writer blocks on: the
+    log-likelihood of the filter, the Viterbi path, the FFBS draw (from
+    a generator seeded 0 on the operands' device). Lazy kernel imports:
     this module sits below ``kernels/`` in the import graph."""
     import torch
 
@@ -441,14 +443,23 @@ def decode_kernel_fns() -> Dict[str, Dict[str, Any]]:
         viterbi_dispatch,
     )
 
-    def ffbs(lp, lA, lo, m):
-        gen = torch.Generator(device=lo.device).manual_seed(0)
-        return ffbs_dispatch(gen, lp, lA, lo, m)[0]
+    def filt(b):
+        return lambda lp, lA, lo, m: forward_filter_dispatch(lp, lA, lo, m, time_parallel=b)[1]
 
+    def vit(b):
+        return lambda lp, lA, lo, m: viterbi_dispatch(lp, lA, lo, m, time_parallel=b)[0]
+
+    def ffbs(b):
+        def fn(lp, lA, lo, m):
+            gen = torch.Generator(device=lo.device).manual_seed(0)
+            return ffbs_dispatch(gen, lp, lA, lo, m, time_parallel=b)[0]
+
+        return fn
+
+    branches = ("cuda", "assoc", "seq")
     return {
-        "filter": {"cuda": _single(lambda lp, lA, lo, m: forward_filter_dispatch(lp, lA, lo, m)[1])},
-        "viterbi": {"cuda": _single(lambda lp, lA, lo, m: viterbi_dispatch(lp, lA, lo, m)[0])},
-        "ffbs": {"cuda": _single(ffbs)},
+        name: {b: _single(make(b)) for b in branches}
+        for name, make in (("filter", filt), ("viterbi", vit), ("ffbs", ffbs))
     }
 
 

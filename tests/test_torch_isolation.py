@@ -71,6 +71,7 @@ from hhmm_tpu_torch.models import (
 )
 from hhmm_tpu_torch.hhmm import hier2x2_tree
 from hhmm_tpu_torch.obs.profile import dirichlet_hmm_inputs
+from hhmm_tpu_torch.plan import WorkloadShape, make_plan
 from hhmm_tpu_torch.robust import inject
 from hhmm_tpu_torch.sim import tayal_batch
 
@@ -153,6 +154,10 @@ def test_port_file_list_is_complete():
         "hhmm_tpu_torch/obs/telemetry.py",
         "hhmm_tpu_torch/obs/manifest.py",
         "hhmm_tpu_torch/obs/profile.py",
+        "hhmm_tpu_torch/kernels/assoc.py",
+        "hhmm_tpu_torch/kernels/dispatch.py",
+        "hhmm_tpu_torch/plan/__init__.py",
+        "hhmm_tpu_torch/plan/planner.py",
         "examples_torch/_common.py",
         "examples_torch/hmm_main.py",
         "examples_torch/iohmm_main.py",
@@ -320,6 +325,13 @@ ENTRY_POINTS = {
         MultinomialHSMM(2, 3, 4), {"x": np.zeros((1, 6), np.int64)}, GibbsConfig(1, 1)
     ),
     "dirichlet_hmm_inputs": lambda: dirichlet_hmm_inputs(np.random.default_rng(0), 3, 8, 2),
+    # the planner over this host's devices, and a planned fit
+    "make_plan": lambda: make_plan(WorkloadShape(B=2, T=8)),
+    "fit_batched_mesh": lambda: fit_batched(
+        TayalHHMM(gate_mode="hard"), dict(zip(("x", "sign"), _tiny())), GibbsConfig(1, 1),
+        mesh=["cuda"],
+    ),
+    "wf_trade_time_parallel": lambda: wf_trade([], time_parallel=True),
     "example_driver": lambda: _run_driver("hmm_main.py", "--quick", "--T", "20"),
     "constrained_from_jax": lambda: constrained_from_jax(
         TayalHHMM(), {"p_11": np.float32(0.5), "A_row": np.full((2, 2), 0.5),

@@ -435,16 +435,22 @@ def test_dispatch_spans_name_their_branch(plane):
 
 
 def test_decode_kernel_fns_are_the_dispatch_entries():
-    """The DB writers' decode entries: the port's one branch, ``cuda``
-    (the plain versions answer CPU tensors), on a flat batch or one
-    series, computing what the dispatch entries compute."""
+    """The DB writers' decode entries: the port's three branches,
+    ``cuda`` (the plain versions answer CPU tensors), ``assoc`` and
+    ``seq``, on a flat batch or one series, computing what the dispatch
+    entries compute with that branch forced."""
     rng = np.random.default_rng(4)
     lp, lA, lo, m = t_profile.dirichlet_hmm_inputs(rng, 3, 20, batch=2, device="cpu")
     assert lo.dtype == torch.float32 and tuple(lo.shape) == (2, 20, 3)
     fns = t_profile.decode_kernel_fns()
     assert {k: sorted(v) for k, v in fns.items()} == {
-        "filter": ["cuda"], "viterbi": ["cuda"], "ffbs": ["cuda"]}
+        "filter": ["assoc", "cuda", "seq"], "viterbi": ["assoc", "cuda", "seq"],
+        "ffbs": ["assoc", "cuda", "seq"]}
     assert torch.equal(fns["filter"]["cuda"](lp, lA, lo, m), td.forward_filter_dispatch(lp, lA, lo, m)[1])
+    for b in ("assoc", "seq"):
+        assert torch.equal(fns["filter"][b](lp, lA, lo, m),
+                           td.forward_filter_dispatch(lp, lA, lo, m, time_parallel=b)[1])
+        assert torch.equal(fns["viterbi"][b](lp, lA, lo, m), fns["viterbi"]["cuda"](lp, lA, lo, m))
     assert torch.equal(fns["viterbi"]["cuda"](lp[0], lA[0], lo[0], m[0]),
                        td.viterbi_dispatch(lp[:1], lA[:1], lo[:1], m[:1])[0][0])
     z = fns["ffbs"]["cuda"](lp, lA, lo, m)
