@@ -46,7 +46,7 @@ before it and read just after:
   backward once a log-density call);
 - the walk-forward back-test by NUTS (``wf_trade`` with a
   ``SamplerConfig`` on every 8th of the ChEES arm's windows by length,
-  30 + 30 transitions) and ``run_window`` on the first of them;
+  20 + 20 transitions) and ``run_window`` on the first of them;
 - the multinomial HMMs of ``hmm/main-multinom.R`` (K=3, L=5) and
   ``hmm/main-multinom-semisup.R`` (K=4, L=9, both gates), 256 series x
   T=1024 each: ``fit_batched`` Gibbs 100 + 300 in chunks of 64,
@@ -91,7 +91,12 @@ before it and read just after:
   and the K'=12 model under NUTS (64 series, depth 6);
 - the placement planner (``plan/``): ``bench.py``'s Gibbs fit (256 x
   T=1024, hard gate, 20 + 20) through ``fit_batched(plan=make_plan(...,
-  devices=[cuda:0]))`` (``FWD`` and ``BWD_SAMPLE`` once a sweep).
+  devices=[cuda:0]))`` (``FWD`` and ``BWD_SAMPLE`` once a sweep);
+- the serving plane (``serve/``, ``pipeline/``): ``bench.py --serve``'s
+  arm, a Gibbs fit of 50 + 128 sweeps on 256 series x 512 steps (``FWD``
+  and ``BWD_SAMPLE`` once a sweep) banked as 32-draw snapshots, then
+  256 series served tick by tick through ``MicroBatchScheduler`` (the
+  ticks are torch ops and launch no kernel).
 The two NUTS paths of the Tayal batch and the Gaussian gate, and the
 IOHMM, Hassan, tree and HSMM-NUTS paths run as nine tasks (NUTS, the
 Gaussian gate, two IOHMMs, two benchmarks, the two tree paths, the
@@ -103,7 +108,11 @@ Phases, one JSON object per line:
 1. device  — requires CUDA (exits non-zero without it); prints the
    card's ``nvidia-smi`` name and power limit on a line of its own.
 2. build   — builds every kernel from ``hhmm_tpu_torch/kernels/csrc``
-   with ``nvcc`` (all sources in parallel); ``ptxas`` reports each
+   with ``nvcc`` (all sources in parallel, the FFBS pair's from a
+   thread of their own, so that the FFBS checks of phase 3 run beside
+   the build: their plain versions first, the kernels once the pair is
+   built; the line's ``seconds`` is the build's, its timeline group
+   holds both); ``ptxas`` reports each
    kernel instantiation's registers, spills and static shared memory
    (line ``ptxas``; line ``ptxas_fwd_core``: the forward core of
    ``FWD``, ``FILTER`` and ``VITERBI`` at K=4 and K=16, the last two
@@ -212,6 +221,27 @@ Phases, one JSON object per line:
    MCSE of the ``cuda`` route's for every parameter (the share of
    (series, parameter) pairs within it reported: 20 draws make a
    series' MCSE rough), and the sweep ms of both routes.
+   serve — the snapshots' fit, ``SnapshotRegistry``, then three arms of
+   ``MicroBatchScheduler`` (buckets (8, 64, 256), four tenants, attached
+   warm on the 512 fitted steps): staged, resident and pipelined
+   (``dispatch_async`` / ``harvest``), 2 warmup and 254 timed ticks each,
+   the responses bitwise equal tick for tick; no shed, dispatch error,
+   new signature or nvcc build after warmup; the last tick's probs of 8
+   series within ``wf_margin(768)`` of ``FWD``'s filter of the same draws;
+   the fit's first ``FWD`` and ``BWD_SAMPLE`` launches at its shape
+   bitwise against the plain versions and timed; ticks/s, p50 / p99, the
+   request plane's shares of host-clock intervals (queue, the dispatch
+   stage: dispatch to sync or to commit, other), hidden and stall
+   seconds, then a short traced pass for
+   the ``serve.*`` spans and the sampled flush profile: the CUDA-event
+   time of the staged tick's update, re-run warm, and its share of a
+   tick.
+   serve_faults — 32 series x 8 draws, 64 ticks, buckets (8,): a device
+   loss at dispatches 9–11 sync and pipelined, torn and slow snapshot
+   loads through ``SnapshotPager``: every fault a counted shed, the
+   series no fault touched bitwise the clean run, the event feeds of the
+   clean sync and pipelined arms equal; a ``GaussianHSMM(3, 4)`` served
+   32 ticks, its collapsed probs within ``wf_margin`` of ``FILTER``'s.
    decode_smooth — ``TayalHHMM(gate_mode="hard").generated`` on 32
    Gibbs draws x 256 series: shapes, probability rows, each decode
    kernel launched once, every output against the plain versions on
@@ -410,8 +440,8 @@ import contextlib
 import io
 import itertools
 import json
-import itertools
 import multiprocessing
+import os
 import re
 import subprocess
 import sys
@@ -454,8 +484,10 @@ from hhmm_tpu_torch.kernels import cuda_traj as ct
 from hhmm_tpu_torch.kernels import dispatch as td
 from hhmm_tpu_torch.kernels import assoc as tassoc
 from hhmm_tpu_torch.kernels import forward_value_and_grad
-from hhmm_tpu_torch.kernels.cuda_build import build_and_load
+from hhmm_tpu_torch.kernels.cuda_build import build
 from hhmm_tpu_torch.kernels.ffbs import gumbel
+from hhmm_tpu_torch.kernels.alpha_fused import forward_alpha
+from hhmm_tpu_torch.kernels.duration import collapse_probs
 from hhmm_tpu_torch.kernels.filtering import forward_filter, smooth
 from hhmm_tpu_torch.models import (
     GaussianHMM,
@@ -479,9 +511,20 @@ from hhmm_tpu_torch.obs import manifest as obs_manifest
 from hhmm_tpu_torch.obs import metrics as obs_metrics
 from hhmm_tpu_torch.obs import trace as obs_trace
 from hhmm_tpu_torch.obs import profile as obs_profile
+from hhmm_tpu_torch.obs import telemetry as obs_telemetry
 from hhmm_tpu_torch.obs.profile import bound_ms, device_time, kernel_cost, roofline
+from hhmm_tpu_torch.obs.request import RequestRecorder
 from hhmm_tpu_torch.plan import WorkloadShape, make_plan
 from hhmm_tpu_torch.robust import FaultPlan, RetryPolicy, SimulatedCrash, faults
+from hhmm_tpu_torch.serve import (
+    MicroBatchScheduler,
+    PosteriorSnapshot,
+    RegimeEventFeed,
+    SnapshotPager,
+    SnapshotRegistry,
+    model_spec,
+    snapshot_from_fit,
+)
 from hhmm_tpu_torch.sim import (
     hmm_sim,
     hsmm_sim,
@@ -579,8 +622,9 @@ GN_WARMUP, GN_SAMPLES, GN_CHAINS = 60, 60, 2
 GN_MU_ATOL, GN_SIGMA_ATOL, GN_A_ATOL, GN_DIV_MAX = 0.08, 0.05, 0.10, 0.05
 SEED_GN = 42
 # eighth: the walk-forward back-test by NUTS (stan gate, one chain),
-# 30 + 30 transitions (50 + 50 until the tree paths joined the script's
-# budget), not the reference's 250 + 250, on every 8th of the
+# 20 + 20 transitions (50 + 50 until the tree paths joined the script's
+# budget, 30 + 30 until the serving phases did), not the reference's
+# 250 + 250, on every 8th of the
 # ChEES arm's 16 windows ordered by in-sample ticks: the shortest (about
 # 900 legs) and one of about 3,100 (one fit group of 2); then run_window
 # on the shortest. On all 16 windows at 50 + 50 the arm alone took 732 s on the
@@ -588,7 +632,7 @@ SEED_GN = 42
 # 8,500 legs ran up to 1023 lockstep leapfrogs a transition); at 10 + 10,
 # 115 s, with the step sizes unadapted (one dual-averaging update after
 # the mass window: 72 % of the transitions divergent)
-WF_NUTS_STRIDE, WF_NUTS_WARMUP, WF_NUTS_SAMPLES = 8, 30, 30
+WF_NUTS_STRIDE, WF_NUTS_WARMUP, WF_NUTS_SAMPLES = 8, 20, 20
 # ninth: the multinomial HMMs of hmm/main-multinom.R:7-27 (K=3, L=5) and
 # hmm/main-multinom-semisup.R:7-41 (K=4, L=9, groups (0, 1, 1, 0), the
 # sparse Tayal-shaped A), as examples/hmm_main.py builds them, 256
@@ -750,6 +794,10 @@ EXTRA_FFBS_SHAPES = ((64, EXTRA_T, True), (3, 2100, True))
 EXTRA_VG_LANES = 64
 EXTRA_DECODE_LANES = 256
 FFBS_TIMING_LANES = (1, 256, 512, 2048, 8192)  # FWD / BWD_SAMPLE timed at T=1024, K=4
+
+# seconds of launches that warm the card up after the build's idle
+# stretch, before the first kernel timing
+CLOCK_WARMUP_S = 1.0
 
 # tolerances (kernel vs plain version on the card)
 DECODE_ATOL = 1e-5  # filtered probabilities, absolute
@@ -918,23 +966,30 @@ def traj_bytes_ops(T: int, B: int, C: int, mask_t, n_steps: int):
     return c["bytes_accessed"], c["flops"]
 
 
-def phase_kernels(device):
+def ffbs_checks(device, ready):
     """``FWD`` and ``BWD_SAMPLE`` bitwise equal to ``fwd_plain`` and
     ``bwd_sample_plain`` (alpha, ll and every draw) in every case of
     ``FFBS_KS`` x gated x ``FFBS_SHAPES`` and ``EXTRA_KS`` x gated x
-    ``EXTRA_FFBS_SHAPES``; then timed at the main path's shape, on one
-    lane, and at each of ``FFBS_TIMING_LANES`` lanes."""
-    cases = []
-    fwd_err = z_err = 0.0
+    ``EXTRA_FFBS_SHAPES``. The plain versions of every case run first,
+    while ``nvcc`` builds the kernels (their host loops need none);
+    ``ready()`` returns once the two kernels are bound, then each runs on
+    the kept inputs. Returns the cases and the largest errors."""
     grid = [(K, g, shape) for K in FFBS_KS for g in (False, True) for shape in FFBS_SHAPES]
     grid += [(K, g, shape) for K in EXTRA_KS for g in (False, True) for shape in EXTRA_FFBS_SHAPES]
+    plain = []
     for i, (K, gated, (N, T, both)) in enumerate(grid):
         lanes, u_t = make_case(1000 + i, N, T, K, gated, device, both_ends=both)
         pi_t, A_t, obs_t, mask_t, gate_t, sk_t = lanes
-        ll_k, a_k = cs.fwd_lanes(*lanes)
-        z_k = cs.bwd_sample_lanes(A_t, mask_t, a_k, u_t, gate_t, sk_t)
         ll_p, a_p = cs.fwd_plain(*lanes)
         z_p = cs.bwd_sample_plain(A_t, mask_t, a_p, u_t, gate_t, sk_t)
+        plain.append((lanes, u_t, ll_p, a_p, z_p))
+    ready()
+    cases = []
+    fwd_err = z_err = 0.0
+    for (K, gated, (N, T, both)), (lanes, u_t, ll_p, a_p, z_p) in zip(grid, plain):
+        pi_t, A_t, obs_t, mask_t, gate_t, sk_t = lanes
+        ll_k, a_k = cs.fwd_lanes(*lanes)
+        z_k = cs.bwd_sample_lanes(A_t, mask_t, a_k, u_t, gate_t, sk_t)
         sync()
         fwd_err = max(fwd_err, float((a_k - a_p).abs().max()), float((ll_k - ll_p).abs().max()))
         z_err = max(z_err, float((z_k - z_p).abs().max()))
@@ -949,10 +1004,24 @@ def phase_kernels(device):
         cases.append(dict(K=K, gated=gated, N=N, T=T, masked_both_ends=both,
                           masked_steps=int((mask_t == 0).sum())))
         emit("kernels_vs_plain", bitwise_equal=True, **cases[-1])
+    return cases, fwd_err, z_err
 
+
+def phase_kernels(device, checked):
+    """``FWD`` and ``BWD_SAMPLE``, checked by :func:`ffbs_checks`
+    (``checked``), timed at the main path's shape, on one lane, and at
+    each of ``FFBS_TIMING_LANES`` lanes."""
+    cases, fwd_err, z_err = checked
     # timing at the main-path shape: N=256, T=1024, K=4, ungated
     lanes, u_t = make_case(2000, N_SERIES, T_FIT, K_TAYAL, False, device)
     pi_t, A_t, obs_t, mask_t, gate_t, sk_t = lanes
+    # the card idles while the last sources build, after the checks: a
+    # second of launches brings its clocks back up before the first timing
+    t_warm = time.perf_counter() + CLOCK_WARMUP_S
+    while time.perf_counter() < t_warm:
+        for _ in range(20):
+            cs.fwd_lanes(*lanes)
+        sync()
     _, alpha = cs.fwd_lanes(*lanes)
     t = {}
     t["fwd_ms"] = time_ms(lambda: cs.fwd_lanes(*lanes), reps=50)
@@ -2971,7 +3040,7 @@ def phase_walk_forward_nuts(device, tasks):
     """The eighth main path: ``wf_trade`` with a ``SamplerConfig`` on
     every ``WF_NUTS_STRIDE``-th of the ChEES arm's windows ordered by
     in-sample ticks (the shortest and one of about 3,100 legs: one fit
-    group of 2 windows; stan gate, one chain, 30 + 30 transitions): ``FWD`` and
+    group of 2 windows; stan gate, one chain, 20 + 20 transitions): ``FWD`` and
     ``VG_BWD`` once a value-and-grad call and ``FWD`` twice a decode
     dispatch, every chain healthy, trades for every lag, the lockstep
     cost a fit group. Then ``run_window`` on the first of the windows.
@@ -4622,12 +4691,15 @@ OBS_DEVICE_TIME_RATIO = 1.25  # device_time of FWD against the kernels line's ti
 OUT_DIR = Path("chiprun_out")
 ROOT = Path(__file__).resolve().parent
 # examples_torch/ drivers run --quick as subprocesses, all at once: (driver,
-# the line each must print)
+# the line each must print); DRIVER_ARGS are extra arguments (the Hassan
+# replication's walk-forward cut from --quick's 10 steps a benchmark to 5,
+# since the serving phases joined the script's budget)
 DRIVERS = (("hmm_main.py", "filtered accuracy"), ("iohmm_main.py", "filtered accuracy"),
            ("hassan_main.py", "out-of-sample errors"), ("hassan_replication.py", "SYN-B"),
            ("hhmm_main.py", "top-state recovery"),
            ("jangmin_main.py", "unsupervised regime decode accuracy"),
            ("tayal_main.py", "out-of-sample trading"), ("tayal_strategy.py", "(symbol, window) tasks"))
+DRIVER_ARGS = {"hassan_replication.py": ("--steps", "5")}
 DRIVER_TIMEOUT_S = 400
 DRIVERS_AFTER_TASKS = 3  # the pool's tasks done before the drivers start
 
@@ -4824,7 +4896,8 @@ def start_drivers():
     try:
         for driver, _ in DRIVERS:
             procs[driver] = subprocess.Popen(
-                [sys.executable, str(ROOT / "examples_torch" / driver), "--quick"], cwd=ROOT,
+                [sys.executable, str(ROOT / "examples_torch" / driver), "--quick",
+                 *DRIVER_ARGS.get(driver, ())], cwd=ROOT,
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     except BaseException:
         stop_processes(procs)
@@ -5323,6 +5396,406 @@ def phase_walk_forward_assoc(device, tasks, fits, medians, res):
          margin_by_T={T_b: wf_margin(T_b) for T_b in dmed})
 
 
+# ---------------------------------------------------------------------------
+# the serving plane: bench.py --serve's arm on the card, then its faults
+# ---------------------------------------------------------------------------
+
+SERVE_HIST, SERVE_WARM_TICKS, SERVE_TICKS = 512, 2, 254  # 512 + 2 + 254 = 768 steps
+SERVE_WARMUP, SERVE_SAMPLES, SERVE_DRAWS = 50, 128, 32
+SERVE_BUCKETS, SERVE_TENANTS = (8, 64, 256), 4
+SERVE_TRACE_TICKS = 16
+SF_SERIES, SF_DRAWS, SF_TICKS, SF_BUCKETS = 32, 8, 64, (8,)
+SH_SERIES, SH_DRAWS, SH_TICKS, SH_K, SH_DMAX = 16, 8, 32, 3, 4
+CARD = None  # the nvidia-smi name and power limit, set by main()
+
+
+def serve_ticks(x, sign, t):
+    """One tick of observations a series, the scheduler's ``obs`` dicts."""
+    return [{"x": int(a), "sign": int(b)} for a, b in zip(x[:, t], sign[:, t])]
+
+
+def serve_arm(model, reg, n, x, sign, t0, n_ticks, warm, *, tenants=SERVE_TENANTS,
+              buckets=SERVE_BUCKETS, history=True, events=False, overlap=False, **kw):
+    """Attach ``n`` series from ``reg`` (warm from steps ``[0, t0)``), run
+    ``warm`` ticks, reset the throughput window, then run the rest of the
+    ``n_ticks`` ticks: sync ``flush`` per tick, or with ``overlap`` the
+    pipelined drive (submit tick t while tick t-1 is in the air, then
+    harvest it and dispatch tick t). Returns the responses per tick
+    (series order), the scheduler, and its seconds and counters."""
+    rec = RequestRecorder(enabled=True, window_s=3600.0)
+    feed = RegimeEventFeed(hold=1) if events else None
+    sched = MicroBatchScheduler(model, buckets=buckets, registry=reg, recorder=rec, events=feed,
+                                device=x.device, **kw)
+    sids = [f"s{i}" for i in range(n)]
+    xh, sh = x.cpu().numpy(), sign.cpu().numpy()
+    sync()
+    t_a = time.perf_counter()
+    rej = sched.attach_many([
+        (sid, reg.load(sid), {"x": xh[i, :t0], "sign": sh[i, :t0]} if history else None,
+         f"t{i % tenants}") for i, sid in enumerate(sids)])
+    sync()
+    attach_s = time.perf_counter() - t_a
+    if rej:
+        raise AssertionError(f"serve: attach rejected {rej[:3]}")
+    out = []
+    marks = {}
+
+    def take(resps):
+        by = {}
+        for r in resps:
+            by.setdefault(r.series_id, []).append(r)
+        return by
+
+    def collect(by):
+        for sid in sids:
+            for r in by.get(sid, ()):
+                out.append(r)
+
+    def mark_warm(t):
+        if t == warm:
+            sched.metrics.reset_throughput_window()
+            rec.reset_window()
+            marks.update(compile=sched.metrics.compile_count, nvcc=obs_telemetry.backend_compiles(),
+                         t=time.perf_counter())
+
+    if not overlap:
+        for t in range(n_ticks):
+            mark_warm(t)
+            for sid, obs in zip(sids, serve_ticks(xh, sh, t0 + t)):
+                sched.submit(sid, obs)
+            collect(take(sched.flush()))
+    else:
+        for t in range(n_ticks + 1):
+            mark_warm(t)
+            if t < n_ticks:
+                for sid, obs in zip(sids, serve_ticks(xh, sh, t0 + t)):
+                    sched.submit(sid, obs)
+            if t:
+                collect(take(sched.harvest()))
+            if t < n_ticks:
+                sched.dispatch_async()
+    wall = time.perf_counter() - marks["t"]
+    # every series of a flight shares its stamps: the per-tick sums over
+    # n series are n times the per-flight seconds
+    sums = rec.totals()
+    return out, sched, dict(attach_s=attach_s, wall_s=wall, compile_warm=marks["compile"],
+                            nvcc_warm=marks["nvcc"], stanza=rec.stanza(top=SERVE_TENANTS),
+                            hidden_s=sums["hidden"] / n, stall_s=sums["stall"] / n,
+                            dispatch_stage_s=sums["device"] / n)
+
+
+def serve_keys(resps):
+    """The bytes of every response field a bitwise comparison holds."""
+    return [(r.series_id, r.shed, r.degraded, r.healthy_draws, np.asarray(r.probs).tobytes(),
+             np.float64(r.loglik).tobytes(),
+             None if r.per_draw_loglik is None else np.asarray(r.per_draw_loglik).tobytes(),
+             None if r.draw_ok is None else np.asarray(r.draw_ok).tobytes()) for r in resps]
+
+
+def serve_clean(name, sched, info, n_resp):
+    """A clean arm sheds nothing, fails no dispatch and adds no signature
+    and no nvcc build after warmup."""
+    m = sched.metrics
+    bad = dict(shed=m.shed_ticks, dispatch_errors=m.dispatch_errors,
+               new_signatures=m.compile_count - info["compile_warm"],
+               new_nvcc=obs_telemetry.backend_compiles() - info["nvcc_warm"])
+    if any(bad.values()) or n_resp == 0:
+        raise AssertionError(f"serve: the {name} arm is not clean: {bad}, {n_resp} responses")
+
+
+def phase_serve(device):
+    """bench.py --serve's arm through hhmm_tpu_torch.serve at full width
+    (see the module docstring). Returns the serve path's launches, read
+    before the batch filter checks the served state, and the fit's first
+    launches at its shape against the plain versions."""
+    x, sign = tayal_batch(N_SERIES, T_FIT, seed=SEED_DATA, device=device)
+    model = TayalHHMM(gate_mode="hard")
+    sync()
+    t0 = time.perf_counter()
+    with LaneRecorder() as rec:
+        qs, stats = fit_batched(model, {"x": x[:, :SERVE_HIST], "sign": sign[:, :SERVE_HIST]},
+                                GibbsConfig(SERVE_WARMUP, SERVE_SAMPLES, 1), chunk_size=N_SERIES,
+                                seed=SEED_SAMPLER, device=device)
+        sync()
+    fit_s = time.perf_counter() - t0
+    healthy = stats["chain_healthy"].cpu().numpy()
+    n_ticks = SERVE_WARM_TICKS + SERVE_TICKS
+    arms = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        reg = SnapshotRegistry(tmp)
+        qh = qs.cpu().numpy()
+        for i in range(N_SERIES):
+            reg.save(f"s{i}", snapshot_from_fit(model, qh[i], healthy[i], n_draws=SERVE_DRAWS))
+        for name, kw in (("staged", {}), ("resident", dict(resident=True)),
+                         ("pipelined", dict(pipeline=True, overlap=True))):
+            arms[name] = serve_arm(model, reg, N_SERIES, x, sign, SERVE_HIST, n_ticks,
+                                   SERVE_WARM_TICKS, **kw)
+        # the tick's host / device split from the obs plane's spans: a
+        # short traced pass a mode, the sync one with the sampled flush
+        # profile (CUDA events around a warm re-run of the tick's update)
+        spans, profiled = {}, {}
+        obs_trace.reset()
+        obs_trace.enable()
+        try:
+            for name, kw in (("staged", dict(profile_every=4)),
+                             ("pipelined", dict(pipeline=True, overlap=True))):
+                _, _, info = serve_arm(model, reg, N_SERIES, x, sign, SERVE_HIST,
+                                       SERVE_WARM_TICKS + SERVE_TRACE_TICKS, SERVE_WARM_TICKS, **kw)
+                spans[name] = {k: v for k, v in obs_trace.aggregate().items() if k.startswith("serve.")}
+                profiled.update(info["stanza"]["profiled_device_ms"])
+                obs_trace.reset()
+        finally:
+            obs_trace.disable()
+    launches = launch_counts()
+    kernels = kept_vs_plain(rec.calls, "serve")
+    # the staged tick's update (one dispatch of the full bucket a tick):
+    # its CUDA-event time, launch gaps between its ops included
+    update_ms = profiled.get(f"update/b{SERVE_BUCKETS[-1]}")
+    if update_ms is None:
+        raise AssertionError(f"serve: no flush profile of the full bucket's update: {profiled}")
+    ref = serve_keys(arms["staged"][0])
+    if len(ref) != N_SERIES * n_ticks:
+        raise AssertionError(f"serve: {len(ref)} responses, expected {N_SERIES * n_ticks}")
+    for name in ("resident", "pipelined"):
+        if serve_keys(arms[name][0]) != ref:
+            raise AssertionError(f"serve: the {name} arm's responses are not bitwise the staged arm's")
+    for name, (resps, sched, info) in arms.items():
+        serve_clean(name, sched, info, len(resps))
+    # the last tick's served probabilities of 8 series against the batch
+    # filter (FWD) of the same 32 draws over the same 768 steps
+    T_all = SERVE_HIST + n_ticks
+    sched = arms["staged"][1]
+    check = list(range(0, N_SERIES, N_SERIES // 8))
+    draws = torch.stack([sched.draw_bank_of(f"s{i}") for i in check])  # [8, D, dim]
+    params, _ = model.unpack(draws)
+    log_pi, log_A, log_obs, _ = model.build(
+        params, {"x": x[check, :T_all], "sign": sign[check, :T_all]})
+    D = draws.shape[1]
+    before = launch_counts()
+    la, _ = forward_alpha(log_pi.reshape(-1, K_TAYAL), log_A.reshape(-1, K_TAYAL, K_TAYAL),
+                          log_obs.reshape(-1, T_all, K_TAYAL))
+    if rose_since(before) != {cs.FWD.name: 1}:
+        raise AssertionError(f"serve: the batch filter launched {rose_since(before)}")
+    batch_p = torch.softmax(la[:, -1], dim=-1).reshape(len(check), D, K_TAYAL).mean(1).cpu().numpy()
+    last = {r.series_id: r for r in arms["staged"][0][-N_SERIES:]}
+    served = np.stack([last[f"s{i}"].probs for i in check])
+    gap = float(np.abs(served - batch_p).max())
+    if not gap <= wf_margin(T_all):
+        raise AssertionError(f"serve: served probs {gap:.3g} from the batch filter "
+                             f"(limit {wf_margin(T_all):.3g})")
+    lines = {}
+    for name, (resps, sched, info) in arms.items():
+        summ = sched.metrics.summary()
+        ov = info["stanza"]["overall"]
+        pipe = info["stanza"]["pipeline"]
+        tick_ms = info["wall_s"] / SERVE_TICKS * 1e3
+        # the request plane's shares are of host-clock intervals: its
+        # "device" stage, the dispatch stage here, runs from dispatch to
+        # sync (sync arms) or to commit (pipelined), host launch work
+        # included; the card's share of a tick is the flush profile's
+        # update time over the tick
+        lines[name] = dict(
+            attach_s=info["attach_s"], timed_s=info["wall_s"],
+            ticks_per_s=SERVE_TICKS / info["wall_s"], series_ticks_per_s=summ["ticks_per_sec"],
+            latency_p50_ms=summ["latency_p50_ms"], latency_p99_ms=summ["latency_p99_ms"],
+            tick_ms=tick_ms, card_share_of_tick=update_ms / tick_ms,
+            queue_share=ov["queue_share"], dispatch_stage_share=ov["device_share"],
+            other_share=ov["other_share"], hidden_share_of_dispatch_stage=ov["overlap_share"],
+            compile_count=summ["compile_count"],
+            new_signatures_after_warmup=summ["compile_count"] - info["compile_warm"],
+            nvcc_builds_after_warmup=obs_telemetry.backend_compiles() - info["nvcc_warm"],
+            shed=summ["shed_ticks"], h2d_bytes=summ["h2d_bytes"],
+            d2h_bytes=summ["d2h_bytes"], carry_resident_bytes=summ["carry_resident_bytes"],
+            harvested_flights=pipe["harvested_flights"],
+            dispatch_stage_s=info["dispatch_stage_s"], hidden_s=info["hidden_s"],
+            stall_s=info["stall_s"])
+    emit("serve", card=CARD, series=N_SERIES, draws=SERVE_DRAWS, fit_steps=SERVE_HIST,
+         fit_sweeps=SERVE_WARMUP + SERVE_SAMPLES, fit_s=fit_s, ticks=SERVE_TICKS,
+         warm_ticks=SERVE_WARM_TICKS, buckets=list(SERVE_BUCKETS), tenants=SERVE_TENANTS,
+         arms=lines, bitwise_equal_arms=True, probs_vs_fwd_max_abs=gap,
+         margin=wf_margin(T_all), launches={k: v for k, v in launches.items() if v},
+         update_device_ms=update_ms, profiled_device_ms=profiled, spans=spans,
+         kernels_vs_plain=kernels)
+    return launches, kernels
+
+
+def phase_serve_faults(device):
+    """The fault replay (32 series, 8 draws, 64 ticks, buckets (8,)):
+    device loss at given dispatches in the sync and pipelined arms, torn
+    and slow snapshot loads through the pager; every injected fault comes
+    back as a counted shed, series no fault touched equal the clean run
+    bitwise, and the event feed emits the same events sync and
+    pipelined. Then a GaussianHSMM served 32 ticks, its collapsed probs
+    against the batch filter (FILTER)."""
+    x, sign = tayal_batch(SF_SERIES, SF_TICKS, seed=SEED_DATA + 1, device=device)
+    model = TayalHHMM(gate_mode="hard")
+    rng = np.random.default_rng(SEED_DATA)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        reg = SnapshotRegistry(tmp)
+        for i in range(SF_SERIES):
+            qs = (0.3 * rng.normal(size=(1, 4 * SF_DRAWS, model.n_free))).astype(np.float32)
+            reg.save(f"s{i}", snapshot_from_fit(model, qs, n_draws=SF_DRAWS))
+        common = dict(buckets=SF_BUCKETS, history=False, events=True)
+        clean, sc, _ = serve_arm(model, reg, SF_SERIES, x, sign, 0, SF_TICKS, 1, **common)
+        clean_p, sp, _ = serve_arm(model, reg, SF_SERIES, x, sign, 0, SF_TICKS, 1, pipeline=True,
+                                   overlap=True, **common)
+        if serve_keys(clean_p) != serve_keys(clean):
+            raise AssertionError("serve_faults: the clean pipelined arm is not the sync arm")
+        ref = {}
+        for r in clean:
+            ref.setdefault(r.series_id, []).append(serve_keys([r])[0])
+        for name, plan, kw in (
+                ("device_loss_sync", faults.TrafficFaultPlan(device_loss_at_dispatch=9,
+                                                             device_loss_count=3), {}),
+                ("device_loss_pipelined", faults.TrafficFaultPlan(device_loss_at_dispatch=9,
+                                                                  device_loss_count=3),
+                 dict(pipeline=True, overlap=True))):
+            with faults.inject(plan):
+                resps, sched, _ = serve_arm(model, reg, SF_SERIES, x, sign, 0, SF_TICKS, 1,
+                                            **common, **kw)
+            out[name] = serve_fault_check(name, resps, sched, ref, expect_shed=3 * SF_BUCKETS[0],
+                                          expect_loss=3)
+        for name, plan in (("torn_loads", faults.TrafficFaultPlan(tear_load_every=5)),
+                           ("slow_loads", faults.TrafficFaultPlan(slow_load_s=0.01,
+                                                                  slow_load_every=7))):
+            with tempfile.TemporaryDirectory() as tmp2:
+                reg2 = SnapshotRegistry(tmp2)
+                for i in range(SF_SERIES):
+                    reg2.save(f"s{i}", reg.load(f"s{i}"))
+                pager = SnapshotPager(reg2, budget_bytes=1 << 30, retry_sleep=lambda d: None,
+                                      device=device)
+                sched = MicroBatchScheduler(model, buckets=SF_BUCKETS, registry=reg2, pager=pager,
+                                            device=device)
+                xh, sh = x.cpu().numpy(), sign.cpu().numpy()
+                resps = []
+                with faults.inject(plan):
+                    for t in range(SF_TICKS):
+                        for i, obs in enumerate(serve_ticks(xh, sh, t)):
+                            sched.submit(f"s{i}", obs)
+                        by = {}
+                        for r in sched.flush():
+                            by.setdefault(r.series_id, []).append(r)
+                        resps += [r for i in range(SF_SERIES) for r in by.get(f"s{i}", ())]
+                # a torn page-in quarantines the file: that series sheds
+                # every tick (it pages in at tick 0, and retries find no file)
+                lost = sum(os.path.exists(reg2.path(f"s{i}") + ".corrupt") for i in range(SF_SERIES))
+            if (name == "torn_loads") != (lost > 0):
+                raise AssertionError(f"serve_faults[{name}]: {lost} snapshots quarantined")
+            out[name] = serve_fault_check(name, resps, sched, ref, expect_shed=lost * SF_TICKS,
+                                          expect_loss=0, pager=pager.stats())
+            if name == "slow_loads":
+                out[name]["max_latency_s"] = max(r.latency_s for r in resps)
+        # the same events from the clean sync and pipelined arms
+    out["events"] = serve_events_equal(sc, sp)
+    out["hsmm"] = serve_hsmm(device)
+    emit("serve_faults", card=CARD, series=SF_SERIES, draws=SF_DRAWS, ticks=SF_TICKS, **out)
+
+
+def serve_fault_check(name, resps, sched, ref, expect_shed, expect_loss, pager=None):
+    """Every injected fault came back as a counted shed (none escaped:
+    the run returned), the shed count is the injected one, and every
+    series no fault touched equals the clean run bitwise."""
+    m = sched.metrics
+    shed = [r for r in resps if r.shed]
+    if len(shed) != m.shed_ticks or m.shed_ticks != expect_shed or m.device_loss_events != expect_loss:
+        raise AssertionError(f"serve_faults[{name}]: {len(shed)} shed responses, counted "
+                             f"{m.shed_ticks}, expected {expect_shed}; device losses "
+                             f"{m.device_loss_events}, expected {expect_loss}")
+    touched = {r.series_id for r in shed}
+    by = {}
+    for r in resps:
+        by.setdefault(r.series_id, []).append(serve_keys([r])[0])
+    untouched = [s for s in ref if s not in touched]
+    if not untouched or any(by.get(s) != ref[s] for s in untouched):
+        raise AssertionError(f"serve_faults[{name}]: a series no fault touched differs from the "
+                             "clean run")
+    rec = dict(shed=len(shed), series_touched=len(touched), series_untouched_bitwise=len(untouched),
+               device_loss_events=m.device_loss_events, dispatch_errors=m.dispatch_errors)
+    if pager is not None:
+        rec["pager"] = {k: pager[k] for k in ("loads", "misses", "load_retries")}
+    return rec
+
+
+def serve_events_equal(sync_sched, pipe_sched):
+    """The clean sync and pipelined arms' event feeds hold the same flips
+    and drift alarms, series by series."""
+    evs = [sorted((e.series_id, e.tick, e.kind, e.regime, e.prev_regime)
+                  for e in s.events.drain()) for s in (sync_sched, pipe_sched)]
+    if evs[0] != evs[1] or not evs[0]:
+        raise AssertionError(f"serve_faults: events differ sync/pipelined ({len(evs[0])}, {len(evs[1])})")
+    return dict(events=len(evs[0]), flips=sum(e[2] == "flip" for e in evs[0]))
+
+
+def serve_hsmm(device):
+    """A GaussianHSMM (K=3, Dmax=4) served 32 ticks on 16 series x 8
+    draws: the collapsed response probabilities against collapse_probs of
+    the batch filter (FILTER) of the same draws on the card."""
+    model = GaussianHSMM(SH_K, SH_DMAX)
+    rng = np.random.default_rng(SEED_DATA + 2)
+    x = (rng.normal(size=(SH_SERIES, SH_TICKS)) + rng.integers(-1, 2, size=(SH_SERIES, 1))
+         ).astype(np.float32)
+    gen = torch.Generator()
+    gen.manual_seed(SEED_INIT)
+    base = [model.init_unconstrained(gen, {"x": torch.as_tensor(x[i])}).numpy() for i in range(SH_SERIES)]
+    draws = np.stack([b + 0.1 * rng.normal(size=(SH_DRAWS, b.shape[0])) for b in base]).astype(np.float32)
+    sched = MicroBatchScheduler(model, buckets=(SH_SERIES,), device=device)
+    spec = model_spec(model)
+    sched.attach_many([(f"h{i}", PosteriorSnapshot(spec=spec, draws=draws[i]), None)
+                       for i in range(SH_SERIES)])
+    for t in range(SH_TICKS):
+        last = sched.tick({f"h{i}": {"x": float(x[i, t])} for i in range(SH_SERIES)})
+    if any(r.shed or r.degraded for r in last.values()):
+        raise AssertionError("serve_faults[hsmm]: a response was shed or degraded")
+    served = collapse_probs(np.stack([last[f"h{i}"].probs for i in range(SH_SERIES)]), SH_DMAX)
+    th = torch.as_tensor(draws, device=device).reshape(-1, model.n_free)
+    params, _ = model.unpack(th)
+    log_pi, log_A, log_obs, _ = model.build(
+        params, {"x": torch.as_tensor(x, device=device).repeat_interleave(SH_DRAWS, 0)})
+    before = launch_counts()
+    la, _ = td.forward_filter_dispatch(log_pi, log_A, log_obs)
+    if rose_since(before) != {cs.FILTER.name: 1}:
+        raise AssertionError(f"serve_faults[hsmm]: the batch filter launched {rose_since(before)}")
+    batch_p = collapse_probs(torch.softmax(la[:, -1], -1).reshape(SH_SERIES, SH_DRAWS, -1).mean(1),
+                             SH_DMAX).cpu().numpy()
+    gap = float(np.abs(served - batch_p).max())
+    if not gap <= wf_margin(SH_TICKS):
+        raise AssertionError(f"serve_faults[hsmm]: collapsed probs {gap:.3g} from the batch filter")
+    return dict(series=SH_SERIES, draws=SH_DRAWS, ticks=SH_TICKS, K=SH_K, Dmax=SH_DMAX,
+                collapsed_probs_vs_filter_max_abs=gap)
+
+
+def build_with_ffbs_checks(device, t0):
+    """Every kernel's source built, one ``nvcc`` each, all started
+    together from two host threads: ``FWD``'s and ``BWD_SAMPLE``'s
+    sources on one, the rest on the other. Meanwhile this thread runs
+    :func:`ffbs_checks`, whose plain versions need no kernel and whose
+    kernels wait for the first thread only. Returns the build report,
+    the build's seconds from ``t0`` and the checks."""
+    first = (cs.FWD, cs.BWD_SAMPLE)
+    first_src = [k.source for k in first]
+    rest_src = [src for src in dict.fromkeys(k.source for k in ALL_KERNELS)
+                if src not in first_src]
+
+    def timed(sources):
+        out = build(sources)
+        return out, time.perf_counter() - t0
+
+    def ready():
+        built.result()
+        for k in first:
+            k.load()
+
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        built = pool.submit(timed, first_src)
+        rest = pool.submit(timed, rest_src)
+        ffbs = ffbs_checks(device, ready)
+        (r1, s1), (r2, s2) = built.result(), rest.result()
+    for k in ALL_KERNELS:
+        k.load()
+    return {**r1, **r2}, max(s1, s2), ffbs
+
+
 def reset_all() -> None:
     for k in ALL_KERNELS:
         k.launches = 0
@@ -5341,6 +5814,8 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    global CARD
+    CARD = smi
     name = torch.cuda.get_device_name(0)
     emit("device", kind=name, count=torch.cuda.device_count(), nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda)
@@ -5350,11 +5825,14 @@ def main() -> int:
     sim_pool = ThreadPoolExecutor(max_workers=1)
     sim = sim_pool.submit(wf_tasks)
     sim_pool.shutdown(wait=False)
+    # (phase group, start) on the host clock, for the timeline line; the
+    # build group holds the FFBS checks, run beside it
     t0 = time.perf_counter()
-    clock = [("build", t0)]  # (phase group, start) on the host clock, for the timeline line
-    report = build_and_load(ALL_KERNELS)
+    clock = [("build", t0)]
+    report, build_s, ffbs = build_with_ffbs_checks(device, t0)
     per_source = {s: {"seconds": r["seconds"], "cached": r["cached"]} for s, r in report.items()}
-    emit("build", seconds=time.perf_counter() - t0, per_source=per_source)
+    emit("build", seconds=build_s, per_source=per_source,
+         with_ffbs_checks_seconds=time.perf_counter() - t0)
     usage = {src: ptxas_usage(r["log"]) for src, r in report.items()}
     emit("ptxas", **usage)
     # the forward core (fwd_core.cuh) in its three modes (0 clamped: FWD,
@@ -5372,7 +5850,7 @@ def main() -> int:
     emit("kernel_resources", K=list(TABLE_KS), **kernel_resources(usage))
 
     clock.append(("kernels_ffbs_vg_traj", time.perf_counter()))
-    kern = phase_kernels(device)
+    kern = phase_kernels(device, ffbs)
     vgk = phase_kernels_vg(device)
     trk = phase_kernels_traj(device)
 
@@ -5415,6 +5893,14 @@ def main() -> int:
     clock.append(("plan", time.perf_counter()))
     reset_all()
     planned = phase_plan(device)
+    # main path 23, the serving plane: a Gibbs fit banked as snapshots,
+    # then 256 series served tick by tick in three arms (its own counts);
+    # then the fault replay and the HSMM served state
+    clock.append(("serve", time.perf_counter()))
+    reset_all()
+    served, serve_kept = phase_serve(device)
+    clock.append(("serve_faults", time.perf_counter()))
+    phase_serve_faults(device)
     # main path 3, the zoo's generated quantities: the hard-gate Tayal
     # decode of the Gibbs draws, the same decode of the ChEES draws, and
     # the Gaussian HMM's fit, decode and state draws
@@ -5532,6 +6018,7 @@ def main() -> int:
          total_seconds=clock[-1][1] - clock[0][1])
     missing = [n for n in (cs.FWD.name, cs.BWD_SAMPLE.name) if gibbs[n] == 0]
     missing += [f"{n} (plan)" for n in (cs.FWD.name, cs.BWD_SAMPLE.name) if not planned.get(n)]
+    missing += [f"{n} (serve)" for n in (cs.FWD.name, cs.BWD_SAMPLE.name) if not served.get(n)]
     missing += [n for n in (cs.FWD.name, cs.VG_BWD.name, ct.TRAJ.name) if chees[n] == 0]
     missing += [n for n in (cs.FWD.name, cs.VG_BWD.name) if unfused[n] == 0]
     missing += [k.name for k in (cs.FWD, cs.BWD_SAMPLE) + DECODE_KERNELS if zoo[k.name] == 0]
@@ -5564,11 +6051,11 @@ def main() -> int:
         missing += [f"{k.name} ({path})" for k in ks if not counts.get(k.name)]
     if missing:
         raise AssertionError(f"a main path never launched {missing}")
-    # the first launch of each kernel at each shape of paths 9 to 16
+    # the first launch of each kernel at each shape of paths 9 to 21 and 23
     kept = {"multinom": mn_kept, "heal": heal_kept, "chees_per_series": cps_kept,
             "iohmm": io_kept, "hassan": hs_kept, "tree_gibbs": tg_kept, "jangmin": jm_kept,
             "hsmm": hm_kept, "hsmm_dmax1": [], "hsmm_recovery": hr_kept, "hsmm_daily": hd_kept,
-            "multinom_hsmm": mh_kept, "hsmm_nuts": hn_kept}
+            "multinom_hsmm": mh_kept, "hsmm_nuts": hn_kept, "serve": serve_kept}
 
     t = kern["timing"]
     vt, tt, dt = vgk["timing"], trk["timing"], deck["timing"]
@@ -5654,7 +6141,8 @@ def main() -> int:
         for path, counts in (("multinom", mn), ("heal", heal), ("chees_per_series", cps),
                              ("iohmm", io), ("hassan", hs), ("tree_gibbs", tg), ("jangmin", jm),
                              ("hsmm", hm), ("hsmm_dmax1", d1), ("hsmm_recovery", hr),
-                             ("hsmm_daily", hd), ("multinom_hsmm", mh), ("hsmm_nuts", hn)):
+                             ("hsmm_daily", hd), ("multinom_hsmm", mh), ("hsmm_nuts", hn),
+                             ("serve", served)):
             if counts.get(k.name):
                 rows[-1][f"launches_{path}"] = counts[k.name]
                 rows[-1][f"kept_{path}"] = [

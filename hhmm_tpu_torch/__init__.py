@@ -30,7 +30,12 @@ JAX package so each counterpart is easy to find:
   Jangmin (2004) market-regime fit (``apps/jangmin.py``); the data
   readers (``apps/data_io.py``, ``apps/rdata.py``)
 - ``obs``      spans, sampler health, run manifests, kernel-build and
-  memory telemetry, device timing on CUDA events, counted kernel costs
+  memory telemetry, device timing on CUDA events, counted kernel costs,
+  the serving request plane
+- ``serve``    online filtering, the snapshot registry and pager, the
+  micro-batching tick scheduler with its carry lanes and event feed
+- ``pipeline`` the async serving pipeline's in-flight table and
+  series→device placement
 - ``convert``  carries the JAX package's draws and parameters across
 
 The example drivers live beside the package, in ``examples_torch/``.

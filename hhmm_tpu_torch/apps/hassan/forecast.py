@@ -1,6 +1,7 @@
 """Likelihood-neighbor forecaster — `hassan2005/R/forecast.R:1-31`
 (the port's copy of the two NumPy functions of
-``hhmm_tpu/apps/hassan/forecast.py``).
+``hhmm_tpu/apps/hassan/forecast.py``) and the served one-step forecast
+:func:`online_forecast_mean`.
 
 Hassan's method: for each posterior draw, find past time steps whose
 observation log-likelihood is within a relative ``threshold`` of the
@@ -14,16 +15,13 @@ weight (`forecast.R:24-25`). We reproduce that verbatim as
 ``weights="reference"`` and offer the presumably-intended
 ``weights="inverse"`` (w = exp(−d)); the two differ little in practice
 because qualifying neighbors are within a tight band.
-
-Not ported yet: ``online_forecast_mean``, the served one-step forecast;
-it reads the serving scheduler (``ROADMAP.md`` A10).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["neighbouring_forecast", "forecast_errors"]
+__all__ = ["neighbouring_forecast", "forecast_errors", "online_forecast_mean"]
 
 
 def neighbouring_forecast(
@@ -57,6 +55,41 @@ def neighbouring_forecast(
         w = np.exp(d) if weights == "reference" else np.exp(-d)
         out[n] = x[-1] + np.sum((x[ind + h] - x[ind]) * w) / np.sum(w)
     return out
+
+
+def online_forecast_mean(scheduler, series_id: str) -> float:
+    """Hassan-style next-observation point forecast, served online.
+
+    Reads ``series_id``'s streaming state off a
+    :class:`hhmm_tpu_torch.serve.MicroBatchScheduler` serving a
+    Gaussian-emission model and returns the one-step posterior-predictive
+    mean ``E[x_{t+1} | x_{1:t}]``: per thinned draw, the filtered state
+    pushed through the transition and dotted with the state means
+    ``mu_k``, averaged over draws (``serve/online.py::
+    posterior_predictive_mean``) with the scheduler's quarantined draws
+    left out. An explicit-duration posterior (``dur_kd``) serves its
+    filter on the ``K * Dmax`` expansion: the transition is expanded
+    (``kernels/duration.py::expand_transition``) and the predictive
+    collapsed to regimes before the dot."""
+    from hhmm_tpu_torch.core.lmath import safe_log
+    from hhmm_tpu_torch.kernels.duration import expand_transition
+    from hhmm_tpu_torch.serve.online import posterior_predictive_mean
+
+    log_alpha, _, ok, params = scheduler.state(series_id)
+    if "mu_k" not in params or "A_ij" not in params:
+        raise ValueError(
+            "online_forecast_mean needs a Gaussian-emission HMM posterior "
+            f"(mu_k, A_ij); got parameters {sorted(params)}"
+        )
+    if "dur_kd" in params:
+        dur = params["dur_kd"]
+        log_A = expand_transition(safe_log(params["A_ij"]), safe_log(dur))
+        out = posterior_predictive_mean(log_alpha, log_A, params["mu_k"], weights=ok,
+                                        dmax=int(dur.shape[-1]))
+    else:
+        out = posterior_predictive_mean(log_alpha, safe_log(params["A_ij"]), params["mu_k"],
+                                        weights=ok)
+    return float(out)
 
 
 def forecast_errors(actual: np.ndarray, predicted: np.ndarray) -> dict:

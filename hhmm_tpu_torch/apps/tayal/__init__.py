@@ -1,10 +1,8 @@
 """Tayal (2009) application (counterpart of ``hhmm_tpu/apps/tayal``):
 zig-zag feature extraction, top-state mapping/labeling, trading rules,
-analytics, the batched walk-forward harness on the card, and the
-emission-replication protocol's diagnostics.
-
-Not ported yet: ``online_flip_detector`` (it needs the serving plane's
-``RegimeDetector``, ``ROADMAP.md`` A10).
+analytics (with the served ``online_flip_detector``), the batched
+walk-forward harness on the card, and the emission-replication
+protocol's diagnostics.
 """
 
 from hhmm_tpu_torch.apps.tayal.features import (
@@ -18,6 +16,7 @@ from hhmm_tpu_torch.apps.tayal.trading import Trades, topstate_trading, buyandho
 from hhmm_tpu_torch.apps.tayal.analytics import (
     TopRuns,
     map_to_topstate,
+    online_flip_detector,
     topstate_probs,
     topstate_runs,
     relabel_by_return,
@@ -52,6 +51,7 @@ __all__ = [
     "equity_curve",
     "TopRuns",
     "map_to_topstate",
+    "online_flip_detector",
     "topstate_probs",
     "topstate_runs",
     "relabel_by_return",

@@ -1,8 +1,7 @@
 """Top-state analytics — `tayal2009/R/state-plots.R:1-21` and the
 top-state run construction of `tayal2009/main.R:157-184` (a copy of the
 NumPy-only ``hhmm_tpu/apps/tayal/analytics.py``; its
-``online_flip_detector`` needs the serving plane's ``RegimeDetector``,
-which the port does not have yet)."""
+``online_flip_detector`` returns the port's serving ``RegimeDetector``)."""
 
 from __future__ import annotations
 
@@ -20,6 +19,7 @@ __all__ = [
     "topstate_summary",
     "map_to_topstate",
     "topstate_probs",
+    "online_flip_detector",
 ]
 
 
@@ -74,6 +74,19 @@ def topstate_probs(
             "(models/hsmm.py: dmax = Dmax)"
         )
     return np.stack([p[..., list(pair)].sum(axis=-1) for pair in pairs], axis=-1)
+
+
+def online_flip_detector(hold: int = 3, margin: float = 0.0):
+    """Tayal-style online regime-flip detector over (bear, bull)
+    top-state probabilities: filtered argmax with hysteresis — the
+    committed regime flips only after ``hold`` consecutive decisive
+    ticks for the challenger (``margin`` over the runner-up). Returns a
+    :class:`hhmm_tpu_torch.serve.RegimeDetector`; call ``update(
+    topstate_probs(response.probs))`` a served tick and act on the
+    ``flipped`` flag."""
+    from hhmm_tpu_torch.serve.online import RegimeDetector
+
+    return RegimeDetector(hold=hold, margin=margin)
 
 
 @dataclass(frozen=True)

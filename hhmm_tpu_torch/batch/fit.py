@@ -75,7 +75,7 @@ from hhmm_tpu_torch.plan import Plan, WorkloadShape, make_plan, plan_for_mesh
 from hhmm_tpu_torch.robust import faults
 from hhmm_tpu_torch.robust.retry import RetryPolicy, escalate, rejitter
 
-__all__ = ["derive_seed", "fit_batched"]
+__all__ = ["derive_seed", "fit_batched", "init_from_snapshot"]
 
 
 def derive_seed(*parts: Any) -> int:
@@ -157,6 +157,37 @@ def _record_chunk_health(chunk_idx: int, n_chunks: int, qs, stats, n: int) -> No
         file=sys.stderr,
         flush=True,
     )
+
+
+def init_from_snapshot(snap, num_chains: int, device: DeviceLike = None) -> torch.Tensor:
+    """``[num_chains, dim]`` float32 warm-start chain inits from a serving
+    snapshot's draw bank, on ``device`` (None: CUDA) — the ``init=`` a
+    drift-triggered refit passes so it starts from the posterior it
+    refreshes.
+
+    ``snap`` is anything with ``dequantized_draws()`` (a
+    ``serve.registry.PosteriorSnapshot``: a quantized bank dequantizes to
+    float32 first) or a raw ``[D, dim]`` array. A bank larger than the
+    chain count is thinned evenly spaced (distinct modes land in
+    distinct chains); a smaller one tiles."""
+    device = resolve_device(device)
+    if hasattr(snap, "dequantized_draws"):
+        draws = np.asarray(snap.dequantized_draws())
+    else:
+        draws = _host(snap)
+    if draws.ndim != 2 or draws.shape[0] == 0:
+        raise ValueError(
+            f"snapshot draws must be a non-empty [D, dim] bank, got shape {draws.shape}"
+        )
+    C = int(num_chains)
+    if C <= 0:
+        raise ValueError(f"num_chains must be positive, got {num_chains}")
+    D = draws.shape[0]
+    if D >= C:
+        out = draws[np.linspace(0, D - 1, C).astype(int)]
+    else:
+        out = draws[np.arange(C) % D]
+    return torch.as_tensor(np.asarray(out, np.float32), device=device)
 
 
 def fit_batched(

@@ -54,6 +54,19 @@ def time_varying(log_A: torch.Tensor, log_obs: torch.Tensor) -> bool:
     return True
 
 
+def _split_A(log_A: torch.Tensor, T: int, batch_ndim: int = 0) -> Optional[torch.Tensor]:
+    """The per-step slices ``[..., T-1, K, K]`` of a time-varying
+    ``log_A`` (checked against ``T``), or None for a homogeneous
+    ``[..., K, K]`` one; ``batch_ndim`` leading axes are lanes."""
+    if log_A.ndim == batch_ndim + 2:
+        return None
+    if log_A.shape[batch_ndim] != T - 1:
+        raise ValueError(
+            f"time-varying log_A must have T-1={T - 1} slices, got {log_A.shape[batch_ndim]}"
+        )
+    return log_A
+
+
 def filter_step(
     log_alpha: torch.Tensor,
     log_A: torch.Tensor,

@@ -331,6 +331,38 @@ class BaseHMMModel:
                                  time_parallel=time_parallel)
         return z.reshape(lead + z.shape[1:])
 
+    # ---- streaming hooks (serve/) ----
+
+    def tick_init(self, params: Params, obs: Dict[str, torch.Tensor]):
+        """First-tick streaming terms ``(log_pi [..., K], log_obs_0 [...,
+        K])``. ``obs`` holds one tick of each data key (a key of
+        :attr:`event_ndim` keeps its trailing event axes), with leading
+        axes a prefix of the parameters' (one value a lane). Built from the
+        model's own :meth:`build` on a length-1 window, so gating and
+        emissions cannot drift from the batch filter."""
+        data1 = {
+            k: torch.as_tensor(v).unsqueeze(-self.event_ndim.get(k, 1)) for k, v in obs.items()
+        }
+        log_pi, _, log_obs, _ = self.build(params, data1)
+        return log_pi, log_obs[..., 0, :]
+
+    def tick_terms(self, params: Params, obs: Dict[str, torch.Tensor]):
+        """Per-tick streaming terms ``(log_A_step [..., K, K], log_obs_t
+        [..., K])`` of the transition into the new tick and its
+        emission, from :meth:`build` on a 2-step window (the tick
+        repeated): a time-varying gate (the Tayal stan sign gate, whose
+        factor depends on the destination tick) comes from the same
+        source as the batch filter. A homogeneous ``log_A`` comes back
+        as it is; a time-varying one gives its single ``[K, K]`` slice.
+        The first step's emission row is discarded."""
+        data2 = {
+            k: torch.stack([torch.as_tensor(v)] * 2, dim=-self.event_ndim.get(k, 1))
+            for k, v in obs.items()
+        }
+        _, log_A, log_obs, _ = self.build(params, data2)
+        lA = log_A[..., 0, :, :] if time_varying(log_A, log_obs) else log_A
+        return lA, log_obs[..., 1, :]
+
     def constrained_draws(self, theta_draws: torch.Tensor) -> Params:
         """Unconstrained draws ``[..., n_free]`` → constrained arrays with
         the same leading axes."""

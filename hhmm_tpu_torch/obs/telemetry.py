@@ -17,8 +17,9 @@ own:
    ``torch.compile`` call, so there are no such events to count.
    The named-callable registry (:func:`register_jit`: a registered
    callable's ``_cache_size()``, where it has one) is the JAX module's.
-   Its externally set scopes belong to the serving plane and are not
-   part of this module yet (the manifest's ``scopes`` stays empty).
+   :class:`CompileScope` is a named, externally set count (the serving
+   scheduler publishes its signature count through one); the manifest's
+   ``scopes`` sums the live scopes per label.
 
 2. **How close did a run get to device memory limits?**
    :func:`sample_memory` reads ``torch.cuda.memory_stats`` on every
@@ -40,6 +41,9 @@ from typing import Any, Dict, List
 
 __all__ = [
     "CompileRegistry",
+    "CompileScope",
+    "new_scope",
+    "scope_counts",
     "registry",
     "install_listeners",
     "note_build",
@@ -58,6 +62,25 @@ _BUILD = "nvcc_build"
 _LOAD = "library_load"
 
 
+class CompileScope:
+    """A named externally set compile counter, for a component that
+    counts its own signatures (the serving scheduler). Scopes register
+    with the :class:`CompileRegistry`, so run manifests see every
+    component's count."""
+
+    __slots__ = ("label", "_value", "__weakref__")
+
+    def __init__(self, label: str):
+        self.label = label
+        self._value = 0
+
+    def set(self, n: int) -> None:
+        self._value = int(n)
+
+    def get(self) -> int:
+        return self._value
+
+
 class CompileRegistry:
     """See module docstring. One process-wide instance
     (:data:`registry`); tests may construct their own."""
@@ -68,6 +91,7 @@ class CompileRegistry:
         self._event_secs: Dict[str, float] = {}
         self._sources: Dict[str, Dict[str, Any]] = {}
         self._jits: Dict[str, List[weakref.ref]] = {}
+        self._scopes: List[weakref.ref] = []
 
     # ---- the kernel builds (kernels/cuda_build.py reports them) ----
 
@@ -141,6 +165,28 @@ class CompileRegistry:
             out[name] = n
         return out
 
+    # ---- externally set scopes ----
+
+    def new_scope(self, label: str) -> CompileScope:
+        scope = CompileScope(label)
+        with self._lock:
+            self._scopes[:] = [r for r in self._scopes if r() is not None]
+            self._scopes.append(weakref.ref(scope))
+        return scope
+
+    def scope_counts(self) -> Dict[str, int]:
+        """Live scopes' counts, summed per label (two schedulers under
+        one label add up); dead scopes are pruned on read."""
+        out: Dict[str, int] = {}
+        with self._lock:
+            self._scopes[:] = [r for r in self._scopes if r() is not None]
+            refs = list(self._scopes)
+        for ref in refs:
+            scope = ref()
+            if scope is not None:
+                out[scope.label] = out.get(scope.label, 0) + scope.get()
+        return out
+
     # ---- lifecycle ----
 
     def reset(self) -> None:
@@ -150,6 +196,7 @@ class CompileRegistry:
             self._event_secs.clear()
             self._sources.clear()
             self._jits.clear()
+            self._scopes.clear()
 
     def snapshot(self) -> Dict[str, Any]:
         """JSON-ready build-telemetry stanza for the run manifest (the
@@ -158,7 +205,7 @@ class CompileRegistry:
             "backend_compiles": self.backend_compiles(),
             "compile_seconds": self.compile_seconds(),
             "jit_cache_sizes": self.jit_cache_sizes(),
-            "scopes": {},
+            "scopes": self.scope_counts(),
             "listening": True,
             "builds": self.builds(),
         }
@@ -173,6 +220,8 @@ register_jit = registry.register_jit
 backend_compiles = registry.backend_compiles
 compile_seconds = registry.compile_seconds
 jit_cache_sizes = registry.jit_cache_sizes
+new_scope = registry.new_scope
+scope_counts = registry.scope_counts
 
 
 # ---- device memory watermarks ----

@@ -21,13 +21,20 @@ healing paths.
 - **Plans are thread-scoped**: the active-plan stack is thread-local, so
   a plan injected on one thread never reaches another thread's fit.
 
-The traffic, regime-shift, snapshot, dispatch and torn-file faults of
-the JAX module belong to the serving plane and are not ported here.
+- **Serving faults.** :class:`TrafficFaultPlan` (bursts, slow and torn
+  snapshot loads, a simulated device loss at the Nth dispatch) and
+  :class:`RegimeShiftPlan` (a data-plane regime shift the traffic
+  generator consults) stack beside a :class:`FaultPlan`; the innermost
+  plan of each type wins. The serving plane calls
+  :func:`snapshot_load_fault` before every pager load and
+  :func:`dispatch_fault` at the head of every tick dispatch.
 """
 
 from __future__ import annotations
 
+import os
 import threading
+import time
 from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
@@ -37,7 +44,10 @@ import torch
 
 __all__ = [
     "FaultPlan",
+    "TrafficFaultPlan",
+    "RegimeShiftPlan",
     "SimulatedCrash",
+    "SimulatedDeviceLoss",
     "inject",
     "active",
     "chain_fault_arrays",
@@ -46,6 +56,11 @@ __all__ = [
     "corrupt_tree",
     "note_chunk_complete",
     "corrupt_chunk_result",
+    "traffic_active",
+    "regime_shift_active",
+    "snapshot_load_fault",
+    "dispatch_fault",
+    "tear_file",
 ]
 
 # in-scan fault kinds (the JAX module's int codes)
@@ -66,6 +81,12 @@ class SimulatedCrash(RuntimeError):
     """Raised by :func:`note_chunk_complete` to simulate a process dying
     between dispatch chunks. Completed chunks are already cached, so a
     rerun resumes from the cache."""
+
+
+class SimulatedDeviceLoss(RuntimeError):
+    """Raised by :func:`dispatch_fault` to simulate the card vanishing
+    mid-replay. The serving flush path must catch it and degrade the
+    affected ticks into shed responses, never let it escape."""
 
 
 @dataclass(frozen=True)
@@ -99,14 +120,67 @@ class FaultPlan:
             raise ValueError(f"unknown fault kind {self.kind!r}")
 
 
+@dataclass(frozen=True)
+class TrafficFaultPlan:
+    """Traffic-shaped serving faults. Every mechanism is deterministic —
+    its counters live on the injection-stack entry, so the Nth load or
+    dispatch under a plan always fires the same fault:
+
+    - ``burst_factor`` / ``burst_every``: every ``burst_every``-th load
+      round the generator submits ``burst_factor`` times the nominal
+      ticks (:meth:`burst_multiplier`; arrivals, not scheduler work).
+    - ``slow_load_s`` / ``slow_load_every``: every
+      ``slow_load_every``-th snapshot load through
+      :func:`snapshot_load_fault` sleeps ``slow_load_s`` first.
+    - ``tear_load_every``: every ``tear_load_every``-th load first
+      truncates the snapshot file (:func:`tear_file`); the reader must
+      see a quarantined miss.
+    - ``device_loss_at_dispatch`` / ``device_loss_count``: dispatches
+      ``[at, at + count)`` through :func:`dispatch_fault` raise
+      :class:`SimulatedDeviceLoss` (``-1`` = never)."""
+
+    burst_factor: int = 1
+    burst_every: int = 0
+    slow_load_s: float = 0.0
+    slow_load_every: int = 0
+    tear_load_every: int = 0
+    device_loss_at_dispatch: int = -1
+    device_loss_count: int = 1
+
+    def burst_multiplier(self, round_idx: int) -> int:
+        """Arrival multiplier of load round ``round_idx`` (0-based):
+        ``burst_factor`` on every ``burst_every``-th round, else 1."""
+        if self.burst_every > 0 and (round_idx + 1) % self.burst_every == 0:
+            return max(1, int(self.burst_factor))
+        return 1
+
+
+@dataclass(frozen=True)
+class RegimeShiftPlan:
+    """Data-plane drift: from stream tick ``at_tick`` on, the traffic
+    generator swaps to an alternate regime (:func:`regime_shift_active`
+    is its per-tick question). Nothing fires inside the serving or fit
+    paths."""
+
+    at_tick: int = 0
+
+    def __post_init__(self):
+        if int(self.at_tick) < 0:
+            raise ValueError(f"at_tick must be >= 0, got {self.at_tick}")
+
+
 class _ActiveEntry:
-    """One injection-stack frame: the plan and its chunk counter."""
+    """One injection-stack frame: the plan and its counters (chunks for
+    a :class:`FaultPlan`, loads and dispatches for a
+    :class:`TrafficFaultPlan`)."""
 
-    __slots__ = ("plan", "chunks_done")
+    __slots__ = ("plan", "chunks_done", "loads", "dispatches")
 
-    def __init__(self, plan: FaultPlan):
+    def __init__(self, plan):
         self.plan = plan
         self.chunks_done = 0
+        self.loads = 0
+        self.dispatches = 0
 
 
 _TLS = threading.local()
@@ -120,11 +194,15 @@ def _stack() -> list:
 
 
 @contextmanager
-def inject(plan: FaultPlan):
-    """Activate ``plan`` for the block on THIS thread (re-entrant; the
-    innermost plan wins)."""
-    if not isinstance(plan, FaultPlan):
-        raise TypeError(f"inject() takes a FaultPlan, got {type(plan).__name__}")
+def inject(plan):
+    """Activate ``plan`` (a :class:`FaultPlan`, :class:`TrafficFaultPlan`
+    or :class:`RegimeShiftPlan`) for the block on THIS thread
+    (re-entrant; the innermost plan of each type wins)."""
+    if not isinstance(plan, (FaultPlan, TrafficFaultPlan, RegimeShiftPlan)):
+        raise TypeError(
+            "inject() takes a FaultPlan, TrafficFaultPlan, or RegimeShiftPlan, "
+            f"got {type(plan).__name__}"
+        )
     stack = _stack()
     stack.append(_ActiveEntry(plan))
     try:
@@ -133,15 +211,30 @@ def inject(plan: FaultPlan):
         stack.pop()
 
 
-def _innermost() -> Optional[_ActiveEntry]:
-    stack = _stack()
-    return stack[-1] if stack else None
+def _innermost(cls=FaultPlan) -> Optional[_ActiveEntry]:
+    for entry in reversed(_stack()):
+        if isinstance(entry.plan, cls):
+            return entry
+    return None
 
 
 def active() -> Optional[FaultPlan]:
-    """The innermost fault plan on this thread, or None."""
-    entry = _innermost()
+    """The innermost chain/dispatch fault plan on this thread, or None."""
+    entry = _innermost(FaultPlan)
     return entry.plan if entry is not None else None
+
+
+def traffic_active() -> Optional[TrafficFaultPlan]:
+    """The innermost traffic-shaped fault plan on this thread."""
+    entry = _innermost(TrafficFaultPlan)
+    return entry.plan if entry is not None else None
+
+
+def regime_shift_active(tick: int) -> bool:
+    """Whether the innermost :class:`RegimeShiftPlan` (if any) has the
+    shifted regime active at stream tick ``tick``."""
+    entry = _innermost(RegimeShiftPlan)
+    return entry is not None and int(tick) >= entry.plan.at_tick
 
 
 # ---------------------------------------------------------------- in-scan
@@ -255,3 +348,52 @@ def corrupt_chunk_result(qs, stats, chunk_start: int, chunk_len: int, attempt: i
         stats["quarantine_step"] = stats["quarantine_step"].clone()
         stats["quarantine_step"][s, plan.chain] = plan.step
     return qs, stats
+
+
+# -------------------------------------------------------------- traffic
+
+
+def snapshot_load_fault(path: str) -> None:
+    """Serving-side load hook (the pager calls it before every registry
+    load): under an active :class:`TrafficFaultPlan` it counts the load
+    and fires the torn-file and slow-load faults deterministically. One
+    thread-local read without a plan."""
+    entry = _innermost(TrafficFaultPlan)
+    if entry is None:
+        return
+    plan = entry.plan
+    entry.loads += 1
+    if plan.tear_load_every > 0 and entry.loads % plan.tear_load_every == 0 and os.path.exists(path):
+        tear_file(path)
+    if plan.slow_load_every > 0 and plan.slow_load_s > 0 and entry.loads % plan.slow_load_every == 0:
+        time.sleep(plan.slow_load_s)
+
+
+def dispatch_fault() -> None:
+    """Serving-side dispatch hook (the scheduler calls it at the head of
+    every micro-batch dispatch): raises :class:`SimulatedDeviceLoss` in
+    the active plan's dispatch window. The flush path degrades the
+    affected ticks."""
+    entry = _innermost(TrafficFaultPlan)
+    if entry is None:
+        return
+    plan = entry.plan
+    if plan.device_loss_at_dispatch < 0:
+        return
+    idx = entry.dispatches
+    entry.dispatches += 1
+    lo = plan.device_loss_at_dispatch
+    if lo <= idx < lo + max(1, plan.device_loss_count):
+        raise SimulatedDeviceLoss(
+            f"simulated device loss at dispatch {idx} (window "
+            f"[{lo}, {lo + max(1, plan.device_loss_count)}))"
+        )
+
+
+def tear_file(path: str, keep_bytes: int = 16) -> None:
+    """Truncate ``path`` to its first ``keep_bytes`` bytes — a torn
+    mid-write file (what atomic writes prevent and readers tolerate)."""
+    with open(path, "rb") as f:
+        head = f.read(keep_bytes)
+    with open(path, "wb") as f:
+        f.write(head)

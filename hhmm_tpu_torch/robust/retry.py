@@ -22,15 +22,23 @@ runtime error is sticky to its context, so retrying the dispatch cannot
 heal it, and the port never hides the device behind a CPU route: a
 CUDA error raises. :class:`RetryPolicy` keeps ``device_retries`` and
 ``backoff`` so a policy written for the JAX ladder reads the same here.
+
+- **Bounded I/O retry** (:class:`BackoffPolicy`, :func:`retry_call`):
+  jittered exponential backoff for transient storage faults — the serve
+  pager's snapshot loads get a bounded second chance before degrading
+  to a shed tick. The jitter is a pure function of (seed, salt,
+  attempt), so a replay sleeps the same.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import random
+import time
 from dataclasses import dataclass
-from typing import Any, Dict
+from typing import Any, Callable, Dict, Optional
 
-__all__ = ["RetryPolicy", "escalate", "rejitter"]
+__all__ = ["RetryPolicy", "BackoffPolicy", "retry_call", "escalate", "rejitter"]
 
 # salt folded in before the attempt, so a retry seed never equals an
 # ordinary derive_seed(seed, i) series derivation
@@ -95,3 +103,80 @@ def escalate(config: Any, attempt: int, policy: RetryPolicy = RetryPolicy()) -> 
         if hasattr(config, "max_leapfrogs"):
             kw["max_leapfrogs"] = max(policy.leapfrog_floor, config.max_leapfrogs // 2)
     return dataclasses.replace(config, **kw) if kw else config
+
+
+@dataclass(frozen=True)
+class BackoffPolicy:
+    """Bounded retry-with-backoff for transient I/O faults (the pager's
+    snapshot loads). ``attempts`` counts all calls (attempt 0 is the
+    original); delays grow as ``base_s * factor**attempt`` clamped at
+    ``max_s``, less a deterministic jitter of up to ``jitter`` of each
+    delay (a pure function of ``(seed, salt, attempt)``)."""
+
+    attempts: int = 3
+    base_s: float = 0.005
+    factor: float = 2.0
+    max_s: float = 0.25
+    jitter: float = 0.5
+    seed: int = 0x5EED
+
+    def __post_init__(self):
+        if int(self.attempts) < 1:
+            raise ValueError(f"attempts must be >= 1, got {self.attempts}")
+        if self.base_s < 0 or self.max_s < 0:
+            raise ValueError("base_s and max_s must be >= 0")
+        if self.factor < 1.0:
+            raise ValueError(f"factor must be >= 1, got {self.factor}")
+        if not (0.0 <= self.jitter <= 1.0):
+            raise ValueError(f"jitter must be in [0, 1], got {self.jitter}")
+
+    def delay(self, attempt: int, salt: int = 0) -> float:
+        """Seconds to sleep after failed attempt ``attempt`` (0-based)."""
+        raw = min(float(self.max_s), float(self.base_s) * self.factor ** attempt)
+        if self.jitter <= 0.0 or raw <= 0.0:
+            return raw
+        mixed = (
+            int(self.seed) * 0x9E3779B97F4A7C15
+            + int(salt) * 0xC2B2AE3D27D4EB4F
+            + int(attempt)
+        ) & 0xFFFFFFFFFFFFFFFF
+        u = random.Random(mixed).random()
+        return raw * (1.0 - self.jitter * u)
+
+
+def retry_call(
+    fn: Callable[[], Any],
+    policy: BackoffPolicy = BackoffPolicy(),
+    *,
+    failed: Optional[Callable[[Any], bool]] = None,
+    sleep: Callable[[float], None] = time.sleep,
+    on_retry: Optional[Callable[[int, Optional[Exception]], None]] = None,
+    salt: int = 0,
+) -> Any:
+    """Call ``fn`` up to ``policy.attempts`` times with backoff between
+    attempts; return the first result ``failed`` does not flag (default:
+    ``result is None``, the registry's miss), else the last result. An
+    exception is retried while attempts remain and re-raised from the
+    last. ``on_retry(attempt, exc)`` fires before each sleep; ``sleep``
+    is injectable for tests."""
+    if failed is None:
+        failed = lambda r: r is None  # noqa: E731 — the registry miss convention
+    last: Any = None
+    for attempt in range(int(policy.attempts)):
+        err: Optional[Exception] = None
+        try:
+            last = fn()
+        except Exception as e:
+            if attempt + 1 >= policy.attempts:
+                raise
+            err, last = e, None
+        if err is None and not failed(last):
+            return last
+        if attempt + 1 >= policy.attempts:
+            break
+        if on_retry is not None:
+            on_retry(attempt, err)
+        d = policy.delay(attempt, salt)
+        if d > 0:
+            sleep(d)
+    return last

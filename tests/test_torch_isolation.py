@@ -13,6 +13,7 @@ rules:
 """
 
 import ast
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -29,7 +30,7 @@ from hhmm_tpu_torch.apps.tayal import (
     simulate_ticks,
     wf_trade,
 )
-from hhmm_tpu_torch.batch import default_init, fit_batched
+from hhmm_tpu_torch.batch import default_init, fit_batched, init_from_snapshot
 from hhmm_tpu_torch.convert import constrained_from_jax, params_from_jax
 from hhmm_tpu_torch.infer import (
     ChEESConfig,
@@ -73,6 +74,7 @@ from hhmm_tpu_torch.hhmm import hier2x2_tree
 from hhmm_tpu_torch.obs.profile import dirichlet_hmm_inputs
 from hhmm_tpu_torch.plan import WorkloadShape, make_plan
 from hhmm_tpu_torch.robust import inject
+from hhmm_tpu_torch.serve import MicroBatchScheduler, SnapshotPager, SnapshotRegistry
 from hhmm_tpu_torch.sim import tayal_batch
 
 torch.set_num_threads(1)
@@ -158,6 +160,18 @@ def test_port_file_list_is_complete():
         "hhmm_tpu_torch/kernels/dispatch.py",
         "hhmm_tpu_torch/plan/__init__.py",
         "hhmm_tpu_torch/plan/planner.py",
+        "hhmm_tpu_torch/obs/request.py",
+        "hhmm_tpu_torch/serve/__init__.py",
+        "hhmm_tpu_torch/serve/online.py",
+        "hhmm_tpu_torch/serve/registry.py",
+        "hhmm_tpu_torch/serve/lanes.py",
+        "hhmm_tpu_torch/serve/metrics.py",
+        "hhmm_tpu_torch/serve/events.py",
+        "hhmm_tpu_torch/serve/pager.py",
+        "hhmm_tpu_torch/serve/scheduler.py",
+        "hhmm_tpu_torch/pipeline/__init__.py",
+        "hhmm_tpu_torch/pipeline/dispatch.py",
+        "hhmm_tpu_torch/pipeline/place.py",
         "examples_torch/_common.py",
         "examples_torch/hmm_main.py",
         "examples_torch/iohmm_main.py",
@@ -333,6 +347,11 @@ ENTRY_POINTS = {
     ),
     "wf_trade_time_parallel": lambda: wf_trade([], time_parallel=True),
     "example_driver": lambda: _run_driver("hmm_main.py", "--quick", "--T", "20"),
+    # the serving plane: the scheduler, the pager and the warm-start inits
+    "micro_batch_scheduler": lambda: MicroBatchScheduler(TayalHHMM(gate_mode="hard")),
+    "snapshot_pager": lambda: SnapshotPager(
+        SnapshotRegistry(str(Path(tempfile.mkdtemp()) / "reg"))),
+    "init_from_snapshot": lambda: init_from_snapshot(np.zeros((4, 35), np.float32), 2),
     "constrained_from_jax": lambda: constrained_from_jax(
         TayalHHMM(), {"p_11": np.float32(0.5), "A_row": np.full((2, 2), 0.5),
                       "phi_k": np.full((4, 9), 1 / 9)},
@@ -349,6 +368,15 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, name):
 def test_explicit_cpu_runs_the_plain_path(no_cuda):
     x, sign = tayal_batch(2, 8, seed=0, device="cpu")
     assert x.device.type == "cpu" and x.shape == (2, 8)
+
+
+def test_serving_entry_points_run_on_an_explicit_cpu(no_cuda, tmp_path):
+    sch = MicroBatchScheduler(TayalHHMM(gate_mode="hard"), device="cpu")
+    assert sch.device.type == "cpu"
+    pager = SnapshotPager(SnapshotRegistry(str(tmp_path / "reg")), device="cpu")
+    assert pager.budget_source.startswith("static fallback")
+    init = init_from_snapshot(np.zeros((4, 35), np.float32), 2, device="cpu")
+    assert init.device.type == "cpu" and init.shape == (2, 35)
 
 
 def test_kernel_build_raises_without_cuda(no_cuda):
