@@ -36,6 +36,10 @@ JAX package so each counterpart is easy to find:
   micro-batching tick scheduler with its carry lanes and event feed
 - ``pipeline`` the async serving pipeline's in-flight table and
   series→device placement
+- ``adapt``    per-draw reweighting, Liu–West rejuvenation and the
+  escalation ladder over the served draw banks
+- ``maint``    drift and staleness triggers, warm refits, the shadow
+  gate, promotion and the tick-driven maintenance loop
 - ``convert``  carries the JAX package's draws and parameters across
 
 The example drivers live beside the package, in ``examples_torch/``.

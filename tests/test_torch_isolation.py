@@ -56,6 +56,14 @@ from hhmm_tpu_torch.kernels import (
 )
 from hhmm_tpu_torch.kernels import dispatch as kernel_dispatch
 from hhmm_tpu_torch.kernels.cuda_build import BUILD_DIR, build
+from hhmm_tpu_torch.maint import (
+    MaintenanceLoop,
+    RefitRequest,
+    predictive_logliks,
+    shadow_evaluate,
+    warm_refit,
+)
+from hhmm_tpu_torch.adapt import AdaptationLadder, Rejuvenator
 from hhmm_tpu_torch.apps.hassan import simulate_ohlc, wf_forecast
 from hhmm_tpu_torch.apps.jangmin import fit_market
 from hhmm_tpu_torch.models import (
@@ -172,6 +180,16 @@ def test_port_file_list_is_complete():
         "hhmm_tpu_torch/pipeline/__init__.py",
         "hhmm_tpu_torch/pipeline/dispatch.py",
         "hhmm_tpu_torch/pipeline/place.py",
+        "hhmm_tpu_torch/adapt/__init__.py",
+        "hhmm_tpu_torch/adapt/weights.py",
+        "hhmm_tpu_torch/adapt/rejuvenate.py",
+        "hhmm_tpu_torch/adapt/ladder.py",
+        "hhmm_tpu_torch/maint/__init__.py",
+        "hhmm_tpu_torch/maint/triggers.py",
+        "hhmm_tpu_torch/maint/promote.py",
+        "hhmm_tpu_torch/maint/shadow.py",
+        "hhmm_tpu_torch/maint/refit.py",
+        "hhmm_tpu_torch/maint/loop.py",
         "examples_torch/_common.py",
         "examples_torch/hmm_main.py",
         "examples_torch/iohmm_main.py",
@@ -227,6 +245,10 @@ def _tiny():
     x = torch.tensor([[1, 2, 3, 4, 5, 6]])
     sign = torch.tensor([[0, 1, 0, 1, 0, 1]])
     return x, sign
+
+
+def _cpu_scheduler(**kw):
+    return MicroBatchScheduler(TayalHHMM(gate_mode="hard"), device="cpu", **kw)
 
 
 ENTRY_POINTS = {
@@ -352,6 +374,20 @@ ENTRY_POINTS = {
     "snapshot_pager": lambda: SnapshotPager(
         SnapshotRegistry(str(Path(tempfile.mkdtemp()) / "reg"))),
     "init_from_snapshot": lambda: init_from_snapshot(np.zeros((4, 35), np.float32), 2),
+    # the adaptation and maintenance planes over a scheduler on the CPU:
+    # their own device still defaults to the card
+    "rejuvenator": lambda: Rejuvenator(0),
+    "adaptation_ladder": lambda: AdaptationLadder(_cpu_scheduler()),
+    "maintenance_loop": lambda: MaintenanceLoop(
+        _cpu_scheduler(history_tail=8), None, TayalHHMM(gate_mode="hard"), GibbsConfig(1, 1)),
+    "warm_refit": lambda: warm_refit(TayalHHMM(gate_mode="hard"), [], {}, {}, GibbsConfig(1, 1)),
+    "predictive_logliks": lambda: predictive_logliks(
+        TayalHHMM(gate_mode="hard"), np.zeros((2, 35), np.float32),
+        {"x": np.zeros(4, np.int64), "sign": np.zeros(4, np.int64)}),
+    "shadow_evaluate": lambda: shadow_evaluate(
+        TayalHHMM(gate_mode="hard"), np.zeros((2, 35), np.float32),
+        np.zeros((2, 35), np.float32),
+        {"x": np.zeros(4, np.int64), "sign": np.zeros(4, np.int64)}),
     "constrained_from_jax": lambda: constrained_from_jax(
         TayalHHMM(), {"p_11": np.float32(0.5), "A_row": np.full((2, 2), 0.5),
                       "phi_k": np.full((4, 9), 1 / 9)},
@@ -377,6 +413,43 @@ def test_serving_entry_points_run_on_an_explicit_cpu(no_cuda, tmp_path):
     assert pager.budget_source.startswith("static fallback")
     init = init_from_snapshot(np.zeros((4, 35), np.float32), 2, device="cpu")
     assert init.device.type == "cpu" and init.shape == (2, 35)
+
+
+def test_adaptation_and_maintenance_run_on_an_explicit_cpu(no_cuda):
+    sched = _cpu_scheduler(history_tail=8)
+    assert AdaptationLadder(sched, device="cpu").rejuvenator.device.type == "cpu"
+    assert MaintenanceLoop(sched, None, TayalHHMM(gate_mode="hard"), GibbsConfig(1, 1),
+                           device="cpu").device.type == "cpu"
+    cands, skipped = warm_refit(TayalHHMM(gate_mode="hard"), [RefitRequest("s", "staleness", 1)],
+                                {}, {}, GibbsConfig(1, 1), device="cpu")
+    assert cands == {} and skipped == [("s", "no serving snapshot to warm-start from")]
+
+
+# the port's planes that may import each other, downward only
+LAYERS = {"serve": {"adapt", "maint"}, "adapt": {"maint"}}
+
+
+@pytest.mark.parametrize("plane", sorted(LAYERS))
+def test_layering(plane):
+    """``serve`` imports neither ``adapt`` nor ``maint``; ``adapt`` does
+    not import ``maint`` (the JAX package's layering rule)."""
+    above = {f"hhmm_tpu_torch.{p}" for p in LAYERS[plane]}
+    for path in sorted((REPO / "hhmm_tpu_torch" / plane).rglob("*.py")):
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                if node.level:  # relative: resolve inside the package
+                    base = "hhmm_tpu_torch." + ".".join(
+                        path.relative_to(REPO / "hhmm_tpu_torch").parts[:-node.level])
+                    names = [f"{base}.{node.module}" if node.module else base]
+                elif node.module:
+                    names = [node.module]
+            for n in names:
+                assert not any(n == a or n.startswith(a + ".") for a in above), \
+                    f"{path.relative_to(REPO)} imports {n}"
 
 
 def test_kernel_build_raises_without_cuda(no_cuda):
