@@ -201,7 +201,7 @@ Phases, one JSON object per line:
    many times as the FFBS pair launched; the sampler-health counters;
    the span split of a sweep; a manifest (device name, power limit)
    with the span and metrics JSONL in ``chiprun_out/``, rendered by
-   ``scripts/obs_report.py`` with exit 0; ``device_time`` of ``FWD`` at
+   ``obs_report_torch.py`` with exit 0; ``device_time`` of ``FWD`` at
    the kernels line's shape within a factor of 1.25 of its time there.
    assoc — the time-parallel scans (``kernels/assoc.py``) at the main
    path's shape (256 x T=1024, K=4, ragged), each dispatch entry forced
@@ -437,6 +437,21 @@ Phases, one JSON object per line:
    meanwhile (``time_ms``, ``host_ms``, the warm decode's stages) stops
    them for its length (``quiet``). A ``pool_processes`` line gives
    each task's CPU seconds.
+   tooling — the port's tools on the card's host, started with the pool
+   as two processes beside it (``POOL_NICE``, listed in ``BESIDE``): the
+   static analyzer (``python -m hhmm_tpu_torch.analysis --format json``
+   into ``chiprun_out/analysis.json``) and a host check (``import
+   hhmm_tpu_torch`` succeeds; ``import hhmm_tpu_torch.viz`` raises
+   ``ModuleNotFoundError`` naming matplotlib, or, where matplotlib is
+   there, this process draws one figure of the Gibbs decode into
+   ``chiprun_out/``). After the pool: both exited 0, the analyzer found
+   no unsuppressed error, and ``obs_report_torch.py`` renders the obs
+   phase's manifest with the analyzer's report into
+   ``chiprun_out/obs_report.txt`` (exit 0, its ``analysis`` section
+   CLEAN) — the one part of this phase on this process's path. A
+   ``tooling`` line gives the files scanned, the findings and
+   suppressions by rule, each process's seconds and the report's
+   section titles.
 9. the timeline line (host seconds a group of phases), the kernels line
    (every kernel; the semiring kernels with their K range, their time at
    K=64 and their zoo_wide launches; ``FWD``, ``BWD_SAMPLE`` and
@@ -5327,7 +5342,7 @@ def phase_obs(device, fwd_ms):
     many times as the FFBS pair launched; the sampler-health counters are
     there. The span split of a sweep is emitted. A manifest (device name
     and power limit) is written to ``chiprun_out/`` with the span JSONL
-    and the metrics, and ``scripts/obs_report.py`` renders it (exit 0).
+    and the metrics, and ``obs_report_torch.py`` renders it (exit 0).
     ``device_time`` of ``FWD`` at rows 1-2's shape is held within a factor
     of ``OBS_DEVICE_TIME_RATIO`` of the kernels line's time."""
     x, sign = tayal_batch(N_SERIES, T_FIT, seed=SEED_DATA, device=device)
@@ -5397,12 +5412,12 @@ def phase_obs(device, fwd_ms):
         raise AssertionError(f"obs: sampler-health counters {got}, expected {want}")
     if man["device_kind"] != name or not man["power_limit"]:
         raise AssertionError(f"obs: the manifest's device {man['device_kind']!r} / {man['power_limit']!r}")
-    rep = subprocess.run([sys.executable, str(ROOT / "scripts" / "obs_report.py"), str(path),
+    rep = subprocess.run([sys.executable, str(ROOT / "obs_report_torch.py"), str(path),
                           "--metrics", str(OUT_DIR / "obs_metrics.jsonl")],
                          capture_output=True, text=True, timeout=120)
     (OUT_DIR / "obs_report.txt").write_text(rep.stdout + rep.stderr)
     if rep.returncode != 0 or name not in rep.stdout or "infer.gibbs.sample" not in rep.stdout:
-        raise AssertionError(f"obs: obs_report.py exited {rep.returncode}: {rep.stderr[-500:]}")
+        raise AssertionError(f"obs: obs_report_torch.py exited {rep.returncode}: {rep.stderr[-500:]}")
     ratio = dt.p50_s * 1e3 / fwd_ms
     if not 1 / OBS_DEVICE_TIME_RATIO <= ratio <= OBS_DEVICE_TIME_RATIO:
         raise AssertionError(f"obs: device_time of FWD {dt.p50_s * 1e3:.6f} ms against "
@@ -5502,6 +5517,153 @@ def phase_drivers(started):
         raise AssertionError(f"drivers: {bad or 'not all ran'} (chiprun_out/drivers/)")
     emit("drivers", drivers=rows, seconds=max(r["seconds"] for r in rows.values()))
     return rows
+
+
+# ---------------------------------------------------------------------------
+# the tooling: the port's static analyzer and run report on the card's host
+# ---------------------------------------------------------------------------
+
+# a tool runs as ``python -m <module> ...`` would, at the niceness its
+# first argument gives
+TOOL_LAUNCH = """
+import os, runpy, sys
+os.nice(int(sys.argv.pop(1)))
+module = sys.argv.pop(1)
+sys.argv[0] = module
+runpy.run_module(module, run_name="__main__", alter_sys=True)
+"""
+# the host check: the package imports, its plot library names matplotlib
+# when it is missing
+HOST_CHECK = """
+import json, os, sys
+os.nice(int(sys.argv[1]))
+import hhmm_tpu_torch
+out = {"import_hhmm_tpu_torch": True}
+try:
+    import hhmm_tpu_torch.viz
+    out["viz"] = "imported"
+except ModuleNotFoundError as e:
+    out["viz"] = "missing"
+    out["viz_error"] = {"name": e.name, "message": str(e)}
+print(json.dumps(out))
+"""
+TOOLING_TIMEOUT_S = 300
+
+
+def start_tooling():
+    """Start the analyzer and the host check, each a process of its own
+    beside the pool (at ``POOL_NICE``, listed in ``BESIDE`` while it
+    runs, so that this process's timings stop them), each with a thread
+    that waits for it and takes its seconds; returns ``(processes,
+    {name: future}, the threads' executor, open files)``."""
+    OUT_DIR.mkdir(exist_ok=True)
+    files = {"analysis": open(OUT_DIR / "analysis.json", "w"),
+             "analysis_err": open(OUT_DIR / "analysis.stderr.txt", "w")}
+    cmds = {
+        "analysis": ([sys.executable, "-c", TOOL_LAUNCH, str(POOL_NICE), "hhmm_tpu_torch.analysis",
+                      "--format", "json"], files["analysis"], files["analysis_err"]),
+        "host_check": ([sys.executable, "-c", HOST_CHECK, str(POOL_NICE)], subprocess.PIPE,
+                       subprocess.PIPE),
+    }
+    procs = {}
+    try:
+        with BESIDE["lock"]:
+            for name, (cmd, out, err) in cmds.items():
+                procs[name] = subprocess.Popen(cmd, cwd=ROOT, stdout=out, stderr=err, text=True)
+                BESIDE["pids"].add(procs[name].pid)
+    except BaseException:
+        stop_processes(procs)
+        for f in files.values():
+            f.close()
+        raise
+    t0 = time.perf_counter()
+
+    def wait(name):
+        try:
+            out, err = procs[name].communicate(timeout=TOOLING_TIMEOUT_S)
+        finally:
+            with BESIDE["lock"]:
+                BESIDE["pids"].discard(procs[name].pid)
+        return out, err, time.perf_counter() - t0
+
+    waiters = ThreadPoolExecutor(max_workers=len(procs))
+    return procs, {n: waiters.submit(wait, n) for n in procs}, waiters, files
+
+
+def stop_tooling(started) -> None:
+    procs, _, waiters, files = started
+    stop_processes(procs)
+    waiters.shutdown(wait=True)
+    for f in files.values():
+        f.close()
+
+
+def draw_gibbs_decode(decode) -> str:
+    """One figure of the Gibbs decode (``plot_stateprobability`` of the
+    first series' draws) into ``chiprun_out/``; only where matplotlib is
+    there."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    from hhmm_tpu_torch.viz import plot_stateprobability
+
+    fig = plot_stateprobability(decode["alpha"], decode["gamma"])
+    path = OUT_DIR / "tooling_gibbs_decode.png"
+    fig.savefig(path, dpi=80, bbox_inches="tight")
+    plt.close(fig)
+    return str(path)
+
+
+def phase_tooling(started, decode):
+    """The tooling processes of :func:`start_tooling`, waited for: each
+    exits 0; the analyzer's JSON reports no unsuppressed error; the host
+    imported the package and its plot library raised naming matplotlib
+    (or drew); then ``obs_report_torch.py`` renders the obs phase's
+    manifest with the analyzer's report into ``chiprun_out/
+    obs_report.txt`` (exit 0, the analysis section CLEAN)."""
+    procs, done, _, files = started
+    secs, outs = {}, {}
+    for name in procs:
+        out, err, secs[name] = done[name].result()
+        outs[name] = out
+        if procs[name].returncode != 0:
+            raise AssertionError(f"tooling: {name} exited {procs[name].returncode}: "
+                                 f"{(err or '')[-500:]} (chiprun_out/analysis.stderr.txt)")
+    files["analysis"].close()
+    report = json.loads((OUT_DIR / "analysis.json").read_text())
+    errors = [f for f in report["findings"] if f["severity"] == "error"]
+    if errors or not report["ok"]:
+        raise AssertionError(f"tooling: the analyzer found {errors[:5]}")
+    host = json.loads(outs["host_check"].strip().splitlines()[-1])
+    figure = None
+    if host["viz"] == "missing":
+        if host["viz_error"]["name"] != "matplotlib":
+            raise AssertionError(f"tooling: viz raised for {host['viz_error']}, not matplotlib")
+    else:
+        figure = draw_gibbs_decode(decode)
+    t0 = time.perf_counter()
+    rep = subprocess.run([sys.executable, str(ROOT / "obs_report_torch.py"),
+                          str(OUT_DIR / "obs_manifest.json"), "--analysis",
+                          str(OUT_DIR / "analysis.json")],
+                         capture_output=True, text=True, timeout=120)
+    secs["obs_report"] = time.perf_counter() - t0
+    (OUT_DIR / "obs_report.txt").write_text(rep.stdout + rep.stderr)
+    titles = re.findall(r"^== (.*) ==$", rep.stdout, flags=re.M)
+    if rep.returncode != 0 or "analysis" not in titles or \
+            "CLEAN (zero unsuppressed findings)" not in rep.stdout:
+        raise AssertionError(f"tooling: obs_report_torch.py exited {rep.returncode}: "
+                             f"{rep.stderr[-500:]}")
+    by_rule = {rid: {"findings": r["findings"], "suppressed": r["suppressed"]}
+               for rid, r in sorted(report["rules"].items())
+               if r["findings"] or r["suppressed"]}
+    emit("tooling", files_scanned=report["files_scanned"], rules=len(report["rules"]),
+         findings=len(report["findings"]), suppressed=report["suppressed_count"],
+         by_rule=by_rule, allowlist_entries=report["allowlist_entries"],
+         lock_order=report["extras"]["lock_order"]["verdict"],
+         locks=len(report["extras"]["lock_order"]["locks"]), host=host, figure=figure,
+         seconds=secs, report_sections=titles)
 
 
 # ---------------------------------------------------------------------------
@@ -6501,6 +6663,7 @@ def main() -> int:
         phase_drivers(drivers[0])
 
     started = start_pool(device, start_on)
+    tooling = start_tooling()
     try:
         # main path 3, the zoo's generated quantities: the hard-gate Tayal
         # decode of the Gibbs draws, the same decode of the ChEES draws, and
@@ -6508,6 +6671,8 @@ def main() -> int:
         clock.append(("zoo", time.perf_counter()))
         reset_all()
         dec = phase_decode_smooth(device, qs)
+        # the first series' decode, kept on the host for the tooling figure
+        tooling_decode = {k: dec["out"][k][0].cpu().numpy() for k in ("alpha", "gamma")}
         phase_agreement(device, dec, chees_qs)
         phase_gaussian(device)
         phase_gaussian_k(device)
@@ -6576,8 +6741,11 @@ def main() -> int:
         mh, mh_kept = phase_multinom_hsmm(device)
         clock.append(("pool", time.perf_counter()))
         pooled = phase_pool(started, device, chees_phi, finish_drivers)
+        clock.append(("tooling", time.perf_counter()))
+        phase_tooling(tooling, tooling_decode)
     finally:
         stop_pool(started[0])
+        stop_tooling(tooling)
         for d in drivers:
             if not isinstance(d, BaseException):
                 stop_processes(d[0])

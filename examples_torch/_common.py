@@ -7,8 +7,13 @@ Every driver runs on the CUDA card and raises on a host without one;
 gives small budgets (30 + 30 transitions, one chain, trees to depth 4)
 unless a budget is given explicitly. ``--sampler`` picks NUTS or ChEES
 for the density drivers (:func:`run_sampler` dispatches on the config
-type). Plots are not drawn: the drivers print their tables instead. A
-driver writes a file only where its ``--out`` asks.
+type). The drivers print their tables; the four with diagnostic plots
+(``hmm_main``, ``iohmm_main``, ``hassan_main``, ``tayal_main``) also
+take ``--plots-dir DIR`` and write their PNGs there
+(``hhmm_tpu_torch.viz``). ``--plots-dir`` needs matplotlib: on a host
+without it (the card's machine has none) the driver raises before it
+fits anything, and never quietly draws nothing. A driver writes a file
+only where its ``--out`` or ``--plots-dir`` asks.
 """
 
 from __future__ import annotations
@@ -26,7 +31,9 @@ QUICK = {"warmup": 30, "samples": 30, "chains": 1, "max_treedepth": 4}
 FULL = {"warmup": 300, "samples": 300, "chains": 2, "max_treedepth": 6}
 
 
-def standard_parser(description: str) -> argparse.ArgumentParser:
+def standard_parser(description: str, plots: bool = False) -> argparse.ArgumentParser:
+    """The drivers' shared options; ``plots`` adds ``--plots-dir`` (the
+    drivers that draw)."""
     ap = argparse.ArgumentParser(description=description)
     ap.add_argument("--warmup", type=int, default=None, help="default 300 (--quick: 30)")
     ap.add_argument("--samples", type=int, default=None, help="default 300 (--quick: 30)")
@@ -44,17 +51,29 @@ def standard_parser(description: str) -> argparse.ArgumentParser:
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (the kernels' plain versions); default the CUDA card")
     ap.add_argument("--quick", action="store_true", help="small budgets for smoke runs")
+    if plots:
+        ap.add_argument(
+            "--plots-dir",
+            default=None,
+            help="write diagnostic PNGs here (needs matplotlib; default: no plots)",
+        )
     return ap
 
 
 def configure(args):
-    """Resolve the budgets (explicit values, else ``--quick``'s, else the
-    full ones), set ``args.device`` (``"cpu"`` with ``--cpu``, else None:
+    """Check that ``--plots-dir`` can draw (matplotlib, the Agg backend;
+    ``ModuleNotFoundError`` without it), resolve the budgets (explicit
+    values, else ``--quick``'s, else the full ones), set ``args.device`` (``"cpu"`` with ``--cpu``, else None:
     the card) and return a SamplerConfig or ChEESConfig (per
     ``--sampler``; ``fit_batched`` and :func:`run_sampler` dispatch on
     the type)."""
     from hhmm_tpu_torch.infer import ChEESConfig, SamplerConfig
 
+    if getattr(args, "plots_dir", None):
+        # fail before the fit, not after it: no matplotlib means no plots
+        import matplotlib
+
+        matplotlib.use("Agg")
     base = QUICK if args.quick else FULL
     for k, v in base.items():
         if getattr(args, k) is None:
@@ -109,3 +128,16 @@ def print_summary(samples: dict, top: int = 12) -> None:
                 f"{np.atleast_1d(st['n_eff'])[i]:>8.0f}{np.atleast_1d(st['rhat'])[i]:>7.3f}"
             )
             shown += 1
+
+
+def save_figure(fig, plots_dir: str | None, name: str) -> None:
+    """Write ``fig`` to ``plots_dir/name`` (a PNG) and close it."""
+    if plots_dir is None:
+        return
+    import matplotlib.pyplot as plt
+
+    os.makedirs(plots_dir, exist_ok=True)
+    path = os.path.join(plots_dir, name)
+    fig.savefig(path, dpi=110, bbox_inches="tight")
+    plt.close(fig)
+    print(f"wrote {path}")

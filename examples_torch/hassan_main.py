@@ -16,11 +16,11 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import numpy as np
 
-from _common import configure, standard_parser
+from _common import configure, save_figure, standard_parser
 
 
 def main() -> None:
-    ap = standard_parser(__doc__)
+    ap = standard_parser(__doc__, plots=True)
     ap.add_argument("--csv", default=None, help="OHLC CSV (open/high/low/close columns)")
     ap.add_argument("--T", type=int, default=160, help="simulated days when no --csv")
     ap.add_argument("--train-frac", type=float, default=0.75)
@@ -46,6 +46,13 @@ def main() -> None:
     print("out-of-sample errors (the `hassan2005/main.Rmd:920-933` table):")
     for k, v in res.errors.items():
         print(f"  {k:>5}: {v:.5g}")
+
+    if args.plots_dir:
+        from hhmm_tpu_torch.viz.plots import plot_seqforecast
+
+        bands = np.quantile(res.forecasts, [0.1, 0.5, 0.9], axis=1)  # [3, S]
+        fig = plot_seqforecast(np.asarray(ohlc[:train_len, 3]), bands)
+        save_figure(fig, args.plots_dir, "hassan_forecast.png")
 
 
 if __name__ == "__main__":

@@ -7,6 +7,7 @@ tables.
   python examples_torch/hmm_main.py --variant multinom   # K=3, L=5
   python examples_torch/hmm_main.py --variant semisup    # K=4, L=9 Tayal-shaped
   python examples_torch/hmm_main.py --cpu --quick        # on the CPU, small budget
+  python examples_torch/hmm_main.py --cpu --quick --plots-dir plots   # + PNGs
 """
 
 from __future__ import annotations
@@ -18,11 +19,11 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import numpy as np
 
-from _common import configure, host, print_summary, run_sampler, standard_parser
+from _common import configure, host, print_summary, run_sampler, save_figure, standard_parser
 
 
 def main() -> None:
-    ap = standard_parser(__doc__)
+    ap = standard_parser(__doc__, plots=True)
     ap.add_argument("--variant", choices=("gaussian", "multinom", "semisup"), default="gaussian")
     ap.add_argument("--T", type=int, default=500)
     args = ap.parse_args()
@@ -86,6 +87,18 @@ def main() -> None:
     print("filtered-state confusion (rows=true):")
     print(confusion_matrix(z_true, z_hat, model.K))
     print(f"filtered accuracy: {(z_hat == z_true).mean():.3f}")
+
+    if args.plots_dir:
+        from hhmm_tpu_torch.viz.plots import plot_statepath, plot_stateprobability
+
+        fig = plot_stateprobability(
+            out["alpha"].reshape(-1, *out["alpha"].shape[2:]),
+            out["gamma"].reshape(-1, *out["gamma"].shape[2:]),
+            z=z_true,
+        )
+        save_figure(fig, args.plots_dir, f"hmm_{args.variant}_stateprob.png")
+        fig = plot_statepath(out["zstar"].reshape(-1, out["zstar"].shape[-1]), z=z_true)
+        save_figure(fig, args.plots_dir, f"hmm_{args.variant}_statepath.png")
 
 
 if __name__ == "__main__":

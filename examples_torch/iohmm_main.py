@@ -15,11 +15,11 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import numpy as np
 
-from _common import configure, host, print_summary, run_sampler, standard_parser
+from _common import configure, host, print_summary, run_sampler, save_figure, standard_parser
 
 
 def main() -> None:
-    ap = standard_parser(__doc__)
+    ap = standard_parser(__doc__, plots=True)
     ap.add_argument("--variant", choices=("reg", "hmix"), default="reg")
     ap.add_argument("--T", type=int, default=300)
     args = ap.parse_args()
@@ -71,6 +71,12 @@ def main() -> None:
     print("filtered-state confusion (rows=true):")
     print(confusion_matrix(z_true, z_hat, model.K))
     print(f"filtered accuracy: {(z_hat == z_true).mean():.3f}")
+
+    if args.plots_dir:
+        from hhmm_tpu_torch.viz.plots import plot_inputoutput
+
+        fig = plot_inputoutput(sim["x"], sim["u"], z=z_true)
+        save_figure(fig, args.plots_dir, f"iohmm_{args.variant}_inputoutput.png")
 
 
 if __name__ == "__main__":

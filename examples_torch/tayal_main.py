@@ -17,11 +17,11 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import numpy as np
 
-from _common import configure, host, standard_parser
+from _common import configure, host, save_figure, standard_parser
 
 
 def main() -> None:
-    ap = standard_parser(__doc__)
+    ap = standard_parser(__doc__, plots=True)
     ap.add_argument("--ticks-dir", default=None)
     ap.add_argument("--symbol", default=None, help="file-name filter for --ticks-dir")
     ap.add_argument("--train-days", type=int, default=5)
@@ -62,8 +62,21 @@ def main() -> None:
         row = ", ".join(f"{k}={v:.4g}" for k, v in stats.items())
         print(f"  {label}: {row}")
     tr = res.trades[args.lag]
+    oos_price = price[ins_end + 1 :]
     print(f"out-of-sample trading (lag={args.lag}): {len(tr)} trades, "
           f"total {100 * np.sum(tr.ret):.3f}% vs buy&hold {100 * np.sum(res.bnh):.3f}%")
+
+    if args.plots_dir:
+        from hhmm_tpu_torch.apps.tayal.features import expand_to_ticks
+        from hhmm_tpu_torch.viz.state_plots import plot_topstate_seq, plot_topstate_trading
+
+        tick_top = expand_to_ticks(res.leg_topstate, res.zig, len(price))
+        fig = plot_topstate_seq(oos_price, tick_top[ins_end + 1 :])
+        save_figure(fig, args.plots_dir, "tayal_topstate_seq.png")
+        fig = plot_topstate_trading(
+            oos_price, tick_top[ins_end + 1 :], {f"lag {args.lag}": tr}
+        )
+        save_figure(fig, args.plots_dir, "tayal_trading.png")
 
 
 if __name__ == "__main__":

@@ -44,10 +44,24 @@ JAX package so each counterpart is easy to find:
 
 The example drivers live beside the package, in ``examples_torch/``.
 
+- ``analysis`` the port's static analyzer (stdlib only: ``python -m
+  hhmm_tpu_torch.analysis``)
+- ``viz``      the plot library (needs matplotlib; never imported here)
+
+The example drivers live beside the package, in ``examples_torch/``.
+
 Entry points take ``device=None``, meaning CUDA, and raise on a host
-without a card (see ``_device.resolve_device``).
+without a card (see ``_device.resolve_device``). Importing the package
+itself imports nothing: ``resolve_device`` (and with it torch) loads at
+first use, so the analyzer's CLI starts without torch.
 """
 
-from hhmm_tpu_torch._device import resolve_device
-
 __all__ = ["resolve_device"]
+
+
+def __getattr__(name):
+    if name == "resolve_device":
+        from hhmm_tpu_torch._device import resolve_device
+
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

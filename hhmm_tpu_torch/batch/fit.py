@@ -73,15 +73,9 @@ from hhmm_tpu_torch.obs import metrics as obs_metrics
 from hhmm_tpu_torch.obs.trace import span
 from hhmm_tpu_torch.plan import Plan, WorkloadShape, make_plan, plan_for_mesh
 from hhmm_tpu_torch.robust import faults
-from hhmm_tpu_torch.robust.retry import RetryPolicy, escalate, rejitter
+from hhmm_tpu_torch.robust.retry import RetryPolicy, derive_seed, escalate, rejitter
 
 __all__ = ["derive_seed", "fit_batched", "init_from_snapshot"]
-
-
-def derive_seed(*parts: Any) -> int:
-    """A 60-bit generator seed from a tuple of ints (a digest, so nearby
-    tuples give unrelated streams)."""
-    return int(digest_key(*[int(p) for p in parts])[:15], 16)
 
 
 def _model_fingerprint(model) -> Dict[str, Any]:

@@ -148,7 +148,7 @@ class MaskedSimplex(Bijector):
         vals, ldj = self._inner.forward(x)
         lead = vals.shape[:-1]
         y = torch.zeros(lead + self.shape, dtype=vals.dtype, device=vals.device)
-        idx = torch.tensor(self._idx, device=vals.device)
+        idx = torch.tensor(self._idx, dtype=torch.long, device=vals.device)
         return y.index_copy(-1, idx, vals), ldj
 
     def inverse(self, y):

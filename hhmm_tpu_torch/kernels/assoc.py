@@ -286,7 +286,7 @@ def _ffbs_core(log_pi, log_A, log_obs, mask, u, gate_key, state_key):
     # the padded tail repeats the last valid state
     t_last = mask.sum(-1).long() - 1
     last = z.gather(1, torch.remainder(t_last, T)[:, None])
-    return torch.where(torch.arange(T, device=z.device) <= t_last[:, None], z, last), ll
+    return torch.where(torch.arange(T, dtype=torch.long, device=z.device) <= t_last[:, None], z, last), ll
 
 
 # ---- public entries ----

@@ -93,7 +93,7 @@ def build(sources: Iterable[Path]) -> Dict[str, dict]:
             proc = subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
             )
-            running.append((src, out, tmp, proc, time.perf_counter()))
+            running.append((src, out, tmp, proc, time.perf_counter()))  # lint: ok raw-clock -- the build's seconds go to obs/telemetry.py (note_build), the manifest's compile stanza
         errors = []
         for src, out, tmp, proc, t0 in running:
             log, _ = proc.communicate(timeout=_NVCC_TIMEOUT_S)
@@ -101,7 +101,7 @@ def build(sources: Iterable[Path]) -> Dict[str, dict]:
                 errors.append(f"{src.name} (rc={proc.returncode}):\n{log}")
                 continue
             os.replace(tmp, out)
-            seconds = time.perf_counter() - t0
+            seconds = time.perf_counter() - t0  # lint: ok raw-clock -- reported by note_build below
             telemetry.note_build(src.name, seconds)
             report[src.name] = {"seconds": seconds, "log": log, "cached": False}
         if errors:
@@ -142,8 +142,10 @@ class CudaKernel:
         """The bound C entry point, building the library on first use."""
         if self._fn is None:
             build([self.source])
+            # lint: ok raw-clock -- the load's seconds go to obs/telemetry.py (note_load)
             t0 = time.perf_counter()
             lib = ctypes.CDLL(str(_lib_path(self.source)))
+            # lint: ok raw-clock -- reported by note_load on this line
             telemetry.note_load(self.source.name, time.perf_counter() - t0)
             fn = getattr(lib, self.symbol)
             fn.argtypes = self.argtypes

@@ -361,7 +361,7 @@ def bwd_sample_plain(A_t, mask_t, alpha_t, u_t, gate_t=None, sk_t=None):
     """Plain version of the ``BWD_SAMPLE`` kernel on the lane layout:
     ``z [T, N]`` int32 (no tail repeat; the wrapper applies it)."""
     T, K, N = alpha_t.shape
-    lane = torch.arange(N, device=alpha_t.device)
+    lane = torch.arange(N, dtype=torch.long, device=alpha_t.device)
     z = torch.empty((T, N), dtype=torch.int32, device=alpha_t.device)
     zn = _invcdf(alpha_t[T - 1], u_t[T - 1])
     z[T - 1] = zn
@@ -448,7 +448,7 @@ def _pack(ptr: torch.Tensor) -> torch.Tensor:
 
 def _identity_map(K: int, N: int, device=None) -> torch.Tensor:
     """The packed identity backpointer map ``[W, N]``: state j points at j."""
-    return _pack(torch.arange(K, device=device)[:, None].expand(K, N))
+    return _pack(torch.arange(K, dtype=torch.long, device=device)[:, None].expand(K, N))
 
 
 def _map_rows(back_t: torch.Tensor) -> torch.Tensor:
@@ -462,7 +462,7 @@ def unpack_back(back_t: torch.Tensor, K: int) -> torch.Tensor:
     predecessor of state j at step t)."""
     B = _map_bits(K)
     P = 32 // B
-    j = torch.arange(K, device=back_t.device)
+    j = torch.arange(K, dtype=torch.long, device=back_t.device)
     words = _map_rows(back_t)[:, j // P]  # [T, K, N]
     shifts = (B * (j % P)).to(torch.int32)
     return ((words >> shifts[None, :, None]) & (2**B - 1)).long()
@@ -766,7 +766,7 @@ def semiring_ffbs(
     # numpy's for an all-masked lane, as in the JAX package)
     t_last = mask.sum(-1).long() - 1
     last = z.gather(1, torch.remainder(t_last, T)[:, None])
-    steps = torch.arange(T, device=z.device)
+    steps = torch.arange(T, dtype=torch.long, device=z.device)
     z = torch.where(steps[None, :] <= t_last[:, None], z, last)
     return z, ll
 

@@ -138,7 +138,7 @@ def _logp_grad(q, x, gate, mask, onehot, ed, eu):
         [zero, zero, one, zero],
     ]
     pe = [ed * p11 + (1.0 - ed), one, eu * (1.0 - p11) + (1.0 - eu), one]
-    lane = torch.arange(N, device=q.device)
+    lane = torch.arange(N, dtype=torch.long, device=q.device)
     obs = phi[:, x, lane]  # [K, T, N]: phi[k, x_t, n]
 
     def Ae(t, i, j):
@@ -210,13 +210,13 @@ def traj_plain(q_t, p_t, g_t, im_t, x_t, sign_t, mask_t, eps, n_steps, cap: int,
     ``(q1 [35, N], p1 [35, N], logp1 [N], g1 [35, N])`` after
     ``min(n_steps, cap)`` leapfrogs (``logp1`` is 0 after none)."""
     D, N = q_t.shape
-    lane_b = torch.arange(N, device=q_t.device) // C
+    lane_b = torch.arange(N, dtype=torch.long, device=q_t.device) // C
     x = x_t[:, lane_b].long()  # [T, N]
     sign = sign_t[:, lane_b]
     mask = mask_t[:, lane_b]
     ss = torch.tensor(_STATE_SIGN, dtype=sign.dtype, device=sign.device)
     gate = sign[:, None, :] == ss[None, :, None]  # [T, K(j), N]
-    onehot = (x[:, None, :] == torch.arange(L, device=x.device)[None, :, None]).to(q_t.dtype)
+    onehot = (x[:, None, :] == torch.arange(L, dtype=x.dtype, device=x.device)[None, :, None]).to(q_t.dtype)
     ed = (sign[0] == 1).to(q_t.dtype)
     eu = 1.0 - ed
     im = im_t[:, lane_b]
@@ -224,6 +224,7 @@ def traj_plain(q_t, p_t, g_t, im_t, x_t, sign_t, mask_t, eps, n_steps, cap: int,
     hs = 0.5 * eps
     q, p, g = q_t.clone(), p_t.clone(), g_t.clone()
     logp = torch.zeros((N,), dtype=q_t.dtype, device=q_t.device)
+    # lint: ok hot-path-purity -- the plain version's loop bound is a host int: on the CPU it reads a CPU tensor, and on the card it runs only as the reference the kernel is held against
     for _ in range(min(int(n_steps.reshape(())), cap)):
         p = p + hs * g
         q = q + (eps * im) * p

@@ -125,6 +125,7 @@ _PLAN_TLS = threading.local()
 
 # device kind by device type: the DB keys its rows by the card's name
 _DEVICE_KINDS: Dict[str, Optional[str]] = {}
+_DEVICE_KINDS_LOCK = threading.Lock()
 
 
 @contextlib.contextmanager
@@ -171,16 +172,18 @@ def _local_device_type() -> str:
 def _device_kind(device_type: str) -> Optional[str]:
     """The DB's device kind for a device type: ``"cpu"``, or the card's
     name (``torch.cuda.get_device_name(0)``, as ``obs/manifest.py``
-    stamps rows), None without a card. Cached per process."""
-    if device_type not in _DEVICE_KINDS:
-        if device_type == "cpu":
-            kind = "cpu"
-        elif device_type == "cuda" and torch.cuda.is_available():
-            kind = torch.cuda.get_device_name(0)
-        else:
-            kind = None
-        _DEVICE_KINDS[device_type] = kind
-    return _DEVICE_KINDS[device_type]
+    stamps rows), None without a card. Cached per process (under a lock:
+    serving threads resolve kinds concurrently)."""
+    with _DEVICE_KINDS_LOCK:
+        if device_type not in _DEVICE_KINDS:
+            if device_type == "cpu":
+                kind = "cpu"
+            elif device_type == "cuda" and torch.cuda.is_available():
+                kind = torch.cuda.get_device_name(0)
+            else:
+                kind = None
+            _DEVICE_KINDS[device_type] = kind
+        return _DEVICE_KINDS[device_type]
 
 
 def _default(allowed) -> str:

@@ -30,6 +30,7 @@ draw.
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, Tuple
 
 import numpy as np
@@ -49,6 +50,7 @@ __all__ = [
 
 
 _STRUCTURE: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+_STRUCTURE_LOCK = threading.Lock()
 
 
 def _structure(K: int, Dmax: int, like: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -58,15 +60,16 @@ def _structure(K: int, Dmax: int, like: torch.Tensor) -> Tuple[torch.Tensor, tor
     ``MASK_NEG`` elsewhere), and whether row ``(k, c)`` is an entry row
     (``c == 0``)."""
     key = (K, Dmax, like.device, like.dtype)
-    if key not in _STRUCTURE:
-        c = np.arange(Dmax)
-        cont = ((c[:, None] == c[None, :] + 1)[None, :, None, :]
-                & np.eye(K, dtype=bool)[:, None, :, None])
-        rest = np.where(cont, 0.0, MASK_NEG).reshape(K, Dmax, K * Dmax)
-        entry = np.broadcast_to((c == 0)[None, :, None], (K, Dmax, 1)).copy()
-        _STRUCTURE[key] = (torch.as_tensor(rest, dtype=like.dtype, device=like.device),
-                           torch.as_tensor(entry, device=like.device))
-    return _STRUCTURE[key]
+    with _STRUCTURE_LOCK:  # serving threads expand concurrently
+        if key not in _STRUCTURE:
+            c = np.arange(Dmax)
+            cont = ((c[:, None] == c[None, :] + 1)[None, :, None, :]
+                    & np.eye(K, dtype=bool)[:, None, :, None])
+            rest = np.where(cont, 0.0, MASK_NEG).reshape(K, Dmax, K * Dmax)
+            entry = np.broadcast_to((c == 0)[None, :, None], (K, Dmax, 1)).copy()
+            _STRUCTURE[key] = (torch.as_tensor(rest, dtype=like.dtype, device=like.device),
+                               torch.as_tensor(entry, device=like.device))
+        return _STRUCTURE[key]
 
 
 def expand_transition(log_A: torch.Tensor, log_dur: torch.Tensor) -> torch.Tensor:

@@ -80,7 +80,7 @@ def backward_sample(
     if mask is not None:
         t_last = mask.sum(-1).long() - 1
         last = z.gather(-1, t_last[..., None])
-        z = torch.where(torch.arange(T, device=z.device) <= t_last[..., None], z, last)
+        z = torch.where(torch.arange(T, dtype=torch.long, device=z.device) <= t_last[..., None], z, last)
     return z
 
 
@@ -144,7 +144,7 @@ def ffbs_invcdf_reference(
         z[..., t] = zn
     t_last = mask.sum(-1).long() - 1
     last = z.gather(-1, torch.remainder(t_last, T)[..., None])
-    steps = torch.arange(T, device=z.device)
+    steps = torch.arange(T, dtype=torch.long, device=z.device)
     return torch.where(steps <= t_last[..., None], z, last), ll
 
 

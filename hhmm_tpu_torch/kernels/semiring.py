@@ -67,7 +67,7 @@ def compose_maps(Fm: torch.Tensor, Gm: torch.Tensor) -> torch.Tensor:
 def identity_map(K: int, device=None) -> torch.Tensor:
     """Identity of map composition, ``arange(K)`` (int64; the masked
     step's backpointer)."""
-    return torch.arange(K, device=device)
+    return torch.arange(K, dtype=torch.long, device=device)
 
 
 def step_operators(

@@ -26,7 +26,7 @@ def viterbi(
     T, K = log_obs.shape[-2:]
     tv = time_varying(log_A, log_obs)
     delta = log_pi + log_obs[..., 0, :]
-    identity = torch.arange(K, device=log_obs.device)
+    identity = torch.arange(K, dtype=torch.long, device=log_obs.device)
     backs = []
     for t in range(1, T):
         lA = log_A[..., t - 1, :, :] if tv else log_A

@@ -87,7 +87,7 @@ def _alloc(T: int):
 def _to_zigzag(bufs, n: int):
     # imported here: apps.tayal.features imports this module for its fast
     # path, and the return type lives beside the NumPy engine
-    from hhmm_tpu_torch.apps.tayal.features import ZigZag
+    from hhmm_tpu_torch.apps.tayal.features import ZigZag  # lint: ok layer-import -- deliberate lazy cycle-breaker: apps.tayal.features imports native for the fast path; the return type lives beside the NumPy engine
 
     lp, st, en, sa, f0, f1, f2, ft, tr = bufs
     return ZigZag(

@@ -437,7 +437,7 @@ def decode_kernel_fns() -> Dict[str, Dict[str, Any]]:
     this module sits below ``kernels/`` in the import graph."""
     import torch
 
-    from hhmm_tpu_torch.kernels.dispatch import (  # deliberate lazy import: obs sits below kernels
+    from hhmm_tpu_torch.kernels.dispatch import (  # lint: ok layer-import -- deliberate lazy cycle-breaker: obs sits below kernels (dispatch imports obs.trace/profile); this driver-only helper times the dispatch entries
         ffbs_dispatch,
         forward_filter_dispatch,
         viterbi_dispatch,

@@ -33,12 +33,14 @@ CUDA error raises. :class:`RetryPolicy` keeps ``device_retries`` and
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
 import random
 import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional
 
-__all__ = ["RetryPolicy", "BackoffPolicy", "retry_call", "escalate", "rejitter"]
+__all__ = ["RetryPolicy", "BackoffPolicy", "retry_call", "derive_seed", "escalate", "rejitter"]
 
 # salt folded in before the attempt, so a retry seed never equals an
 # ordinary derive_seed(seed, i) series derivation
@@ -71,12 +73,23 @@ class RetryPolicy:
         return self.backoff_base_s * (attempt + 1)
 
 
+def derive_seed(*parts: Any) -> int:
+    """A 60-bit generator seed from a tuple of ints (a digest, so nearby
+    tuples give unrelated streams): the first 15 hex digits of a SHA-256
+    over each part's JSON text, the bytes ``batch.cache.digest_key``
+    hashes for ints. It lives here, below ``batch/``, so that
+    :func:`rejitter` needs no import from the layer that calls it;
+    ``batch.fit`` re-exports it."""
+    h = hashlib.sha256()
+    for p in parts:
+        h.update(json.dumps(int(p)).encode())
+    return int(h.hexdigest()[:15], 16)
+
+
 def rejitter(seed: int, attempt: int) -> int:
     """Deterministic retry seed of ``seed`` for healing ``attempt``:
     ``derive_seed(seed, salt, attempt)`` (the JAX ``rejitter`` folds the
     same salt and the attempt into a key)."""
-    from hhmm_tpu_torch.batch.fit import derive_seed
-
     return derive_seed(seed, _SALT, attempt)
 
 

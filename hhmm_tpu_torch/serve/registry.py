@@ -432,9 +432,9 @@ class SnapshotRegistry:
             # read-modify-write IS the invariant being protected, both
             # files are tiny, and the archive write above (the slow
             # I/O) already happened outside
-            aliases = self._load_aliases()
+            aliases = self._load_aliases()  # lint: ok held-lock-escape -- the aliases read-modify-write must be atomic; tiny JSON, slow npz I/O stays outside
             aliases[alias_key] = versioned
-            atomic_write_text(
+            atomic_write_text(  # lint: ok held-lock-escape -- same critical section: the repoint must pair with the read above
                 self._aliases_path(),
                 json.dumps(aliases, sort_keys=True, indent=1) + "\n",
             )

@@ -45,7 +45,7 @@ def _run(driver, args, capsys):
 
 def test_every_driver_compiles():
     scripts = sorted(f for f in os.listdir(EXAMPLES) if f.endswith(".py"))
-    assert set(DRIVERS) | {"_common.py"} == set(scripts)
+    assert set(DRIVERS) | {"_common.py", "replication_figures.py"} == set(scripts)
     for f in scripts:
         py_compile.compile(os.path.join(EXAMPLES, f), doraise=True)
 

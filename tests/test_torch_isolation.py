@@ -9,7 +9,11 @@ rules:
   than running on the CPU;
 - a CUDA kernel request on a host without CUDA raises and never falls
   back to the plain version; importing the package builds and loads
-  nothing.
+  nothing;
+- the package and every subpackage but ``viz`` import on a host without
+  matplotlib (the card's machine has none); ``viz`` then raises
+  ``ModuleNotFoundError`` naming matplotlib, and a driver given
+  ``--plots-dir`` raises before it fits anything.
 """
 
 import ast
@@ -92,6 +96,8 @@ PORT_FILES = sorted((REPO / "hhmm_tpu_torch").rglob("*.py")) + sorted(
     (REPO / "examples_torch").glob("*.py")) + [
     REPO / "chip_smoke.py",
     REPO / "bench_kernel_pair.py",
+    REPO / "lint_torch.py",
+    REPO / "obs_report_torch.py",
 ]
 FORBIDDEN = {"jax", "jaxlib", "hhmm_tpu"}
 
@@ -199,6 +205,22 @@ def test_port_file_list_is_complete():
         "examples_torch/jangmin_main.py",
         "examples_torch/tayal_main.py",
         "examples_torch/tayal_strategy.py",
+        "examples_torch/replication_figures.py",
+        "hhmm_tpu_torch/analysis/__init__.py",
+        "hhmm_tpu_torch/analysis/__main__.py",
+        "hhmm_tpu_torch/analysis/engine.py",
+        "hhmm_tpu_torch/analysis/astutil.py",
+        "hhmm_tpu_torch/analysis/legacy.py",
+        "hhmm_tpu_torch/analysis/concurrency.py",
+        "hhmm_tpu_torch/analysis/layering.py",
+        "hhmm_tpu_torch/analysis/prng.py",
+        "hhmm_tpu_torch/analysis/purity.py",
+        "hhmm_tpu_torch/analysis/dtype.py",
+        "hhmm_tpu_torch/viz/__init__.py",
+        "hhmm_tpu_torch/viz/plots.py",
+        "hhmm_tpu_torch/viz/state_plots.py",
+        "lint_torch.py",
+        "obs_report_torch.py",
     ):
         assert must in names
 
@@ -613,3 +635,90 @@ def test_import_builds_no_native_library():
         "assert n._handle is None and not n._tried\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO, timeout=120)
+
+
+# every subpackage of the port but viz, imported with matplotlib blocked
+# a host without matplotlib: an import of it (or of a submodule) raises
+# ModuleNotFoundError naming matplotlib, as on a machine that lacks it
+_BLOCK_MATPLOTLIB = """
+import sys
+
+
+class _NoMatplotlib:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] == "matplotlib":
+            raise ModuleNotFoundError("No module named 'matplotlib'", name="matplotlib")
+        return None
+
+
+sys.meta_path.insert(0, _NoMatplotlib())
+"""
+
+_NO_MATPLOTLIB = _BLOCK_MATPLOTLIB + """
+import hhmm_tpu_torch
+import hhmm_tpu_torch.adapt, hhmm_tpu_torch.analysis, hhmm_tpu_torch.apps.hassan
+import hhmm_tpu_torch.apps.jangmin, hhmm_tpu_torch.apps.tayal, hhmm_tpu_torch.batch
+import hhmm_tpu_torch.convert, hhmm_tpu_torch.core, hhmm_tpu_torch.hhmm, hhmm_tpu_torch.infer
+import hhmm_tpu_torch.kernels, hhmm_tpu_torch.maint, hhmm_tpu_torch.models, hhmm_tpu_torch.native
+import hhmm_tpu_torch.obs, hhmm_tpu_torch.pipeline, hhmm_tpu_torch.plan, hhmm_tpu_torch.robust
+import hhmm_tpu_torch.serve, hhmm_tpu_torch.sim
+try:
+    import hhmm_tpu_torch.viz
+except ModuleNotFoundError as e:
+    assert e.name == "matplotlib", e.name
+    print("viz raised for", e.name)
+else:
+    raise AssertionError("hhmm_tpu_torch.viz imported without matplotlib")
+"""
+
+
+def test_package_imports_without_matplotlib_and_viz_names_it():
+    import subprocess
+    import sys
+
+    proc = subprocess.run([sys.executable, "-c", _NO_MATPLOTLIB], capture_output=True, text=True,
+                          cwd=REPO, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "viz raised for matplotlib" in proc.stdout
+
+
+def test_import_hhmm_tpu_torch_imports_neither_torch_nor_matplotlib():
+    import subprocess
+    import sys
+
+    code = ("import sys, hhmm_tpu_torch\n"
+            "assert not {'torch', 'numpy', 'matplotlib'} & set(sys.modules), sorted(sys.modules)\n"
+            "assert hhmm_tpu_torch.resolve_device('cpu').type == 'cpu'\n")
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO, timeout=120)
+
+
+@pytest.mark.parametrize("driver", ["hmm_main.py", "iohmm_main.py", "hassan_main.py", "tayal_main.py"])
+def test_plots_dir_raises_without_matplotlib(driver, tmp_path):
+    """A driver given ``--plots-dir`` on a host without matplotlib fails
+    before its fit (no table printed) and writes nothing: it never
+    quietly draws nothing."""
+    import subprocess
+    import sys
+
+    code = _BLOCK_MATPLOTLIB + (
+        "import runpy\n"
+        "sys.argv = sys.argv[1:]\n"
+        "runpy.run_path(sys.argv[0], run_name='__main__')\n"
+    )
+    plots = tmp_path / "plots"
+    proc = subprocess.run(
+        [sys.executable, "-c", code, str(REPO / "examples_torch" / driver), "--cpu", "--quick",
+         "--plots-dir", str(plots)], capture_output=True, text=True, cwd=REPO, timeout=300)
+    assert proc.returncode != 0
+    assert "ModuleNotFoundError" in proc.stderr and "matplotlib" in proc.stderr
+    assert "divergence rate" not in proc.stdout and not plots.exists()
+
+
+def test_only_the_plotting_drivers_take_plots_dir():
+    import subprocess
+    import sys
+
+    for driver in ("hhmm_main.py", "jangmin_main.py", "tayal_strategy.py", "hassan_replication.py"):
+        proc = subprocess.run([sys.executable, str(REPO / "examples_torch" / driver), "--help"],
+                              capture_output=True, text=True, cwd=REPO, timeout=120)
+        assert proc.returncode == 0 and "--plots-dir" not in proc.stdout, driver
